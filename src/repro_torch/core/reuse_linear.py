@@ -1,0 +1,156 @@
+"""reuse_linear — one reuse site: O_c = O_p + Δ·W (paper Eqns. 2-4).
+
+Caches start at prev_q = 0, prev_out = 0, so the first evaluation is the
+ordinary quantized GEMM and every later one telescopes:
+O_t = Σ_{i<=t} Δ_i · W = dequant(q_t) · W (to f32 rounding).
+
+The cache entry is updated IN PLACE (prev_q, prev_out, sim_ema, steps, the
+ctrl occupancy and the sensor counters), so the stacked per-layer cache needs
+no copy back; the function returns the same entry for symmetry with the
+reference.
+
+kernelMode: `mode=None` reads the layer's lane of the host mirror
+(`cache["mode_host"]`, kept equal to `ctrl["mode_id"]` by the engine's host
+passes) instead of branching on the device lane, which would cost one
+device→host sync per site per layer. A string mode pins the branch.
+
+`impl`: "cuda" — the Hopper kernels (their plain twins for CPU tensors);
+"torch" — the plain versions on any device (the reference's XLA-tier twin).
+On both, quantize → delta → tile-mask is one fused pass, and "auto" sites run
+the masked block-skip kernel; a site pinned to "ragged" runs the compacted
+walk.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.reuse_cache import ReuseSiteSpec, resolve_exec_path
+from repro_torch.core.similarity import ema_update, row_code_similarity
+from repro_torch.kernels import ops
+from repro_torch.quant import dequantize_int8, quantize_int8
+from repro_torch.sensor.counters import update_on_basic, update_on_reuse
+
+
+class ReuseStats(NamedTuple):
+    similarity: torch.Tensor     # code-level similarity this call
+    skip_fraction: torch.Tensor  # fraction of weight tiles skipped this call
+
+
+def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float):
+    """ReuseOFF: the plain quantized GEMM, with the cache refreshed."""
+    m, k = xm.shape
+    n = w.shape[-1]
+    cur_q = quantize_int8(xm, cache["scale"])
+    xq = dequantize_int8(cur_q, cache["scale"], dtype=xm.dtype)
+    # the basic-mode GEMM sits outside any reuse kernel; the product keeps
+    # the reference's f32 result (preferred_element_type=f32)
+    out = xq.float() @ w.float()
+    row_sim = row_code_similarity(cur_q, cache["prev_q"])
+    cache["prev_q"].copy_(cur_q)
+    cache["prev_out"].copy_(out)
+    cache["sim_ema"].copy_(ema_update(cache["sim_ema"], row_sim, ema_decay))
+    cache["steps"].add_(1)
+    if "sensor" in cache:
+        update_on_basic(
+            cache["sensor"], row_sim=row_sim, m=m, k=k, n=n,
+            gn=-(-n // spec.block_n), block_m=spec.block_m,
+            block_k=spec.block_k, w_itemsize=w.element_size(),
+        )
+    stats = ReuseStats(similarity=row_sim.mean(),
+                       skip_fraction=torch.zeros((), device=xm.device))
+    return out, stats
+
+
+def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str, ema_decay: float):
+    """ReuseON: delta-encode against the previous evaluation and run the ΔW
+    GEMM on the spec's execution path."""
+    n = w.shape[-1]
+    cur_q, delta, mask = ops.delta_quant_fused(
+        xm, cache["prev_q"], cache["scale"],
+        block_m=spec.block_m, block_k=spec.block_k, delta_dtype=w.dtype,
+        impl=impl,
+    )
+    path = resolve_exec_path(spec, impl)
+    gm, gk = mask.shape
+    gn = -(-n // spec.block_n)
+    sel = dma_issued = grid_steps = overflow = None
+    if path == "ragged":
+        idx, counts = ops.compact_rows(mask)
+        out = ops.reuse_matmul_ragged(
+            delta, w, cache["prev_out"], mask,
+            block_m=spec.block_m, block_n=spec.block_n, block_k=spec.block_k,
+            impl=impl, compacted=(idx, counts),
+        )
+        dma_issued = ops.ragged_dma_tiles(counts, gn=gn)
+        grid_steps = ops.ragged_grid_steps(
+            counts, gm=gm, gn=gn, gk=gk, max_active_k=spec.max_active_k)
+        overflow = ops.budget_overflow(
+            counts, gk=gk, max_active_k=spec.max_active_k)
+    elif path == "kernel":
+        sel = ops.skip_sel(mask)
+        out = ops.reuse_matmul(
+            delta, w, cache["prev_out"], mask,
+            block_m=spec.block_m, block_n=spec.block_n, block_k=spec.block_k,
+            dataflow=spec.dataflow, impl=impl,
+        )
+    else:
+        raise ValueError(
+            f"exec_path {path!r} of site {spec.name!r} is not available in "
+            "this package (only 'kernel' and 'ragged' are)")
+    row_sim = row_code_similarity(cur_q, cache["prev_q"])
+    cache["prev_q"].copy_(cur_q)
+    cache["prev_out"].copy_(out)
+    cache["sim_ema"].copy_(ema_update(cache["sim_ema"], row_sim, ema_decay))
+    cache["steps"].add_(1)
+    if "ctrl" in cache:
+        live = mask.float().mean()
+        occ = cache["ctrl"]["occupancy"]
+        occ.copy_(ema_update(occ, live, ema_decay))
+    if "sensor" in cache:
+        if dma_issued is None:  # kernel path: masked full-grid semantics
+            dma_issued = ops.weight_dma_tiles(
+                mask, gn=gn, dataflow=spec.dataflow, sel=sel)
+        update_on_reuse(
+            cache["sensor"], block_mask=mask, row_sim=row_sim,
+            block_m=spec.block_m, block_k=spec.block_k, n=n, gn=gn,
+            w_itemsize=w.element_size(), dma_issued=dma_issued,
+            grid_steps=grid_steps, overflow=overflow,
+        )
+    stats = ReuseStats(similarity=row_sim.mean(),
+                       skip_fraction=1.0 - mask.float().mean())
+    return out, stats
+
+
+def reuse_linear(
+    x: torch.Tensor,            # [..., K]
+    w: torch.Tensor,            # [K, N]
+    b: torch.Tensor | None,
+    cache: dict,
+    spec: ReuseSiteSpec,
+    *,
+    mode: str | None = "reuse",  # "reuse" | "basic" | None (= host mirror)
+    impl: str = "cuda",
+    ema_decay: float = 0.9,
+) -> tuple[torch.Tensor, dict, ReuseStats]:
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    n = w.shape[-1]
+    xm = x.reshape(-1, k).contiguous()
+    m = xm.shape[0]
+    if tuple(cache["prev_q"].shape) != (m, k):
+        raise ValueError(f"site {spec.name!r}: prev_q "
+                         f"{tuple(cache['prev_q'].shape)} != {(m, k)}")
+    if mode is None:
+        mode = "reuse" if int(cache["mode_host"]) > 0 else "basic"
+    if mode == "basic":
+        out, stats = _basic_eval(xm, w, cache, spec, ema_decay)
+    elif mode == "reuse":
+        out, stats = _reuse_eval(xm, w, cache, spec, impl, ema_decay)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return out.to(x.dtype).reshape(*lead, n), cache, stats

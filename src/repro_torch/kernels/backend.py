@@ -1,0 +1,196 @@
+"""Kernel substrate: resolve it once per process, build the CUDA library.
+
+Two substrates:
+
+    "cuda"  — the hand-written Hopper kernels of `repro_torch/csrc/*.cu`
+              (CUDA available, device capability >= 9.0, library builds)
+    "torch" — the plain PyTorch twins, for CPU tensors
+
+The kernels are plain-C-interface shared libraries, one per source file,
+compiled by `nvcc` at first use into `build/kernels/` at the repository root
+and loaded with `ctypes`. All sources build at once, one `nvcc` process each.
+A library's file name carries a hash of its source, the shared header and the
+flags, so an edited source rebuilds and an unchanged one loads as it is. On a
+machine with a card a build failure raises: nothing gives way to the twins.
+
+Each kernel wrapper counts its launches here (`count_launch`), so a run can
+show which kernels the main path went through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+SOURCES = ("delta_quant", "reuse_matmul", "reuse_matmul_ragged")
+KERNELS = ("delta_quant", "reuse_matmul_output", "reuse_matmul_input",
+           "reuse_matmul_ragged")
+
+# dtype codes of the C interface
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every C entry point, by library
+SIGNATURES = {
+    "delta_quant": {
+        # x, x_dtype, prev_q, scale, q, delta, delta_dtype, mask, M, K, bm, bk, stream
+        "rt_delta_quant": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+    },
+    "reuse_matmul": {
+        # delta, w, dtype, prev_out, mask, out, M, K, N, bm, bk, stream
+        "rt_reuse_matmul_output": (_P, _P, _I, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _P),
+        # delta, w, dtype, prev_out, mask, partial, out, M, K, N, bm, bk, stream
+        "rt_reuse_matmul_input": (_P, _P, _I, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _P),
+    },
+    "reuse_matmul_ragged": {
+        # delta, w, dtype, prev_out, counts, idx, idx_ld, out, M, K, N, bm, bk, stream
+        "rt_reuse_matmul_ragged": (_P, _P, _I, _P, _P, _P, _I, _P,
+                                   _I, _I, _I, _I, _I, _P),
+    },
+}
+
+launches: collections.Counter = collections.Counter()
+
+
+def count_launch(name: str) -> None:
+    launches[name] += 1
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: int(launches[name]) for name in KERNELS}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str, extra: tuple[str, ...]) -> pathlib.Path:
+    h = hashlib.sha256()
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + extra).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(*, verbose: bool = False, force: bool = False) -> dict[str, str]:
+    """Compile every kernel source, one `nvcc` each, all started together.
+
+    Returns {source: compiler log}. `verbose` adds `-Xptxas -v`, whose log
+    gives each kernel's registers, shared memory and spills (it also forces a
+    rebuild, since a cached library has no log). Raises on any failure."""
+    extra = ("-Xptxas", "-v") if verbose else ()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in SOURCES:
+        out = _lib_path(name, ())
+        if out.exists() and not (force or verbose):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(name)
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(
+            "kernel build failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of one kernel source (built if missing)."""
+    path = _lib_path(name, ())
+    if not path.exists():
+        build()
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=1)
+def best() -> str:
+    """The substrate of this process: "cuda" when CUDA is available, the card
+    is Hopper or newer and the kernel library builds; else "torch"."""
+    if not torch.cuda.is_available():
+        return "torch"
+    if torch.cuda.get_device_capability(0) < (9, 0):
+        return "torch"
+    for name in SOURCES:
+        library(name)  # raises on a build failure — never degrades
+    return "cuda"
+
+
+def tag() -> dict:
+    """Provenance stamp: substrate, versions and the device it resolved on."""
+    sub = best()
+    on_card = sub == "cuda"
+    return {
+        "backend": sub,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "device": "cuda:0" if on_card else "cpu",
+        "device_name": torch.cuda.get_device_name(0) if on_card else "cpu",
+    }
+
+
+def describe() -> str:
+    """One-line summary for startup logs."""
+    t = tag()
+    return (f"backend={t['backend']} device={t['device']} "
+            f"({t['device_name']}) torch={t['torch']} cuda={t['cuda']} "
+            f"python={sys.version.split()[0]}")

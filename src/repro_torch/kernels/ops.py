@@ -1,0 +1,189 @@
+"""Public kernel API: padding, dispatch, and the sensor's accounting functions.
+
+Execution paths of the reuse-mode ΔW GEMM (`ReuseSiteSpec.exec_path`):
+  "kernel" — block-skip GEMM on the full tile grid (`reuse_matmul`).
+  "ragged" — compacted walk over each row's active k-blocks
+             (`reuse_matmul_ragged`).
+
+`impl` picks the substrate: "cuda" calls the kernel wrappers, which launch
+the Hopper kernels on CUDA tensors (and take the plain versions on CPU
+tensors); "torch" calls the plain versions directly, on any device.
+
+The accounting functions (`clamp_budget`, `ragged_dma_tiles`,
+`ragged_grid_steps`, `budget_overflow`, and `weight_dma_tiles` re-exported
+from the kernel module) are the reference's, ported exactly: the sensor's
+`dma_issued_tiles`, `grid_steps` and `overflow_fallbacks` come from them,
+never from a kernel. They stay on the tensor's device (`torch.where`), so no
+Python branch ever reads a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.delta import compact_rows
+from repro_torch.kernels import delta_quant as _dq
+from repro_torch.kernels import reuse_matmul as _rm
+from repro_torch.kernels import reuse_matmul_ragged as _rr
+from repro_torch.kernels.reuse_matmul import skip_sel, weight_dma_tiles
+
+__all__ = [
+    "budget_overflow",
+    "clamp_budget",
+    "compact_rows",
+    "delta_quant_fused",
+    "ragged_dma_tiles",
+    "ragged_grid_steps",
+    "reuse_matmul",
+    "reuse_matmul_ragged",
+    "skip_sel",
+    "weight_dma_tiles",
+]
+
+IMPLS = ("cuda", "torch")
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+
+
+def clamp_budget(max_active_k: int | None, gk: int) -> int:
+    """Static k-extent budget, clamped to [1, gk] — one definition shared by
+    the executing wrappers and the grid-step accounting."""
+    if max_active_k is None:
+        return gk
+    return max(1, min(int(max_active_k), gk))
+
+
+def _pad_to(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:
+    p0 = (-x.shape[0]) % mult0
+    p1 = (-x.shape[1]) % mult1
+    if p0 or p1:
+        x = F.pad(x, (0, p1, 0, p0))
+    return x.contiguous()
+
+
+def reuse_matmul(
+    delta: torch.Tensor,
+    w: torch.Tensor,
+    prev_out: torch.Tensor,
+    block_mask: torch.Tensor,
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+    block_k: int = 256,
+    dataflow: str = "output",
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """Padded entry to the block-skip GEMM (masked full grid)."""
+    _check_impl(impl)
+    m, n = prev_out.shape
+    dp = _pad_to(delta, block_m, block_k)
+    wp = _pad_to(w, block_k, block_n)
+    pp = _pad_to(prev_out.float(), block_m, block_n)
+    gm, gk = dp.shape[0] // block_m, dp.shape[1] // block_k
+    if tuple(block_mask.shape) != (gm, gk):
+        raise ValueError(f"mask {tuple(block_mask.shape)} != {(gm, gk)}")
+    if impl == "cuda":
+        out = _rm.reuse_matmul(
+            dp, wp, pp, block_mask.contiguous(), block_m=block_m,
+            block_n=block_n, block_k=block_k, dataflow=dataflow,
+        )
+    else:
+        out = _rm.reuse_matmul_torch(dp, wp, pp, block_mask,
+                                     block_m=block_m, block_k=block_k)
+    return out[:m, :n]
+
+
+def reuse_matmul_ragged(
+    delta: torch.Tensor,       # [M, K]
+    w: torch.Tensor,           # [K, N]
+    prev_out: torch.Tensor,    # [M, N]
+    block_mask: torch.Tensor,  # [gm, gk] int32; 1 = compute tile
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+    block_k: int = 256,
+    impl: str = "cuda",
+    compacted: tuple[torch.Tensor, torch.Tensor] | None = None,  # (idx, counts)
+) -> torch.Tensor:
+    """Padded entry to the ragged compacted-walk GEMM.
+
+    The reference grid has the static extent `max_active_k` and falls back to
+    the full extent when a row's live count overflows it; either way it adds
+    exactly each row's active tiles. The kernel (and its plain twin) walks
+    `counts[m]` of the full-extent `idx`, which adds the same tiles with no
+    budget and no host branch, so the budget only enters the accounting
+    (`ragged_grid_steps`, `budget_overflow`). `compacted` threads a
+    precomputed `compact_rows(block_mask)`.
+    """
+    _check_impl(impl)
+    m, n = prev_out.shape
+    dp = _pad_to(delta, block_m, block_k)
+    wp = _pad_to(w, block_k, block_n)
+    pp = _pad_to(prev_out.float(), block_m, block_n)
+    gm, gk = dp.shape[0] // block_m, dp.shape[1] // block_k
+    if tuple(block_mask.shape) != (gm, gk):
+        raise ValueError(f"mask {tuple(block_mask.shape)} != {(gm, gk)}")
+    idx, counts = compact_rows(block_mask) if compacted is None else compacted
+    run = (_rr.reuse_matmul_ragged if impl == "cuda"
+           else _rr.reuse_matmul_ragged_torch)
+    out = run(dp, wp, pp, counts, idx, block_m=block_m, block_n=block_n,
+              block_k=block_k)
+    return out[:m, :n]
+
+
+def ragged_dma_tiles(counts: torch.Tensor, *, gn: int) -> torch.Tensor:
+    """Weight-tile loads of the ragged walk: per (m, n) panel the row's count
+    active blocks; a fully skipped row still holds one resident tile."""
+    return (torch.clamp(counts, min=1).sum() * gn).to(torch.int32)
+
+
+def ragged_grid_steps(
+    counts: torch.Tensor, *, gm: int, gn: int, gk: int,
+    max_active_k: int | None,
+) -> torch.Tensor:
+    """Grid steps the reference's ragged path executes (fallback-aware), f32:
+    gm·gn·kb, or the full gm·gn·gk when any row overflows the budget."""
+    kb = clamp_budget(max_active_k, gk)
+    full = torch.tensor(float(gm * gn * gk), dtype=torch.float32,
+                        device=counts.device)
+    if kb >= gk:
+        return full
+    return torch.where((counts > kb).any(), full,
+                       torch.full_like(full, float(gm * gn * kb)))
+
+
+def budget_overflow(
+    counts: torch.Tensor, *, gk: int, max_active_k: int | None
+) -> torch.Tensor:
+    """int32 1 when an evaluation's live counts overflow the budget (the
+    reference took its full-extent fallback), else 0."""
+    kb = clamp_budget(max_active_k, gk)
+    if kb >= gk:
+        return torch.zeros((), dtype=torch.int32, device=counts.device)
+    return (counts > kb).any().to(torch.int32)
+
+
+def delta_quant_fused(
+    x: torch.Tensor,
+    prev_q: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    block_m: int = 128,
+    block_k: int = 256,
+    delta_dtype: torch.dtype = torch.bfloat16,
+    impl: str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Padded entry to the fused delta/quant/mask pass. Padding is zeros in
+    both x and prev_q, so padded positions never set a mask bit."""
+    _check_impl(impl)
+    m, k = x.shape
+    xp = _pad_to(x, block_m, block_k)
+    pq = _pad_to(prev_q, block_m, block_k)
+    fn = _dq.delta_quant if impl == "cuda" else _dq.delta_quant_torch
+    q, delta, mask = fn(xp, pq, scale, block_m=block_m, block_k=block_k,
+                        delta_dtype=delta_dtype)
+    return q[:m, :k], delta[:m, :k], mask

@@ -1,0 +1,195 @@
+"""Serving CLI: continuous batching + ReuseSense decode, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
+        --reduced --requests 4 --batch-slots 2 --max-new 6 --reuse --device cpu
+
+Prefills each request into its slot lane, runs the shared decode step with
+the reuse engine threaded through every linear site, prints one
+`SensorReport rid=...` line per retired request and the per-site summary at
+the end. `--device` defaults to `cuda`, where the engine runs the Hopper
+kernels; on a machine without a card that default fails loudly instead of
+falling back to the CPU. `--device cpu` runs the plain PyTorch versions.
+
+`run(cfg, args)` is the callable entry (chip_smoke.py drives it with a config
+cut in depth); `main()` parses the flags and calls it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.reuse_cache import cache_bytes
+from repro_torch.kernels import backend
+from repro_torch.models import init_params
+from repro_torch.sensor.aggregate import slot_telemetry
+from repro_torch.serve.scheduler import ContinuousBatcher, Request, reset_slot
+from repro_torch.serve.serve_step import (
+    build_reuse_engine,
+    decode_step,
+    greedy_sample,
+    init_serve_state,
+    prefill_step,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--reuse", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tuned-policy", default=None,
+                    help="tuned-table JSON (the reference's repro.tune.fit "
+                    "output format): per-site tunables, exec paths, budgets")
+    ap.add_argument("--refresh-every", type=int, default=0,
+                    help="re-run the host-side mode/exec-path policy every N "
+                    "decode steps (0 = keep registration-time modes)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the model runs; cuda runs the Hopper kernels")
+    return ap
+
+
+def run(cfg: ModelConfig, args: argparse.Namespace) -> dict:
+    """Serve `args.requests` random-prompt requests on `cfg`. Returns
+    {"done", "stats", "report", "engine", "seconds"}."""
+    for flag in ("tuned_policy", "refresh_every"):
+        if getattr(args, flag) and not args.reuse:
+            raise ValueError(f"--{flag.replace('_', '-')} requires --reuse")
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "--device cuda (the default) but no CUDA device is available;"
+                " pass --device cpu to run the plain PyTorch versions")
+        if backend.best() != "cuda":
+            raise RuntimeError(
+                f"the kernel substrate is {backend.best()!r}: the Hopper "
+                "kernels need a device of capability 9.0 or newer")
+    device = torch.device(args.device)
+    impl = "cuda" if device.type == "cuda" else "torch"
+    print(f"kernel substrate: {backend.describe()} (serve impl={impl})")
+
+    rng = np.random.default_rng(args.seed)
+    params = init_params(cfg, args.seed, device=device)
+    state = init_serve_state(cfg, args.batch_slots, args.cache_len,
+                             device=device)
+    engine = None
+    rcache = None
+    if args.reuse:
+        policy = None
+        if args.tuned_policy:
+            from repro_torch.tune.table import load_tuned_policy
+
+            policy = load_tuned_policy(args.tuned_policy)
+            print(f"tuned policy: {len(policy.site_tunables)} site entries "
+                  f"from {args.tuned_policy}")
+        engine = build_reuse_engine(cfg, impl=impl, policy=policy)
+        rcache = engine.init_cache(args.batch_slots, device=device)
+        print(f"reuse cache: {cache_bytes(rcache)/1e6:.2f} MB "
+              f"({len(engine.sites)} sites)")
+        for name, spec in engine.sites.items():
+            budget = ("" if spec.max_active_k is None
+                      else f"@{spec.max_active_k}")
+            print(f"  site {name}: {spec.in_features}x{spec.out_features} "
+                  f"dataflow={spec.dataflow} exec={spec.exec_path}{budget} "
+                  f"block_k={spec.block_k}")
+
+    sstate = {"state": state, "rcache": rcache}
+
+    # Batched-prefill simplification (as the reference): a slot's prefill
+    # re-runs the batch prefill with the slot's prompt in its lane.
+    def prefill_fn(prompt, slot):
+        full = torch.zeros((args.batch_slots, prompt.shape[1]),
+                           dtype=torch.int32, device=device)
+        full[slot] = torch.from_numpy(np.asarray(prompt[0], np.int32)).to(device)
+        with torch.no_grad():
+            logits, sstate["state"] = prefill_step(params, cfg, full,
+                                                   sstate["state"])
+        reset_slot(sstate["rcache"], slot)
+        return int(greedy_sample(logits[slot:slot + 1, -1:])[0, 0])
+
+    def decode_fn(tokens):
+        toks = torch.from_numpy(np.asarray(tokens, np.int32)).to(device)
+        with torch.no_grad():
+            logits, sstate["state"], sstate["rcache"] = decode_step(
+                params, cfg, toks, sstate["state"], engine=engine,
+                reuse_cache=sstate["rcache"])
+        return greedy_sample(logits).cpu().numpy()
+
+    telemetry_fn = on_retire = on_step = None
+    if engine is not None:
+        def telemetry_fn(slot):
+            return slot_telemetry(engine, sstate["rcache"], slot)
+
+        def on_retire(req):
+            t = req.telemetry
+            print(f"SensorReport rid={req.rid} slot={t['slot']} "
+                  f"steps={t['steps']} hit_rate={t['hit_rate']:.3f} "
+                  f"sites={t['n_sites']}")
+            reset_slot(sstate["rcache"], req.slot)
+
+    if engine is not None and args.refresh_every > 0:
+        def on_step(step_idx):
+            if step_idx % args.refresh_every:
+                return
+            changed = engine.refresh_modes(sstate["rcache"])
+            if engine.last_mode_events:
+                flips = ", ".join(
+                    f"{e['site']}"
+                    + (f"@{e['layer']}" if e["layer"] is not None else "")
+                    + f"->{e['after']}" for e in engine.last_mode_events)
+                print(f"mode refresh @step {step_idx}: {flips}")
+            if changed:
+                print(f"exec refresh @step {step_idx}: {changed}")
+
+    batcher = ContinuousBatcher(
+        batch_slots=args.batch_slots,
+        prefill_fn=prefill_fn,
+        decode_fn=decode_fn,
+        max_steps=args.requests * args.max_new + 8,
+        telemetry_fn=telemetry_fn,
+        on_retire=on_retire,
+        on_step=on_step,
+    )
+    for i in range(args.requests):
+        batcher.submit(Request(
+            rid=i,
+            prompt=rng.integers(0, cfg.vocab, size=(args.prompt_len,),
+                                dtype=np.int32),
+            max_new_tokens=args.max_new,
+        ))
+    t0 = time.perf_counter()
+    done = batcher.run()
+    dt = time.perf_counter() - t0
+    print(f"served {len(done)}/{args.requests} requests in {dt:.2f}s; "
+          f"{batcher.stats}")
+    report = None
+    if engine is not None:
+        report = engine.sensor_report(sstate["rcache"])
+        print("\n".join(report.summary_lines()))
+    if len(done) != args.requests:
+        raise RuntimeError(f"served {len(done)} of {args.requests} requests")
+    return {"done": done, "stats": batcher.stats, "report": report,
+            "engine": engine, "seconds": dt}
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    run(cfg, args)
+
+
+if __name__ == "__main__":
+    main()

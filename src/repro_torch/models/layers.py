@@ -1,0 +1,239 @@
+"""Layers of the dense decoder: norms, RoPE, attention, MLP (dense path).
+
+Plain PyTorch on explicit parameter dicts laid out as the JAX package's
+pytrees ([K, N] weights, heads as [B, S, H, D]). Prefill attention is the
+reference's pair-scan blockwise form with an online-softmax carry (a Python
+loop over the (q-chunk, kv-chunk) pairs the mask admits); decode attention is
+the grouped-GQA masked softmax over the cache. Linear sites go through the
+reuse engine when a reuse context is threaded (`_maybe_reuse_matmul`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------- norms
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    return rms_norm(x, p["scale"], eps)
+
+
+# ----------------------------------------------------------------------- rope
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ attention
+
+def _split_qkv(cfg: ModelConfig, qkv: torch.Tensor):
+    q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+    b, s = q.shape[:2]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _chunk_pairs(n_q, n_kv, chunk_q, chunk_kv, *, causal, window, q_offset=0):
+    """Static (q-chunk, kv-chunk) pair list admitted by the mask."""
+    pairs = []
+    for i in range(n_q):
+        q_lo = q_offset + i * chunk_q
+        q_hi = q_lo + chunk_q - 1
+        for j in range(n_kv):
+            k_lo = j * chunk_kv
+            k_hi = k_lo + chunk_kv - 1
+            if causal and k_lo > q_hi:
+                continue
+            if window is not None and k_hi < q_lo - window + 1:
+                continue
+            pairs.append((i, j))
+    return pairs
+
+
+def blockwise_attention(
+    q: torch.Tensor,   # [B, Sq, H, D]
+    k: torch.Tensor,   # [B, Skv, KV, D]
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int | None = None,
+    chunk_q: int = 512,
+    chunk_kv: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Pair-scan attention with an online softmax, grouped GQA."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    scale = 1.0 / math.sqrt(d)
+    chunk_q = min(chunk_q, sq)
+    chunk_kv = min(chunk_kv, skv)
+    while sq % chunk_q:
+        chunk_q -= 1
+    while skv % chunk_kv:
+        chunk_kv -= 1
+    nq, nkv = sq // chunk_q, skv // chunk_kv
+    pairs = _chunk_pairs(nq, nkv, chunk_q, chunk_kv, causal=causal,
+                         window=window, q_offset=q_offset)
+    q_sc = (q.float() * scale).to(q.dtype)
+    out = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    dev = q.device
+    for idx, (i, j) in enumerate(pairs):
+        if idx == 0 or pairs[idx - 1][0] != i:
+            m = torch.full((b, h, chunk_q), -math.inf, device=dev)
+            l = torch.zeros((b, h, chunk_q), device=dev)
+            acc = torch.zeros((b, h, chunk_q, d), device=dev)
+        qc = q_sc[:, i * chunk_q:(i + 1) * chunk_q].float()
+        kc = k[:, j * chunk_kv:(j + 1) * chunk_kv].float()
+        vc = v[:, j * chunk_kv:(j + 1) * chunk_kv].float()
+        qg = qc.reshape(b, chunk_q, kv, rep, d)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc).reshape(b, h, chunk_q, chunk_kv)
+        qpos = q_offset + i * chunk_q + torch.arange(chunk_q, device=dev)
+        kpos = j * chunk_kv + torch.arange(chunk_kv, device=dev)
+        mask = torch.ones((chunk_q, chunk_kv), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        s = torch.where(mask[None, None], s, torch.tensor(-math.inf, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                            torch.zeros_like(m))
+        l = l * alpha + p.sum(dim=-1)
+        pg = p.reshape(b, kv, rep, chunk_q, chunk_kv)
+        upd = torch.einsum("bgrqk,bkgd->bgrqd", pg, vc).reshape(b, h, chunk_q, d)
+        acc = acc * alpha[..., None] + upd
+        m = m_new
+        if idx == len(pairs) - 1 or pairs[idx + 1][0] != i:
+            safe_l = torch.clamp(l, min=1e-30)
+            out[:, i * chunk_q:(i + 1) * chunk_q] = (
+                acc / safe_l[..., None]).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, 1, H, D]
+    k_cache: torch.Tensor,  # [B, S, KV, D] (new token already inserted)
+    v_cache: torch.Tensor,
+    length: torch.Tensor,   # [] valid length, a device scalar
+) -> torch.Tensor:
+    """Single-token grouped-GQA attention over the cache: q reshaped to
+    [B, 1, KV, rep, D] contracts against the cache directly (no repeat)."""
+    b, s, kv, d = k_cache.shape
+    h = q.shape[2]
+    rep = h // kv
+    scale = 1.0 / math.sqrt(d)
+    valid = torch.arange(s, device=q.device) < length
+    qg = q.reshape(b, 1, kv, rep, d).float() * scale
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache.float())
+    logits = torch.where(valid, logits, torch.tensor(-math.inf, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _maybe_reuse_matmul(name, x, w, b, reuse_ctx):
+    """Route a linear site through the ReuseEngine when serving with reuse;
+    otherwise a plain product (prefill), outside any reuse kernel."""
+    if reuse_ctx is not None:
+        engine, cache, stats = reuse_ctx
+        if name in cache:
+            out, _, st = engine.apply(name, x, w, b, cache[name])
+            stats[name] = st
+            return out
+    out = torch.matmul(x, w)
+    if b is not None:
+        out = out.float() + b.float()
+    return out.to(x.dtype)
+
+
+def attention_forward(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                     # [B, S, d]
+    *,
+    positions: torch.Tensor,             # [B, S]
+    kv_cache: dict | None = None,        # {"k": [B,Sc,KV,D], "v": ...} (views)
+    kv_len: torch.Tensor | None = None,  # [] valid length before this token
+    reuse_ctx=None,
+    site_prefix: str = "attn",
+) -> torch.Tensor:
+    """Attention block (dense, full causal). A given `kv_cache` is updated
+    IN PLACE: prefill writes slots [0, S), decode writes one slot."""
+    b, s, _ = x.shape
+    h = apply_norm(p["norm"], x, cfg.norm_eps)
+    qkv = _maybe_reuse_matmul(f"{site_prefix}_qkv", h, p["wqkv"],
+                              p.get("bqkv"), reuse_ctx)
+    q, k, v = _split_qkv(cfg, qkv)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is None or s > 1:
+        out = blockwise_attention(
+            q, k, v, causal=cfg.causal, window=None,
+            chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+        )
+        if kv_cache is not None:
+            n = min(s, kv_cache["k"].shape[1])
+            kv_cache["k"][:, :n] = k[:, :n]
+            kv_cache["v"][:, :n] = v[:, :n]
+    else:
+        cache_len = kv_cache["k"].shape[1]
+        slot = torch.clamp(kv_len, max=cache_len - 1).reshape(1).long()
+        kv_cache["k"].index_copy_(1, slot, k)
+        kv_cache["v"].index_copy_(1, slot, v)
+        out = decode_attention(q, kv_cache["k"], kv_cache["v"], kv_len + 1)
+
+    out = out.reshape(b, s, cfg.q_dim)
+    out = _maybe_reuse_matmul(f"{site_prefix}_out", out, p["wo"], None, reuse_ctx)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------------ mlp
+
+def mlp_forward(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, *, reuse_ctx=None,
+    site_prefix: str = "mlp",
+) -> torch.Tensor:
+    h = apply_norm(p["norm"], x, cfg.norm_eps)
+    hi = _maybe_reuse_matmul(f"{site_prefix}_in", h, p["wi"], None, reuse_ctx)
+    gate, up = torch.chunk(hi, 2, dim=-1)  # swiglu: [gate | up]
+    act = F.silu(gate.float()).to(x.dtype) * up
+    out = _maybe_reuse_matmul(f"{site_prefix}_out", act, p["wo"], None, reuse_ctx)
+    return out.to(x.dtype)

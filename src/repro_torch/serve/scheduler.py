@@ -1,0 +1,134 @@
+"""Continuous-batching request scheduler for the serving runtime.
+
+A fixed decode batch of B slots: requests queue, claim a free slot, prefill
+into that slot's cache lane, then ride the shared decode step until EOS or
+their token limit. The reuse caches are slot-aligned, so a recycled slot's
+reuse lane is reset (`reset_slot`): a fresh stream must not delta against the
+previous occupant, and the engine's cold start (reuse == quantized dense on
+the first step) makes that safe.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Callable
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # [S] int32
+    max_new_tokens: int = 16
+    eos_id: int = -1              # -1: run to max_new_tokens
+    # filled by the scheduler
+    output: list = dataclasses.field(default_factory=list)
+    slot: int = -1
+    done: bool = False
+    telemetry: dict | None = None
+
+
+def reset_slot(reuse_cache: dict | None, slot: int) -> dict | None:
+    """Zero one slot's reuse lane across all sites, IN PLACE: prev_q,
+    prev_out, the per-slot sim_ema lane and the sensor's per-slot hit-rate
+    lanes. Returns the same cache."""
+    if reuse_cache is None:
+        return None
+    for entry in reuse_cache.values():
+        entry["prev_q"][..., slot, :] = 0
+        entry["prev_out"][..., slot, :] = 0
+        if entry["sim_ema"].ndim >= 1:
+            entry["sim_ema"][..., slot] = 0
+        if "sensor" in entry:
+            entry["sensor"]["slot_hit_sum"][..., slot] = 0
+            entry["sensor"]["slot_steps"][..., slot] = 0
+    return reuse_cache
+
+
+class ContinuousBatcher:
+    def __init__(
+        self,
+        *,
+        batch_slots: int,
+        prefill_fn: Callable,     # (slot_tokens [1, S], slot) -> first token
+        decode_fn: Callable,      # (tokens [B, 1]) -> next tokens [B, 1]
+        max_steps: int = 512,
+        telemetry_fn: Callable | None = None,  # (slot) -> dict, at retirement
+        on_retire: Callable | None = None,     # (Request) -> None
+        on_step: Callable | None = None,       # (step_idx) -> None, post-decode
+    ):
+        self.batch_slots = batch_slots
+        self.prefill_fn = prefill_fn
+        self.decode_fn = decode_fn
+        self.max_steps = max_steps
+        self.telemetry_fn = telemetry_fn
+        self.on_retire = on_retire
+        self.on_step = on_step
+        self.queue: deque[Request] = deque()
+        self.active: dict[int, Request] = {}
+        self.free_slots = list(range(batch_slots))
+        self.completed: list[Request] = []
+        self.stats = {"steps": 0, "prefills": 0, "emitted_tokens": 0}
+        self._cur: np.ndarray | None = None
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        while self.queue and self.free_slots:
+            req = self.queue.popleft()
+            # similarity-affinity placement comes with the control slice
+            slot = self.free_slots.pop()
+            req.slot = slot
+            # The observability slice adds the reference's "prefill" span and
+            # request/session/slot event context around this call.
+            first = self.prefill_fn(req.prompt[None, :], slot)
+            req.output.append(int(first))
+            self.active[slot] = req
+            self.stats["prefills"] += 1
+
+    def _retire(self, slot: int) -> None:
+        req = self.active.pop(slot)
+        req.done = True
+        # telemetry is snapshotted BEFORE the slot is freed (the next
+        # occupant's prefill resets its lanes)
+        if self.telemetry_fn is not None:
+            req.telemetry = self.telemetry_fn(slot)
+        self.completed.append(req)
+        self.free_slots.append(slot)
+        if self.on_retire is not None:
+            self.on_retire(req)
+
+    def step_once(self) -> bool:
+        """Admit waiting requests and run ONE shared decode step. Returns
+        False when there is nothing left to do."""
+        if self._cur is None:
+            self._cur = np.zeros((self.batch_slots, 1), np.int32)
+        self._admit()
+        if not self.active and not self.queue:
+            return False
+        for slot, req in self.active.items():
+            self._cur[slot, 0] = req.output[-1]
+        # The observability slice adds the reference's "serve_step" span here.
+        nxt = np.asarray(self.decode_fn(self._cur))
+        self.stats["steps"] += 1
+        if self.on_step is not None:
+            self.on_step(self.stats["steps"])
+        for slot in list(self.active):
+            req = self.active[slot]
+            tok = int(nxt[slot, 0])
+            req.output.append(tok)
+            self.stats["emitted_tokens"] += 1
+            if (req.eos_id >= 0 and tok == req.eos_id) or (
+                len(req.output) >= req.max_new_tokens
+            ):
+                self._retire(slot)
+        return True
+
+    def run(self) -> list[Request]:
+        for _ in range(self.max_steps):
+            if not self.step_once():
+                break
+        return self.completed

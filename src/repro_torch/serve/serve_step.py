@@ -1,0 +1,79 @@
+"""Serving steps: prefill (S > 1 into the caches) and decode (S = 1).
+
+`decode_step` is where ReuseSense lives: the reuse cache threads through the
+step beside the KV cache, and every linear site of every layer runs the
+fused delta pass and the block-skip ΔW GEMM.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import ReuseEngine
+from repro_torch.core.policy import ReusePolicy
+from repro_torch.models import forward, init_decode_state, output_logits
+from repro_torch.models.transformer import _check_dense
+
+
+def build_reuse_engine(
+    cfg: ModelConfig,
+    *,
+    impl: str = "cuda",
+    block_m: int = 8,
+    block_k: int = 256,
+    policy: ReusePolicy | None = None,
+) -> ReuseEngine:
+    """Register the decode-time reuse sites of a dense transformer: the
+    attention projections and the MLP, four per layer, stacked over layers.
+    A tuned `policy` resolves each site's block_k, exec_path and budget."""
+    _check_dense(cfg)
+    eng = ReuseEngine(impl=impl, policy=policy or ReusePolicy())
+    nsb, d = cfg.n_superblocks, cfg.d_model
+
+    def reg(name, fi, fo):
+        eng.register(name, fi, fo, n_layers=nsb, block_m=block_m,
+                     block_k=block_k)
+
+    reg("attn_qkv", d, cfg.q_dim + 2 * cfg.kv_dim)
+    reg("attn_out", cfg.q_dim, d)
+    reg("mlp_in", d, 2 * cfg.d_ff)  # swiglu [gate | up]
+    reg("mlp_out", cfg.d_ff, d)
+    return eng
+
+
+def prefill_step(
+    params: Any, cfg: ModelConfig, tokens: torch.Tensor, state: dict
+) -> tuple[torch.Tensor, dict]:
+    """Process a prompt into the caches. Returns (last-token logits, state)."""
+    h, new_state, _, _ = forward(params, cfg, {"tokens": tokens},
+                                 decode_state=state)
+    return output_logits(params, cfg, h[:, -1:]), new_state
+
+
+def decode_step(
+    params: Any,
+    cfg: ModelConfig,
+    token: torch.Tensor,     # [B, 1] int
+    state: dict,
+    *,
+    engine: ReuseEngine | None = None,
+    reuse_cache: dict | None = None,
+) -> tuple[torch.Tensor, dict, dict | None]:
+    """One autoregressive step. Returns (logits [B,1,V], state, reuse_cache)."""
+    h, new_state, new_rcache, _ = forward(
+        params, cfg, {"tokens": token}, decode_state=state,
+        reuse_engine=engine, reuse_cache=reuse_cache,
+    )
+    return output_logits(params, cfg, h), new_state, new_rcache
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,
+                     *, device="cuda") -> dict:
+    return init_decode_state(cfg, batch, cache_len, device=device)

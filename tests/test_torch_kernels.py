@@ -1,0 +1,329 @@
+"""The port's kernel modules against the JAX package's kernels.
+
+On this CPU host each wrapper takes its plain PyTorch version (the tensors
+lie on the CPU); the JAX side runs the Pallas kernels in interpret mode and
+the compiled-XLA tier, as tests/test_kernels.py and tests/test_backend.py
+run them. Tolerances are those of tests/test_kernels.py: rtol 1e-5 and atol
+1e-4 for f32 GEMMs (the same products summed in another order), bitwise for
+codes and masks. The CUDA kernels themselves are held against their plain
+versions on the card by tests/test_torch_gpu.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.similarity import block_zero_mask as jblock_zero_mask
+from repro.kernels import ops as jops
+from repro.kernels import xla_tier
+from repro.kernels.delta_quant import delta_quant as jdelta_quant
+from repro.quant import quantize_int8 as jquantize_int8
+from repro_torch.core.delta import compact_rows
+from repro_torch.core.similarity import block_zero_mask
+from repro_torch.kernels import backend, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.delta_quant import delta_quant, delta_quant_torch
+from repro_torch.kernels.reuse_matmul import (
+    reuse_matmul,
+    skip_sel,
+    weight_dma_tiles,
+)
+
+RTOL, ATOL = 1e-5, 1e-4
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+def make_blocky_delta(rng, m, k, bm, bk, keep_prob, dtype=np.float32):
+    """Delta tensor with a controlled fraction of all-zero tiles."""
+    delta = rng.normal(size=(m, k)).astype(dtype)
+    gm, gk = -(-m // bm), -(-k // bk)
+    for i in range(gm):
+        for j in range(gk):
+            if rng.random() >= keep_prob:
+                delta[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = 0.0
+    return delta
+
+
+def gemm_inputs(rng, m, k, n, bm, bk, keep):
+    delta = make_blocky_delta(rng, m, k, bm, bk, keep)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    prev = rng.normal(size=(m, n)).astype(np.float32)
+    mask = np.asarray(jblock_zero_mask(jnp.asarray(delta), bm, bk))
+    return delta, w, prev, mask
+
+
+# ------------------------------------------------------------- delta_quant
+
+@pytest.mark.parametrize("m,k,bm,bk", [(32, 512, 8, 128), (64, 256, 16, 256),
+                                       (8, 1024, 8, 256)])
+@pytest.mark.parametrize("delta_dtype", ["float32", "bfloat16"])
+def test_delta_quant_vs_pallas_and_xla(rng, m, k, bm, bk, delta_dtype):
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    x[rng.random((m, k)) < 0.2] = (rng.integers(-50, 50) + 0.5) * 0.0625
+    prev_q = np.asarray(jquantize_int8(
+        jnp.asarray(rng.normal(size=(m, k)).astype(np.float32)),
+        jnp.float32(0.0625)))
+    prev_q = np.where(rng.random((m, k)) < 0.5,
+                      np.asarray(jquantize_int8(jnp.asarray(x),
+                                                jnp.float32(0.0625))),
+                      prev_q)
+    prev_q[:bm, :bk] = np.asarray(jquantize_int8(jnp.asarray(x[:bm, :bk]),
+                                                 jnp.float32(0.0625)))
+    s = np.float32(0.0625)
+    jdt = getattr(jnp, delta_dtype)
+    q1, d1, m1 = jdelta_quant(jnp.asarray(x), jnp.asarray(prev_q),
+                              jnp.float32(s), block_m=bm, block_k=bk,
+                              delta_dtype=jdt, interpret=True)
+    q2, d2, m2 = xla_tier.delta_quant_xla(
+        jnp.asarray(x), jnp.asarray(prev_q), jnp.float32(s), block_m=bm,
+        block_k=bk, delta_dtype=jdt)
+    q, d, msk = delta_quant(t(x), t(prev_q), torch.tensor(s), block_m=bm,
+                            block_k=bk, delta_dtype=getattr(torch, delta_dtype))
+    for jq, jm in ((q1, m1), (q2, m2)):
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(msk.numpy(), np.asarray(jm))
+    assert not msk.all() and msk.any()
+    # the oracle of the delta is the XLA tier, which follows delta_dtype
+    np.testing.assert_array_equal(d.float().numpy(),
+                                  np.asarray(d2, np.float32))
+    np.testing.assert_array_equal(d.float().numpy(),
+                                  np.asarray(d1, np.float32))
+
+
+@pytest.mark.parametrize("m,k,bm,bk", [(10, 300, 8, 128), (3, 64, 8, 256)])
+def test_delta_quant_fused_padding_vs_reference(rng, m, k, bm, bk):
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    prev_q = rng.integers(-3, 4, size=(m, k)).astype(np.int8)
+    s = np.float32(0.05)
+    jq, jd, jm = jops.delta_quant_fused(
+        jnp.asarray(x), jnp.asarray(prev_q), jnp.float32(s), block_m=bm,
+        block_k=bk, delta_dtype=jnp.float32, interpret=True)
+    for impl in ("cuda", "torch"):
+        q, d, msk = ops.delta_quant_fused(
+            t(x), t(prev_q), torch.tensor(s), block_m=bm, block_k=bk,
+            delta_dtype=torch.float32, impl=impl)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(msk.numpy(), np.asarray(jm))
+
+
+def test_delta_quant_ref_casts_delta_to_bf16(rng):
+    x = rng.normal(size=(16, 256)).astype(np.float32)
+    prev_q = rng.integers(-3, 4, size=(16, 256)).astype(np.int8)
+    q, d, msk = tref.delta_quant_ref(t(x), t(prev_q), torch.tensor(0.05), 8, 128)
+    jq, jd, jm = jops.delta_quant_ref(jnp.asarray(x), jnp.asarray(prev_q),
+                                      jnp.float32(0.05), 8, 128)
+    assert d.dtype == torch.bfloat16
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(d.float().numpy(), np.asarray(jd, np.float32))
+    np.testing.assert_array_equal(msk.numpy(), np.asarray(jm))
+
+
+# ------------------------------------------------------------ reuse_matmul
+
+SWEEP = [
+    # (M, K, N, bm, bn, bk, keep) — a subset of tests/test_kernels.py::SWEEP
+    (32, 256, 128, 8, 128, 128, 0.5),
+    (64, 512, 256, 32, 128, 128, 0.3),
+    (8, 256, 384, 8, 128, 128, 0.0),    # fully skippable
+    (16, 512, 128, 16, 128, 512, 1.0),  # nothing skippable
+    (24, 384, 128, 8, 128, 128, 0.4),
+]
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk,keep", SWEEP)
+@pytest.mark.parametrize("dataflow", ["output", "input"])
+def test_reuse_matmul_vs_pallas(rng, m, k, n, bm, bn, bk, keep, dataflow):
+    delta, w, prev, mask = gemm_inputs(rng, m, k, n, bm, bk, keep)
+    want = jops.reuse_matmul(
+        jnp.asarray(delta), jnp.asarray(w), jnp.asarray(prev),
+        jnp.asarray(mask), block_m=bm, block_n=bn, block_k=bk,
+        dataflow=dataflow, interpret=True)
+    for impl in ("cuda", "torch"):
+        out = ops.reuse_matmul(t(delta), t(w), t(prev), t(mask), block_m=bm,
+                               block_n=bn, block_k=bk, dataflow=dataflow,
+                               impl=impl)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_reuse_matmul_bf16_vs_pallas(rng):
+    m, k, n, bm, bn, bk = 32, 512, 256, 8, 128, 128
+    delta, w, prev, mask = gemm_inputs(rng, m, k, n, bm, bk, 0.5)
+    jb = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    want = jops.reuse_matmul(jb(delta), jb(w), jnp.asarray(prev),
+                             jnp.asarray(mask), block_m=bm, block_n=bn,
+                             block_k=bk, interpret=True)
+    out = ops.reuse_matmul(t(delta).bfloat16(), t(w).bfloat16(), t(prev),
+                           t(mask), block_m=bm, block_n=bn, block_k=bk)
+    # bf16 products are exact in f32: only the summation order differs
+    np.testing.assert_allclose(out.numpy(), np.asarray(want, np.float32),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_mask_zero_blocks_never_loaded_semantics(rng):
+    """Masked tiles contribute nothing even where delta is nonzero: the
+    kernel consumes the MASK (load skip), not the data."""
+    m, k, n, bm, bk = 16, 512, 128, 8, 128
+    delta = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    prev = np.zeros((m, n), np.float32)
+    mask = np.zeros((m // bm, k // bk), np.int32)
+    mask[0, 1] = 1
+    for dataflow in ("output", "input"):
+        out = reuse_matmul(t(delta), t(w), t(prev), t(mask), block_m=bm,
+                           block_n=128, block_k=bk, dataflow=dataflow)
+        want = tref.reuse_matmul_ref(t(delta), t(w), t(prev), t(mask), bm, bk)
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+        assert not np.allclose(out.numpy(), prev + delta @ w)
+
+
+def test_skip_sel_and_weight_dma_tiles_match_reference(rng):
+    from repro.kernels.reuse_matmul import skip_sel as jskip_sel
+    from repro.kernels.reuse_matmul import weight_dma_tiles as jdma
+
+    mask = np.asarray([[0, 1, 0, 0, 1], [1, 0, 0, 1, 0]], np.int32)
+    np.testing.assert_array_equal(skip_sel(t(mask)).numpy(),
+                                  [[0, 1, 1, 1, 4], [0, 0, 0, 3, 3]])
+    for trial in range(6):
+        mask = (rng.random((3, 7)) < 0.2 * trial).astype(np.int32)
+        np.testing.assert_array_equal(skip_sel(t(mask)).numpy(),
+                                      np.asarray(jskip_sel(jnp.asarray(mask))))
+        for dataflow in ("output", "input"):
+            got = weight_dma_tiles(t(mask), gn=5, dataflow=dataflow)
+            assert got.dtype == torch.int32
+            assert int(got) == int(jdma(jnp.asarray(mask), gn=5,
+                                        dataflow=dataflow))
+
+
+# ----------------------------------------------------------------- ragged
+
+RAGGED_SWEEP = [
+    # (M, K, N, bm, bn, bk, keep, budget) — tests/test_kernels.py::RAGGED_SWEEP
+    (32, 1024, 256, 8, 128, 128, 0.3, None),   # ragged counts, full extent
+    (32, 1024, 256, 8, 128, 128, 0.3, 4),      # ragged counts, tight budget
+    (16, 512, 128, 8, 128, 128, 0.0, 1),       # all rows skipped
+    (16, 512, 128, 8, 128, 128, 1.0, 2),       # all rows computed (overflow)
+    (24, 384, 128, 8, 128, 128, 0.4, 2),       # non-multiple K via ops pad
+    (20, 300, 130, 8, 128, 128, 0.5, None),    # every dim non-multiple
+]
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk,keep,budget", RAGGED_SWEEP)
+def test_reuse_matmul_ragged_vs_pallas(rng, m, k, n, bm, bn, bk, keep, budget):
+    delta, w, prev, mask = gemm_inputs(rng, m, k, n, bm, bk, keep)
+    want = jops.reuse_matmul_ragged(
+        jnp.asarray(delta), jnp.asarray(w), jnp.asarray(prev),
+        jnp.asarray(mask), block_m=bm, block_n=bn, block_k=bk,
+        max_active_k=budget, interpret=True)
+    for impl in ("cuda", "torch"):
+        out = ops.reuse_matmul_ragged(
+            t(delta), t(w), t(prev), t(mask), block_m=bm, block_n=bn,
+            block_k=bk, impl=impl)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_ragged_all_rows_skipped_passes_prev_through(rng):
+    m, k, n, bm, bk = 16, 512, 128, 8, 128
+    delta = np.zeros((m, k), np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    prev = rng.normal(size=(m, n)).astype(np.float32)
+    mask = np.zeros((m // bm, k // bk), np.int32)
+    out = ops.reuse_matmul_ragged(t(delta), t(w), t(prev), t(mask), block_m=bm,
+                                  block_n=128, block_k=bk)
+    np.testing.assert_array_equal(out.numpy(), prev)
+
+
+def test_ragged_budget_overflow_falls_back_exactly(rng):
+    """Where the live counts overflow the reference's budget (its full-extent
+    fallback), the budget-free walk adds the same tiles: no contribution is
+    dropped."""
+    m, k, n, bm, bk = 8, 512, 128, 8, 128
+    delta, w, prev, mask = gemm_inputs(rng, m, k, n, bm, bk, 1.0)
+    assert int(mask.sum(axis=1).max()) == 4
+    want = tref.reuse_matmul_ref(t(delta), t(w), t(prev), t(mask), bm, bk)
+    fallback = jops.reuse_matmul_ragged(
+        jnp.asarray(delta), jnp.asarray(w), jnp.asarray(prev),
+        jnp.asarray(mask), block_m=bm, block_n=128, block_k=bk,
+        max_active_k=1, interpret=True)
+    out = ops.reuse_matmul_ragged(t(delta), t(w), t(prev), t(mask), block_m=bm,
+                                  block_n=128, block_k=bk)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(fallback), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_ragged_consumes_mask_not_data(rng):
+    m, k, n, bm, bk = 16, 512, 128, 8, 128
+    delta = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    prev = np.zeros((m, n), np.float32)
+    mask = np.zeros((m // bm, k // bk), np.int32)
+    mask[0, 2] = 1
+    out = ops.reuse_matmul_ragged(t(delta), t(w), t(prev), t(mask), block_m=bm,
+                                  block_n=128, block_k=bk)
+    want = tref.reuse_matmul_ref(t(delta), t(w), t(prev), t(mask), bm, bk)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+    assert not np.allclose(out.numpy(), prev + delta @ w)
+
+
+@pytest.mark.parametrize("gm,gk,p,budget", [(4, 8, 0.3, 3), (4, 8, 0.9, 3),
+                                            (2, 5, 0.5, None), (3, 6, 0.0, 1)])
+def test_ragged_accounting_matches_reference(rng, gm, gk, p, budget):
+    mask = (rng.random((gm, gk)) < p).astype(np.int32)
+    _, counts = compact_rows(t(mask))
+    jcounts = jnp.asarray(counts.numpy())
+    assert int(ops.ragged_dma_tiles(counts, gn=3)) == int(
+        jops.ragged_dma_tiles(jcounts, gn=3))
+    g = ops.ragged_grid_steps(counts, gm=gm, gn=3, gk=gk, max_active_k=budget)
+    assert g.dtype == torch.float32
+    assert float(g) == float(jops.ragged_grid_steps(
+        jcounts, gm=gm, gn=3, gk=gk, max_active_k=budget))
+    o = ops.budget_overflow(counts, gk=gk, max_active_k=budget)
+    assert o.dtype == torch.int32
+    assert int(o) == int(jops.budget_overflow(jcounts, gk=gk,
+                                              max_active_k=budget))
+    assert ops.clamp_budget(budget, gk) == jops.clamp_budget(budget, gk)
+
+
+# --------------------------------------------------------- wrapper contract
+
+def test_wrappers_reject_non_tile_multiples_and_unknown_devices(rng):
+    x = torch.zeros((8, 200))
+    with pytest.raises(ValueError, match="multiple"):
+        delta_quant(x, torch.zeros((8, 200), dtype=torch.int8),
+                    torch.tensor(0.05), block_m=8, block_k=128)
+    with pytest.raises(ValueError, match="device"):
+        delta_quant(torch.zeros((8, 128), device="meta"),
+                    torch.zeros((8, 128), dtype=torch.int8, device="meta"),
+                    torch.tensor(0.05, device="meta"), block_m=8, block_k=128)
+    with pytest.raises(ValueError, match="dataflow"):
+        reuse_matmul(torch.zeros((8, 128)), torch.zeros((128, 128)),
+                     torch.zeros((8, 128)), torch.zeros((1, 1), dtype=torch.int32),
+                     block_m=8, block_n=128, block_k=128, dataflow="diagonal")
+    with pytest.raises(ValueError, match="impl"):
+        ops.reuse_matmul(torch.zeros((8, 128)), torch.zeros((128, 128)),
+                         torch.zeros((8, 128)),
+                         torch.zeros((1, 1), dtype=torch.int32), impl="jnp")
+
+
+def test_import_builds_nothing_and_counts_start_at_zero():
+    backend.reset_launches()
+    assert backend.launch_counts() == {k: 0 for k in backend.KERNELS}
+    assert backend.best() in ("cuda", "torch")
+    assert set(backend.tag()) == {"backend", "torch", "cuda", "device",
+                                  "device_name"}
+
+
+def test_block_zero_mask_matches_delta_quant_mask(rng):
+    x = rng.normal(size=(16, 512)).astype(np.float32)
+    prev_q = rng.integers(-2, 3, size=(16, 512)).astype(np.int8)
+    q, _, msk = delta_quant_torch(t(x), t(prev_q), torch.tensor(0.05),
+                                  block_m=8, block_k=128)
+    dq = q.to(torch.int32) - t(prev_q).to(torch.int32)
+    assert torch.equal(block_zero_mask(dq, 8, 128), msk)

@@ -1,0 +1,121 @@
+"""Parity of the PyTorch port's numeric leaves with the JAX package.
+
+Inputs are made with numpy from a seed and handed to both sides; codes,
+masks, indices and counts must be bitwise equal, float outputs of the same
+elementwise chain too."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import delta as jdelta
+from repro.core import similarity as jsim
+from repro.quant import quantize as jquant
+from repro_torch.core import delta as tdelta
+from repro_torch.core import similarity as tsim
+from repro_torch.quant import quantize as tquant
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+def f32(a):
+    """numpy f32 view of a jax or torch array (bf16 widened exactly)."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, dtype=np.float32)
+
+
+def activations(rng, m, k, scale):
+    """Normal activations with a quarter of the entries exactly half-way
+    between two codes, so round-half-to-even is exercised."""
+    x = rng.normal(size=(m, k)).astype(np.float32) * 2.0
+    half = (rng.integers(-100, 100, size=(m, k)) + 0.5) * scale
+    return np.where(rng.random((m, k)) < 0.25, half, x).astype(np.float32)
+
+
+@pytest.mark.parametrize("scale", [0.05, 0.0625, 0.013])
+def test_quantize_int8_bitwise(rng, scale):
+    x = activations(rng, 16, 300, scale)
+    s = np.float32(scale)
+    jq = np.asarray(jquant.quantize_int8(jnp.asarray(x), jnp.float32(s)))
+    tq = tquant.quantize_int8(t(x), torch.tensor(s)).numpy()
+    np.testing.assert_array_equal(tq, jq)
+    jd = np.asarray(jquant.dequantize_int8(jnp.asarray(jq), jnp.float32(s)))
+    td = tquant.dequantize_int8(t(jq), torch.tensor(s)).numpy()
+    np.testing.assert_array_equal(td, jd)
+
+
+@pytest.mark.parametrize("m,k,bm,bk", [(16, 256, 8, 128), (12, 300, 8, 128),
+                                       (5, 70, 8, 64)])
+def test_similarity_and_block_mask_bitwise(rng, m, k, bm, bk):
+    cur = rng.integers(-3, 4, size=(m, k)).astype(np.int8)
+    prev = cur.copy()
+    prev[rng.random((m, k)) < 0.01] += 1
+    prev[:, : min(k, bk)] = cur[:, : min(k, bk)]  # one fully unchanged column
+    np.testing.assert_array_equal(
+        tsim.row_code_similarity(t(cur), t(prev)).numpy(),
+        np.asarray(jsim.row_code_similarity(jnp.asarray(cur), jnp.asarray(prev))))
+    dq = cur.astype(np.int32) - prev.astype(np.int32)
+    np.testing.assert_array_equal(
+        tsim.block_zero_mask(t(dq), bm, bk).numpy(),
+        np.asarray(jsim.block_zero_mask(jnp.asarray(dq), bm, bk)))
+
+
+def test_ema_update_bitwise(rng):
+    stat = rng.random(8).astype(np.float32)
+    obs = rng.random(8).astype(np.float32)
+    np.testing.assert_array_equal(
+        tsim.ema_update(t(stat), t(obs), 0.9).numpy(),
+        np.asarray(jsim.ema_update(jnp.asarray(stat), jnp.asarray(obs), 0.9)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,bm,bk", [(16, 512, 8, 128), (10, 200, 8, 64)])
+def test_delta_encode_bitwise(rng, dtype, m, k, bm, bk):
+    scale = np.float32(0.05)
+    x = activations(rng, m, k, float(scale))
+    prev = np.asarray(jquant.quantize_int8(jnp.asarray(x), jnp.float32(scale)))
+    prev = prev.copy()
+    prev[: m // 2] = rng.integers(-127, 128, size=(m // 2, k)).astype(np.int8)
+    jenc = jdelta.delta_encode(jnp.asarray(x), jnp.asarray(prev),
+                               jnp.float32(scale), block_m=bm, block_k=bk,
+                               compute_dtype=getattr(jnp, dtype))
+    tenc = tdelta.delta_encode(t(x), t(prev), torch.tensor(scale), block_m=bm,
+                               block_k=bk, compute_dtype=getattr(torch, dtype))
+    np.testing.assert_array_equal(tenc.cur_q.numpy(), np.asarray(jenc.cur_q))
+    np.testing.assert_array_equal(f32(tenc.delta), f32(jenc.delta))
+    np.testing.assert_array_equal(tenc.block_mask.numpy(),
+                                  np.asarray(jenc.block_mask))
+    assert float(tenc.skip_fraction) == float(jenc.skip_fraction)
+
+
+@pytest.mark.parametrize("gm,gk,p", [(4, 7, 0.5), (3, 12, 0.2), (2, 5, 1.0),
+                                     (5, 1, 0.5), (6, 9, 0.0)])
+def test_compact_rows_bitwise(rng, gm, gk, p):
+    mask = (rng.random((gm, gk)) < p).astype(np.int32)
+    jidx, jcnt = jdelta.compact_rows(jnp.asarray(mask))
+    tidx, tcnt = tdelta.compact_rows(t(mask))
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
+    assert tidx.dtype == torch.int32 and tcnt.dtype == torch.int32
+
+
+def test_compact_block_indices_count_zero():
+    idx, count = tdelta.compact_block_indices(torch.zeros(6, dtype=torch.int32))
+    assert int(count) == 0
+    np.testing.assert_array_equal(idx.numpy(), np.zeros(6, np.int32))
+    idx2, counts = tdelta.compact_rows(torch.tensor([[0, 0, 0], [0, 1, 0]],
+                                                    dtype=torch.int32))
+    np.testing.assert_array_equal(counts.numpy(), [0, 1])
+    np.testing.assert_array_equal(idx2[1].numpy(), [1, 1, 1])
+    np.testing.assert_array_equal(idx2[0].numpy(), [0, 0, 0])
+    jidx, jcount = jdelta.compact_block_indices(jnp.zeros((6,), jnp.int32))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+
+
+def test_jax_stays_on_cpu():
+    assert jax.default_backend() == "cpu"

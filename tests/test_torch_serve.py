@@ -1,0 +1,161 @@
+"""The port's decode slice end to end against the JAX package, and the
+port's import hygiene and serve entry point.
+
+Reduced qwen3-32b runs in f32. `build_reuse_engine(block_k=64)` gives gk >= 2
+at every site (at block_k=256 a reduced model has gk = 1 and never skips).
+The JAX weights are carried over with `params_from_numpy`; both sides
+prefill the same prompts and decode the same tokens with reuse on, the JAX
+side with impl="pallas" (the compiled-XLA tier on this host). Logits must
+agree within rtol 1e-4 and atol 1e-4: the same f32 products are summed in
+another order at every site and in attention, and the int8 activation codes
+(which are compared too) are equal, so no code flip amplifies the
+difference. Greedy tokens must be equal, and every sensor counter too."""
+
+import ast
+import dataclasses
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS
+from repro.core.policy import ReusePolicy as JPolicy
+from repro.core.policy import SiteTunables as JTunables
+from repro.models import init_params as jinit_params
+from repro.serve import serve_step as jserve
+from repro_torch.configs import ARCHS
+from repro_torch.core.policy import ReusePolicy, SiteTunables
+from repro_torch.launch import serve as tserve_cli
+from repro_torch.models import params_from_numpy
+from repro_torch.serve import serve_step as tserve
+from test_torch_engine import assert_caches_match
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SITES = ("attn_qkv", "attn_out", "mlp_in", "mlp_out")
+B, PROMPT, CACHE, STEPS = 2, 8, 32, 4
+
+
+def configs(variant):
+    jcfg, tcfg = JARCHS["qwen3-32b"].reduced(), ARCHS["qwen3-32b"].reduced()
+    if variant == "input_stationary":
+        # mlp_out: 640 > 4·128, so the site takes the input-stationary path
+        jcfg = dataclasses.replace(jcfg, d_ff=640)
+        tcfg = dataclasses.replace(tcfg, d_ff=640)
+    jpol, tpol = JPolicy(), ReusePolicy()
+    if variant == "ragged":
+        # max_active_k=1 < gk=2: live rows overflow the budget, exercising
+        # the fallback's accounting
+        jpol = JPolicy(site_tunables={
+            s: JTunables(exec_path="ragged", max_active_k=1) for s in SITES})
+        tpol = ReusePolicy(site_tunables={
+            s: SiteTunables(exec_path="ragged", max_active_k=1) for s in SITES})
+    return jcfg, tcfg, jpol, tpol
+
+
+@pytest.mark.parametrize("variant", ["default", "input_stationary", "ragged"])
+def test_decode_slice_matches_jax(rng, variant):
+    jcfg, tcfg, jpol, tpol = configs(variant)
+    assert tcfg == type(tcfg)(**dataclasses.asdict(jcfg))
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+
+    prompts = rng.integers(0, jcfg.vocab, (B, PROMPT)).astype(np.int32)
+    jstate = jserve.init_serve_state(jcfg, B, CACHE)
+    tstate = tserve.init_serve_state(tcfg, B, CACHE, device="cpu")
+    jlog, jstate = jax.jit(lambda p, t, s: jserve.prefill_step(p, jcfg, t, s))(
+        jparams, jnp.asarray(prompts), jstate)
+    tlog, tstate = tserve.prefill_step(tparams, tcfg, torch.from_numpy(prompts),
+                                       tstate)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=1e-4,
+                               atol=1e-4)
+
+    jeng = jserve.build_reuse_engine(jcfg, impl="pallas", block_k=64,
+                                     policy=jpol)
+    teng = tserve.build_reuse_engine(tcfg, impl="cuda", block_k=64,
+                                     policy=tpol)
+    if variant == "input_stationary":
+        assert teng.sites["mlp_out"].dataflow == "input"
+    jrc, trc = jeng.init_cache(B), teng.init_cache(B, device="cpu")
+    jdecode = jax.jit(lambda p, t, s, rc: jserve.decode_step(
+        p, jcfg, t, s, engine=jeng, reuse_cache=rc))
+    # every step feeds the prefill's greedy token again: layer 0's attn_qkv
+    # then sees an unchanged input and skips its tiles
+    tok = np.array(jserve.greedy_sample(jlog))
+    for _ in range(STEPS):
+        jlog, jstate, jrc = jdecode(jparams, jnp.asarray(tok), jstate, jrc)
+        tlog, tstate, trc = tserve.decode_step(
+            tparams, tcfg, torch.from_numpy(tok), tstate, engine=teng,
+            reuse_cache=trc)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_array_equal(tserve.greedy_sample(tlog).numpy(),
+                                      np.asarray(jserve.greedy_sample(jlog)))
+    assert int(tstate["len"]) == int(jstate["len"]) == PROMPT + STEPS
+    assert_caches_match(jrc, trc)
+    skipped = sum(int(e["sensor"]["skipped_tiles"].sum()) for e in trc.values())
+    assert skipped > 0  # the reuse skip was exercised
+    if variant == "ragged":
+        assert sum(int(e["sensor"]["overflow_fallbacks"].sum())
+                   for e in trc.values()) > 0
+
+
+def test_params_from_numpy_carries_bf16_exactly():
+    jcfg = dataclasses.replace(JARCHS["qwen3-32b"].reduced(),
+                               param_dtype="bfloat16")
+    tcfg = dataclasses.replace(ARCHS["qwen3-32b"].reduced(),
+                               param_dtype="bfloat16")
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(1))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    wqkv = tparams["blocks"]["attn"]["wqkv"]
+    assert wqkv.dtype == torch.bfloat16
+    assert tuple(wqkv.shape) == (2, 128, 256)  # stacked [L, ...]
+    np.testing.assert_array_equal(
+        wqkv.float().numpy(),
+        np.asarray(jparams["blocks"]["attn"]["wqkv"], np.float32))
+    assert tparams["blocks"]["attn"]["norm"]["scale"].dtype == torch.float32
+
+
+def test_serve_cli_on_cpu(capsys):
+    tserve_cli.main(["--arch", "qwen3-32b", "--reduced", "--requests", "3",
+                     "--batch-slots", "2", "--prompt-len", "4",
+                     "--cache-len", "16", "--max-new", "3", "--reuse",
+                     "--refresh-every", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "kernel substrate: backend=" in out
+    assert out.count("SensorReport rid=") == 3
+    assert "SensorReport model:" in out
+    assert "served 3/3 requests" in out
+
+
+def test_serve_default_device_fails_loudly_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve_cli.main(["--arch", "qwen3-32b", "--reduced", "--requests", "1",
+                         "--reuse"])
+
+
+def _imports(path: pathlib.Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+    return mods
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append(f"{f.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
