@@ -3,6 +3,12 @@
 Deltas are dequantized (scale · (q_c − q_p)) into the weight dtype, so zero
 codes give exactly-zero deltas and tile skipping is exact. The compaction
 helpers front-compact each m-row-block's active K-blocks for the ragged GEMM.
+
+The int8 path (paper Sec. IV-B) keeps Δ in the code domain. The difference of
+two int8 codes spans [−254, 254], so `delta_encode_int8` splits it into
+lo = clip(Δ, −127, 127) and hi = Δ − lo, both in int8 range; the hi GEMM runs
+through the same block-skip kernel and its near-empty mask makes it nearly
+free.
 """
 
 from __future__ import annotations
@@ -39,6 +45,30 @@ def delta_encode(
     skip = 1.0 - torch.mean(mask.float())
     return DeltaEncoding(delta=delta, cur_q=cur_q, block_mask=mask,
                          skip_fraction=skip)
+
+
+class Int8Delta(NamedTuple):
+    lo: torch.Tensor            # int8 [M, K]
+    hi: torch.Tensor            # int8 [M, K]; nonzero only where |Δ| > 127
+    lo_mask: torch.Tensor       # int32 [gm, gk]
+    hi_mask: torch.Tensor       # int32 [gm, gk] (≈ all zeros)
+    has_overflow: torch.Tensor  # bool scalar
+
+
+def delta_encode_int8(
+    cur_q: torch.Tensor, prev_q: torch.Tensor, *, block_m: int, block_k: int
+) -> Int8Delta:
+    """The int8 delta with the overflow split: lo + hi = cur_q − prev_q."""
+    dq = cur_q.to(torch.int32) - prev_q.to(torch.int32)
+    lo = torch.clamp(dq, -127, 127)
+    hi = dq - lo  # |hi| <= 127 because |dq| <= 254
+    return Int8Delta(
+        lo=lo.to(torch.int8),
+        hi=hi.to(torch.int8),
+        lo_mask=block_zero_mask(lo, block_m, block_k),
+        hi_mask=block_zero_mask(hi, block_m, block_k),
+        has_overflow=(hi != 0).any(),
+    )
 
 
 def compact_rows(block_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.reuse_cache import ReuseSiteSpec, resolve_exec_path
-from repro_torch.core.similarity import ema_update, row_code_similarity
+from repro_torch.core.similarity import ema_update_mean, row_code_matches
 from repro_torch.kernels import ops
 from repro_torch.quant import dequantize_int8, quantize_int8
 from repro_torch.sensor.counters import update_on_basic, update_on_reuse
@@ -48,18 +48,19 @@ def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float):
     # the basic-mode GEMM sits outside any reuse kernel; the product keeps
     # the reference's f32 result (preferred_element_type=f32)
     out = xq.float() @ w.float()
-    row_sim = row_code_similarity(cur_q, cache["prev_q"])
+    matches = row_code_matches(cur_q, cache["prev_q"])
     cache["prev_q"].copy_(cur_q)
     cache["prev_out"].copy_(out)
-    cache["sim_ema"].copy_(ema_update(cache["sim_ema"], row_sim, ema_decay))
+    cache["sim_ema"].copy_(
+        ema_update_mean(cache["sim_ema"], matches, k, ema_decay))
     cache["steps"].add_(1)
     if "sensor" in cache:
         update_on_basic(
-            cache["sensor"], row_sim=row_sim, m=m, k=k, n=n,
+            cache["sensor"], row_matches=matches, m=m, k=k, n=n,
             gn=-(-n // spec.block_n), block_m=spec.block_m,
             block_k=spec.block_k, w_itemsize=w.element_size(),
         )
-    stats = ReuseStats(similarity=row_sim.mean(),
+    stats = ReuseStats(similarity=(matches * (1.0 / k)).mean(),
                        skip_fraction=torch.zeros((), device=xm.device))
     return out, stats
 
@@ -100,26 +101,28 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str, ema_decay: float):
         raise ValueError(
             f"exec_path {path!r} of site {spec.name!r} is not available in "
             "this package (only 'kernel' and 'ragged' are)")
-    row_sim = row_code_similarity(cur_q, cache["prev_q"])
+    k = xm.shape[1]
+    matches = row_code_matches(cur_q, cache["prev_q"])
     cache["prev_q"].copy_(cur_q)
     cache["prev_out"].copy_(out)
-    cache["sim_ema"].copy_(ema_update(cache["sim_ema"], row_sim, ema_decay))
+    cache["sim_ema"].copy_(
+        ema_update_mean(cache["sim_ema"], matches, k, ema_decay))
     cache["steps"].add_(1)
     if "ctrl" in cache:
-        live = mask.float().mean()
         occ = cache["ctrl"]["occupancy"]
-        occ.copy_(ema_update(occ, live, ema_decay))
+        occ.copy_(ema_update_mean(occ, mask.sum(dtype=torch.float32),
+                                  gm * gk, ema_decay))
     if "sensor" in cache:
         if dma_issued is None:  # kernel path: masked full-grid semantics
             dma_issued = ops.weight_dma_tiles(
                 mask, gn=gn, dataflow=spec.dataflow, sel=sel)
         update_on_reuse(
-            cache["sensor"], block_mask=mask, row_sim=row_sim,
+            cache["sensor"], block_mask=mask, row_matches=matches, k=k,
             block_m=spec.block_m, block_k=spec.block_k, n=n, gn=gn,
             w_itemsize=w.element_size(), dma_issued=dma_issued,
             grid_steps=grid_steps, overflow=overflow,
         )
-    stats = ReuseStats(similarity=row_sim.mean(),
+    stats = ReuseStats(similarity=(matches * (1.0 / k)).mean(),
                        skip_fraction=1.0 - mask.float().mean())
     return out, stats
 

@@ -4,20 +4,52 @@ Similarity between two consecutive evaluations of a layer is the fraction of
 identical int8 codes at matching positions. The skip granularity of the reuse
 GEMM is a (block_m × block_k) tile, so `block_zero_mask` marks the tiles with
 any changed code.
+
+The running lanes fed by a similarity (`sim_ema`, the ctrl occupancy, the
+sensor's `slot_hit_sum`) are rounded as the reference's compiled step rounds
+them. There XLA lowers a mean over n to `sum · f32(1/n)`, folds the constant
+factors of an EMA into one f32 constant, and its CPU backend contracts the
+multiply and the add that follows into one FMA (`vfmadd` in the compiled
+object). `fma_f32` reproduces that single rounding.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor | float,
+            c: torch.Tensor) -> torch.Tensor:
+    """f32 `a·b + c` rounded once, as a fused multiply-add. The product of
+    two f32 values is exact in f64; the f64 sum is made round-to-odd (its
+    exact error from TwoSum decides the last bit), and round-to-odd to 53
+    bits followed by one rounding to 24 bits is the correctly rounded
+    result. A float `b` stays a Python scalar (rounded to f32), so no host
+    value is copied to the device."""
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor)
+                      else float(np.float32(b)))
+    cd = c.double()
+    s = p + cd
+    bp = s - cd
+    err = (p - bp) + (cd - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    # one ulp toward the exact sum (err · inf is ±inf where err != 0)
+    s = torch.where((err != 0) & even, torch.nextafter(s, err * np.inf), s)
+    return s.float()
+
+
+def row_code_matches(cur_q: torch.Tensor, prev_q: torch.Tensor) -> torch.Tensor:
+    """Per-row count of identical codes, [M] f32 (exact)."""
+    return (cur_q == prev_q).sum(dim=-1, dtype=torch.float32)
 
 
 def row_code_similarity(cur_q: torch.Tensor, prev_q: torch.Tensor) -> torch.Tensor:
     """Per-row code-match fraction, [M] f32 — one similarity per serving slot.
     The exact match count times the f32 reciprocal of K, as XLA lowers the
     reference's mean (bitwise equal to it)."""
-    count = (cur_q == prev_q).sum(dim=-1, dtype=torch.float32)
-    return count * (1.0 / cur_q.shape[-1])
+    return row_code_matches(cur_q, prev_q) * (1.0 / cur_q.shape[-1])
 
 
 def block_zero_mask(delta: torch.Tensor, block_m: int, block_k: int) -> torch.Tensor:
@@ -35,6 +67,11 @@ def block_zero_mask(delta: torch.Tensor, block_m: int, block_k: int) -> torch.Te
     return (tiles != 0).any(dim=3).any(dim=1).to(torch.int32)
 
 
-def ema_update(stat: torch.Tensor, obs: torch.Tensor, decay: float) -> torch.Tensor:
-    """Running similarity estimate the reuse policy reads."""
-    return decay * stat + (1.0 - decay) * obs
+def ema_update_mean(stat: torch.Tensor, total: torch.Tensor, n: int,
+                    decay: float) -> torch.Tensor:
+    """The running estimate the reuse policy reads, `decay·stat + (1 −
+    decay)·total/n` (the reference's `ema_update` of a mean), as the
+    reference's compiled step computes it: `fma(stat, decay, total·c)` with
+    the folded constant `c = f32(1 − decay) · f32(1/n)` rounded to f32."""
+    c = float(np.float32(1.0 - decay) * np.float32(1.0 / n))
+    return fma_f32(stat, decay, total * c)

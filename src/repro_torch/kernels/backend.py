@@ -38,9 +38,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("delta_quant", "reuse_matmul", "reuse_matmul_ragged")
+SOURCES = ("delta_quant", "reuse_matmul", "reuse_matmul_ragged",
+           "reuse_matmul_int8", "wkv6_decode")
 KERNELS = ("delta_quant", "reuse_matmul_output", "reuse_matmul_input",
-           "reuse_matmul_ragged")
+           "reuse_matmul_ragged", "reuse_matmul_int8", "wkv6_decode")
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,6 +66,14 @@ SIGNATURES = {
         # delta, w, dtype, prev_out, counts, idx, idx_ld, out, M, K, N, bm, bk, stream
         "rt_reuse_matmul_ragged": (_P, _P, _I, _P, _P, _P, _I, _P,
                                    _I, _I, _I, _I, _I, _P),
+    },
+    "reuse_matmul_int8": {
+        # delta, w, prev_acc, mask, out, M, K, N, bm, bk, stream
+        "rt_reuse_matmul_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "wkv6_decode": {
+        # r, k, v, w, u, state, out, BH, H, dk, dv, stream
+        "rt_wkv6_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

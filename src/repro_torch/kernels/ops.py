@@ -5,6 +5,10 @@ Execution paths of the reuse-mode ΔW GEMM (`ReuseSiteSpec.exec_path`):
   "ragged" — compacted walk over each row's active k-blocks
              (`reuse_matmul_ragged`).
 
+Beside them: the int8 split GEMM (`reuse_matmul_int8`, exact int32, fed by
+`core.delta.delta_encode_int8`) and the RWKV6 recurrence step
+(`wkv6_decode`, which updates its state in place).
+
 `impl` picks the substrate: "cuda" calls the kernel wrappers, which launch
 the Hopper kernels on CUDA tensors (and take the plain versions on CPU
 tensors); "torch" calls the plain versions directly, on any device.
@@ -25,7 +29,9 @@ import torch.nn.functional as F
 from repro_torch.core.delta import compact_rows
 from repro_torch.kernels import delta_quant as _dq
 from repro_torch.kernels import reuse_matmul as _rm
+from repro_torch.kernels import reuse_matmul_int8 as _ri
 from repro_torch.kernels import reuse_matmul_ragged as _rr
+from repro_torch.kernels import wkv6_decode as _wkv
 from repro_torch.kernels.reuse_matmul import skip_sel, weight_dma_tiles
 
 __all__ = [
@@ -36,9 +42,11 @@ __all__ = [
     "ragged_dma_tiles",
     "ragged_grid_steps",
     "reuse_matmul",
+    "reuse_matmul_int8",
     "reuse_matmul_ragged",
     "skip_sel",
     "weight_dma_tiles",
+    "wkv6_decode",
 ]
 
 IMPLS = ("cuda", "torch")
@@ -95,6 +103,58 @@ def reuse_matmul(
         out = _rm.reuse_matmul_torch(dp, wp, pp, block_mask,
                                      block_m=block_m, block_k=block_k)
     return out[:m, :n]
+
+
+def reuse_matmul_int8(
+    delta_q: torch.Tensor,     # [M, K] int8 (lo or hi of delta_encode_int8)
+    w_q: torch.Tensor,         # [K, N] int8
+    prev_acc: torch.Tensor,    # [M, N] int32
+    block_mask: torch.Tensor,  # [gm, gk] int32 of the padded operands
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+    block_k: int = 256,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """Padded entry to the int8 block-skip GEMM (exact int32 result)."""
+    _check_impl(impl)
+    m, n = prev_acc.shape
+    dp = _pad_to(delta_q, block_m, block_k)
+    wp = _pad_to(w_q, block_k, block_n)
+    pp = _pad_to(prev_acc, block_m, block_n)
+    gm, gk = dp.shape[0] // block_m, dp.shape[1] // block_k
+    if tuple(block_mask.shape) != (gm, gk):
+        raise ValueError(f"mask {tuple(block_mask.shape)} != {(gm, gk)}")
+    if impl == "cuda":
+        out = _ri.reuse_matmul_int8(dp, wp, pp, block_mask.contiguous(),
+                                    block_m=block_m, block_n=block_n,
+                                    block_k=block_k)
+    else:
+        out = _ri.reuse_matmul_int8_torch(dp, wp, pp, block_mask,
+                                          block_m=block_m, block_k=block_k)
+    return out[:m, :n]
+
+
+def wkv6_decode(
+    r: torch.Tensor,      # [B, H, dk]
+    k: torch.Tensor,      # [B, H, dk]
+    v: torch.Tensor,      # [B, H, dv]
+    w: torch.Tensor,      # [B, H, dk] decay in (0, 1)
+    u: torch.Tensor,      # [H, dk] bonus
+    state: torch.Tensor,  # [B, H, dk, dv] f32, updated IN PLACE
+    *,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """One RWKV6 recurrence step. Returns out [B, H, dv] f32 and writes the
+    new state into `state` on both substrates."""
+    _check_impl(impl)
+    r, k, v, w, u = (a.contiguous() for a in (r, k, v, w, u))
+    if impl == "cuda":
+        out, _ = _wkv.wkv6_decode(r, k, v, w, u, state)
+        return out
+    out, s_new = _wkv.wkv6_decode_torch(r, k, v, w, u, state)
+    state.copy_(s_new)
+    return out
 
 
 def reuse_matmul_ragged(

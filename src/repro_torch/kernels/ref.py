@@ -28,6 +28,32 @@ def reuse_matmul_ref(
     return prev_out + d @ w.float()
 
 
+def reuse_matmul_int8_ref(
+    delta_q: torch.Tensor,     # [M, K] int8
+    w_q: torch.Tensor,         # [K, N] int8
+    prev_acc: torch.Tensor,    # [M, N] int32
+    block_mask: torch.Tensor,  # [gm, gk] int32
+    block_m: int,
+    block_k: int,
+) -> torch.Tensor:
+    """Int8 × int8 → int32 accumulate variant (the mla8 analogue), computed
+    in int64 and narrowed."""
+    m, k = delta_q.shape
+    em = expand_block_mask(block_mask, m, k, block_m, block_k).long()
+    d = delta_q.long() * em
+    return (prev_acc.long() + d @ w_q.long()).to(torch.int32)
+
+
+def wkv6_decode_ref(r, k, v, w, u, state):
+    """The RWKV6 recurrence step (the step body of the time mix). Returns
+    (out [B, H, dv] f32, new state); `state` is not written."""
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    kv = kf[..., :, None] * vf[..., None, :]
+    out = torch.einsum("bhk,bhkv->bhv", rf,
+                       u[None, :, :, None].float() * kv + state)
+    return out, wf[..., :, None] * state + kv
+
+
 def delta_quant_ref(
     x: torch.Tensor,
     prev_q: torch.Tensor,

@@ -1,10 +1,15 @@
-"""Dense decoder: parameters, decode state, forward, logits.
+"""Model composition: parameters, decode state, forward, logits.
+
+Two families are ported: the dense decoder (qwen3-style, tied embeddings, KV
+cache) and RWKV6 (time mix + channel mix per block, an untied LM head, a
+recurrent state instead of a KV cache).
 
 Parameters are a plain dict laid out as the JAX package's pytree: the block
 leaves stay STACKED with a leading [L] axis (`params["blocks"]["attn"]["wqkv"]`
-is [L, d, q+2kv]), and layer l reads the contiguous views `leaf[l]`. The
-reference's `lax.scan` over stacked blocks becomes a Python loop over layers;
-the per-layer lane of the KV cache and of every reuse site is a view, and
+is [L, d, q+2kv], `params["blocks"]["rwkv"]["tmix"]["wr"]` is [L, d, d]), and
+layer l reads the contiguous views `leaf[l]`. The reference's `lax.scan` over
+stacked blocks becomes a Python loop over layers; the per-layer lane of the
+decode state (KV cache or rwkv state) and of every reuse site is a view, and
 both are updated in place.
 """
 
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Params,
     apply_norm,
@@ -25,16 +31,21 @@ from repro_torch.models.layers import (
 )
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """This slice ports one model family: dense, full causal attention with
-    RoPE, a swiglu MLP, tied embeddings, an unquantized KV cache."""
-    if (cfg.family != "dense" or cfg.n_experts or cfg.ssm_kind != "none"
-            or cfg.frontend != "none" or cfg.attn_kind != "full"
-            or cfg.rope != "rope" or cfg.mlp_kind != "swiglu"
-            or not cfg.tie_embeddings or cfg.kv_head_pad_to
-            or cfg.kv_cache_quant):
+def check_family(cfg: ModelConfig) -> None:
+    """The ported families: dense (full causal attention with RoPE, a swiglu
+    MLP, tied embeddings, an unquantized KV cache) and rwkv6 (attention-free,
+    untied LM head). Anything else raises."""
+    common = (cfg.n_experts or cfg.frontend != "none" or cfg.hybrid_attn_every
+              or cfg.kv_head_pad_to or cfg.kv_cache_quant)
+    dense = (cfg.family == "dense" and cfg.ssm_kind == "none"
+             and cfg.attn_kind == "full" and cfg.rope == "rope"
+             and cfg.mlp_kind == "swiglu" and cfg.tie_embeddings)
+    rwkv6 = (cfg.family == "ssm" and cfg.ssm_kind == "rwkv6"
+             and cfg.attn_kind == "none" and not cfg.tie_embeddings)
+    if common or not (dense or rwkv6):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense qwen3-style path is ported")
+            f"{cfg.name}: only the dense qwen3-style and the rwkv6 paths are "
+            "ported")
 
 
 def _tree_map(fn, tree):
@@ -49,10 +60,21 @@ def init_params(
     """Random parameters made on `device` from a seeded torch.Generator, at
     the reference's scales: normal/sqrt(fan_in) for weights, 0.01 for the
     embedding, zero norm scales (rms_norm multiplies by 1 + scale)."""
-    _check_dense(cfg)
+    check_family(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L, d, dt = cfg.n_superblocks, cfg.d_model, cfg.dtype
+    final_norm = {"scale": torch.zeros((d,), dtype=torch.float32,
+                                       device=device)}
+    if cfg.ssm_kind == "rwkv6":
+        blocks = {"rwkv": ssm_mod.init_rwkv6(cfg, gen, layers=L,
+                                             device=device)}
+        embed = torch.randn((cfg.vocab, d), generator=gen, device=device,
+                            dtype=torch.float32).mul_(0.01).to(dt)
+        head = torch.randn((d, cfg.vocab), generator=gen, device=device,
+                           dtype=torch.float32).mul_(1.0 / math.sqrt(d))
+        return {"embed": embed, "blocks": blocks, "final_norm": final_norm,
+                "lm_head": head.to(dt)}
 
     def dense(*shape):
         t = torch.randn((L, *shape), generator=gen, device=device,
@@ -78,8 +100,7 @@ def init_params(
         "blocks": {"attn": attn,
                    "mlp": {"wi": dense(d, 2 * cfg.d_ff), "wo": dense(cfg.d_ff, d),
                            "norm": norm(d)}},
-        "final_norm": {"scale": torch.zeros((d,), dtype=torch.float32,
-                                            device=device)},
+        "final_norm": final_norm,
     }
     return params
 
@@ -104,11 +125,18 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> Params:
 def init_decode_state(
     cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda"
 ) -> dict:
-    """KV caches [L, B, S, KV, D] and the valid length (a device scalar)."""
-    _check_dense(cfg)
+    """The valid length (a device scalar) and the per-layer state: KV
+    caches [L, B, S, KV, D] (dense), or the rwkv state {tmix: {shift
+    [L, B, d], wkv [L, B, H, dk, dv] f32}, cmix: {shift}} (rwkv6)."""
+    check_family(cfg)
+    length = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.ssm_kind == "rwkv6":
+        return {"len": length,
+                "blocks": ssm_mod.init_rwkv6_state(
+                    cfg, batch, layers=cfg.n_superblocks, device=device)}
     shape = (cfg.n_superblocks, batch, cache_len, cfg.kv_heads_eff, cfg.head_dim)
     return {
-        "len": torch.zeros((), dtype=torch.int32, device=device),
+        "len": length,
         "blocks": {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                    "v": torch.zeros(shape, dtype=cfg.dtype, device=device)},
     }
@@ -120,20 +148,42 @@ def embed_inputs(params: Params, cfg: ModelConfig, inputs: dict) -> torch.Tensor
 
 def output_logits(params: Params, cfg: ModelConfig, h: torch.Tensor,
                   *, vocab_chunk: int = 16384) -> torch.Tensor:
-    """f32 logits [B, S, V] of the tied head, as the reference's
-    preferred_element_type=f32 product: the bf16 embedding is widened to f32
+    """f32 logits [B, S, V] of the untied `lm_head` [d, V] where there is
+    one, else of the tied embedding, as the reference's
+    preferred_element_type=f32 product: the bf16 weights are widened to f32
     a vocabulary chunk at a time, so no bf16 rounding of the logits."""
     h = apply_norm(params["final_norm"], h, cfg.norm_eps).float()
-    emb = params["embed"]
-    out = torch.empty((*h.shape[:-1], emb.shape[0]), dtype=torch.float32,
+    head = params.get("lm_head")
+    vocab = head.shape[1] if head is not None else params["embed"].shape[0]
+    out = torch.empty((*h.shape[:-1], vocab), dtype=torch.float32,
                       device=h.device)
-    for v0 in range(0, emb.shape[0], vocab_chunk):
-        out[..., v0:v0 + vocab_chunk] = h @ emb[v0:v0 + vocab_chunk].float().T
+    for v0 in range(0, vocab, vocab_chunk):
+        if head is not None:
+            wt = head[:, v0:v0 + vocab_chunk].float()
+        else:
+            wt = params["embed"][v0:v0 + vocab_chunk].float().T
+        out[..., v0:v0 + vocab_chunk] = h @ wt
     return out
 
 
 def _layer(tree, layer: int):
     return _tree_map(lambda t: t[layer], tree)
+
+
+def _rwkv6_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 st: dict | None, rctx) -> torch.Tensor:
+    """One rwkv6 block: x + time_mix(norm1 x), then + channel_mix(norm2 x).
+    Without a decode state the block starts from a zero state."""
+    if st is None:
+        st = ssm_mod.init_rwkv6_state(cfg, x.shape[0], device=x.device)
+    h, _ = ssm_mod.rwkv6_time_mix(p, cfg, apply_norm(p["norm1"], x,
+                                                     cfg.norm_eps),
+                                  st["tmix"], reuse_ctx=rctx)
+    x = x + h
+    h, _ = ssm_mod.rwkv6_channel_mix(p, cfg, apply_norm(p["norm2"], x,
+                                                        cfg.norm_eps),
+                                     st["cmix"], reuse_ctx=rctx)
+    return x + h
 
 
 def forward(
@@ -146,8 +196,8 @@ def forward(
     reuse_cache: dict | None = None,
 ):
     """Returns (hidden [B,S,d], new_decode_state, reuse_cache, stats). The
-    decode state's KV lanes and the reuse cache are updated in place."""
-    _check_dense(cfg)
+    decode state's lanes and the reuse cache are updated in place."""
+    check_family(cfg)
     decode = decode_state is not None
     x = embed_inputs(params, cfg, inputs)
     b, s, _ = x.shape
@@ -164,6 +214,9 @@ def forward(
         if reuse_engine is not None and reuse_cache is not None:
             rctx = (reuse_engine, reuse_engine.layer_view(reuse_cache, layer),
                     stats)
+        if cfg.ssm_kind == "rwkv6":
+            x = _rwkv6_block(bp["rwkv"], cfg, x, kv, rctx)
+            continue
         x = x + attention_forward(
             bp["attn"], cfg, x, positions=positions, kv_cache=kv,
             kv_len=decode_state["len"] if decode else None, reuse_ctx=rctx,

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.similarity import fma_f32
+
 COUNTER_KEYS = (
     "skipped_tiles", "computed_tiles", "skipped_macs", "computed_macs",
     "skipped_weight_bytes", "total_weight_bytes", "reused_out_elems",
@@ -61,11 +63,20 @@ def _mode_bookkeeping(sensor: dict, flag: int) -> None:
     sensor["mode_flag"].fill_(flag)
 
 
+def _add_hits(sensor: dict, row_matches: torch.Tensor, k: int) -> None:
+    """slot_hit_sum += row similarity, as one FMA of the match count and
+    f32(1/k), the rounding of the reference's compiled step."""
+    sensor["slot_hit_sum"].copy_(
+        fma_f32(row_matches, 1.0 / k, sensor["slot_hit_sum"]))
+    sensor["slot_steps"].add_(1)
+
+
 def update_on_reuse(
     sensor: dict[str, torch.Tensor],
     *,
     block_mask: torch.Tensor,   # [gm, gk] int32; 1 = tile computed
-    row_sim: torch.Tensor,      # [M]
+    row_matches: torch.Tensor,  # [M] f32 count of unchanged codes per row
+    k: int,
     block_m: int,
     block_k: int,
     n: int,
@@ -99,14 +110,13 @@ def update_on_reuse(
     if overflow is not None:
         s["overflow_fallbacks"].add_(overflow.to(torch.int32))
     _mode_bookkeeping(s, 1)
-    s["slot_hit_sum"].add_(row_sim.float())
-    s["slot_steps"].add_(1)
+    _add_hits(s, row_matches, k)
 
 
 def update_on_basic(
     sensor: dict[str, torch.Tensor],
     *,
-    row_sim: torch.Tensor,
+    row_matches: torch.Tensor,
     m: int,
     k: int,
     n: int,
@@ -129,5 +139,4 @@ def update_on_basic(
     s["dma_issued_tiles"].add_(gm * gk * gn)
     s["grid_steps"].add_(float(gm * gk * gn))
     _mode_bookkeeping(s, 0)
-    s["slot_hit_sum"].add_(row_sim.float())
-    s["slot_steps"].add_(1)
+    _add_hits(s, row_matches, k)

@@ -15,7 +15,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ReuseEngine
 from repro_torch.core.policy import ReusePolicy
 from repro_torch.models import forward, init_decode_state, output_logits
-from repro_torch.models.transformer import _check_dense
+from repro_torch.models.transformer import check_family
 
 
 def build_reuse_engine(
@@ -26,16 +26,26 @@ def build_reuse_engine(
     block_k: int = 256,
     policy: ReusePolicy | None = None,
 ) -> ReuseEngine:
-    """Register the decode-time reuse sites of a dense transformer: the
-    attention projections and the MLP, four per layer, stacked over layers.
+    """Register the decode-time reuse sites, stacked over layers, with the
+    reference's names and shapes: for a dense transformer the attention
+    projections and the MLP (four per layer); for rwkv6 the time mix's
+    r/k/v/g/o projections and the channel mix's k/v/r (eight per layer).
     A tuned `policy` resolves each site's block_k, exec_path and budget."""
-    _check_dense(cfg)
+    check_family(cfg)
     eng = ReuseEngine(impl=impl, policy=policy or ReusePolicy())
     nsb, d = cfg.n_superblocks, cfg.d_model
 
     def reg(name, fi, fo):
         eng.register(name, fi, fo, n_layers=nsb, block_m=block_m,
                      block_k=block_k)
+
+    if cfg.ssm_kind == "rwkv6":
+        for nm in ("wr", "wk", "wv", "wg", "wo"):
+            reg(f"rwkv_{nm}", d, d)
+        reg("rwkv_cmix_wk", d, cfg.d_ff)
+        reg("rwkv_cmix_wv", cfg.d_ff, d)
+        reg("rwkv_cmix_wr", d, d)
+        return eng
 
     reg("attn_qkv", d, cfg.q_dim + 2 * cfg.kv_dim)
     reg("attn_out", cfg.q_dim, d)

@@ -9,14 +9,16 @@ This file imports no JAX (the machine with the card has none):
 import pytest
 import torch
 
-from repro_torch.core.delta import compact_rows
-from repro_torch.kernels import backend
+from repro_torch.core.delta import compact_rows, delta_encode_int8
+from repro_torch.kernels import backend, ops
 from repro_torch.kernels.delta_quant import delta_quant, delta_quant_torch
 from repro_torch.kernels.reuse_matmul import reuse_matmul, reuse_matmul_torch
+from repro_torch.kernels.reuse_matmul_int8 import reuse_matmul_int8_torch
 from repro_torch.kernels.reuse_matmul_ragged import (
     reuse_matmul_ragged,
     reuse_matmul_ragged_torch,
 )
+from repro_torch.kernels.wkv6_decode import wkv6_decode, wkv6_decode_torch
 from repro_torch.launch import serve as tserve_cli
 
 # f32 GEMMs as tests/test_kernels.py: the same products summed in another order
@@ -85,11 +87,67 @@ def test_delta_quant_matches_plain_on_card(card, dtype):
 
 
 @pytest.mark.gpu
-def test_serve_runs_the_kernels_on_the_card(card, capsys):
+@pytest.mark.parametrize("b,h,dk", [(8, 64, 64), (2, 4, 32)])
+def test_wkv6_decode_matches_plain_on_card(card, b, h, dk):
+    """S' bitwise (the kernel rounds w·S and + kv apart, as the plain
+    version's two kernels do); out within atol 1e-5 + rtol 1e-5 of the sum
+    of |terms| (a dk-term f32 sum in another order)."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    r, k, v, u = (torch.randn(shape, generator=gen, device=card)
+                  for shape in ((b, h, dk),) * 3 + ((h, dk),))
+    w = torch.rand((b, h, dk), generator=gen, device=card) * 0.9 + 0.05
+    state = torch.randn((b, h, dk, dk), generator=gen, device=card)
+    want_o, want_s = wkv6_decode_torch(r, k, v, w, u, state)
+    terms = (r[..., :, None] * (u[None, :, :, None] * k[..., :, None]
+                                * v[..., None, :] + state)).abs().sum(-2)
+    before = backend.launch_counts()["wkv6_decode"]
+    out, same = wkv6_decode(r, k, v, w, u, state)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["wkv6_decode"] == before + 1
+    assert same is state and torch.equal(state, want_s)
+    assert bool(((out - want_o).abs() <= 1e-5 + 1e-5 * terms).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,bm", [(8, 8), (128, 128)])
+def test_int8_split_matches_plain_on_card(card, m, bm):
+    gen = torch.Generator(device=card).manual_seed(0)
+    k, n, bk = 1024, 384, 256
+    prev = torch.randint(-127, 128, (m, k), generator=gen, device=card)
+    cur = prev.clone()
+    cur[:, 256:512] = torch.randint(-127, 128, (m, 256), generator=gen,
+                                    device=card)
+    cur[0, :4], prev[0, :4] = 127, -127   # |Δ| = 254: the split overflows
+    cur, prev = cur.to(torch.int8), prev.to(torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen,
+                       device=card).to(torch.int8)
+    acc = torch.randint(-1000, 1000, (m, n), generator=gen, device=card,
+                        dtype=torch.int32)
+    enc = delta_encode_int8(cur, prev, block_m=bm, block_k=bk)
+    assert bool(enc.has_overflow)
+    before = backend.launch_counts()["reuse_matmul_int8"]
+    lo = ops.reuse_matmul_int8(enc.lo, wq, acc, enc.lo_mask, block_m=bm,
+                               block_k=bk)
+    out = ops.reuse_matmul_int8(enc.hi, wq, lo, enc.hi_mask, block_m=bm,
+                                block_k=bk)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["reuse_matmul_int8"] == before + 2
+    want = reuse_matmul_int8_torch(enc.lo, wq, acc, enc.lo_mask, block_m=bm,
+                                   block_k=bk)
+    assert torch.equal(lo, want)
+    exact = acc.double() + (cur.double() - prev.double()) @ wq.double()
+    assert torch.equal(out, exact.to(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kernels", [
+    ("qwen3-32b", ("delta_quant", "reuse_matmul_output")),
+    ("rwkv6-7b", ("delta_quant", "reuse_matmul_output", "wkv6_decode"))])
+def test_serve_runs_the_kernels_on_the_card(card, capsys, arch, kernels):
     backend.reset_launches()
-    tserve_cli.main(["--arch", "qwen3-32b", "--reduced", "--requests", "2",
+    tserve_cli.main(["--arch", arch, "--reduced", "--requests", "2",
                      "--batch-slots", "2", "--prompt-len", "4",
                      "--cache-len", "16", "--max-new", "3", "--reuse"])
     counts = backend.launch_counts()
-    assert counts["delta_quant"] > 0 and counts["reuse_matmul_output"] > 0
+    assert all(counts[kn] > 0 for kn in kernels), counts
     assert "served 2/2 requests" in capsys.readouterr().out

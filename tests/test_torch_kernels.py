@@ -13,12 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.delta import delta_encode_int8 as jdelta_encode_int8
 from repro.core.similarity import block_zero_mask as jblock_zero_mask
 from repro.kernels import ops as jops
 from repro.kernels import xla_tier
 from repro.kernels.delta_quant import delta_quant as jdelta_quant
 from repro.quant import quantize_int8 as jquantize_int8
-from repro_torch.core.delta import compact_rows
+from repro_torch.core.delta import compact_rows, delta_encode_int8
 from repro_torch.core.similarity import block_zero_mask
 from repro_torch.kernels import backend, ops
 from repro_torch.kernels import ref as tref
@@ -27,6 +28,10 @@ from repro_torch.kernels.reuse_matmul import (
     reuse_matmul,
     skip_sel,
     weight_dma_tiles,
+)
+from repro_torch.kernels.reuse_matmul_int8 import (
+    reuse_matmul_int8,
+    reuse_matmul_int8_torch,
 )
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -291,6 +296,98 @@ def test_ragged_accounting_matches_reference(rng, gm, gk, p, budget):
     assert ops.clamp_budget(budget, gk) == jops.clamp_budget(budget, gk)
 
 
+# ------------------------------------------------------- int8 split GEMM
+
+def int8_codes(rng, m, k, keep, overflow):
+    """cur/prev int8 codes: a `keep` share of the (8, 64) tiles changed by
+    at most 100, and with `overflow` some codes jump by more than 127."""
+    prev = rng.integers(-127, 128, size=(m, k)).astype(np.int8)
+    cur = prev.astype(np.int32)
+    for i in range(0, m, 8):
+        for j in range(0, k, 64):
+            if rng.random() < keep:
+                tile = cur[i:i + 8, j:j + 64]
+                tile += rng.integers(-50, 51, size=tile.shape)
+    cur = np.clip(cur, -127, 127).astype(np.int8)
+    if overflow:
+        cur[0, :5] = 127
+        prev[0, :5] = -127
+    return cur, prev
+
+
+@pytest.mark.parametrize("m,k,bm,bk,overflow", [
+    (16, 256, 8, 64, True), (32, 512, 8, 128, False), (10, 300, 8, 128, True),
+    (128, 256, 128, 256, True)])
+def test_delta_encode_int8_matches_reference(rng, m, k, bm, bk, overflow):
+    cur, prev = int8_codes(rng, m, k, 0.5, overflow)
+    want = jdelta_encode_int8(jnp.asarray(cur), jnp.asarray(prev), block_m=bm,
+                              block_k=bk)
+    got = delta_encode_int8(t(cur), t(prev), block_m=bm, block_k=bk)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert a.numpy().dtype == np.asarray(b).dtype
+    assert bool(got.has_overflow) == overflow
+    np.testing.assert_array_equal(
+        got.lo.numpy().astype(np.int32) + got.hi.numpy(),
+        cur.astype(np.int32) - prev)
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk,keep", [
+    (16, 512, 256, 8, 128, 128, 0.5),
+    (32, 256, 128, 8, 128, 64, 0.2),
+    (128, 512, 256, 128, 128, 256, 0.6),   # block_m 128, the ops default
+    (20, 300, 130, 8, 128, 128, 0.5),      # every dim non-multiple (ops pad)
+    (16, 256, 128, 8, 128, 128, 0.0),      # nothing changed: prev passes
+])
+def test_reuse_matmul_int8_split_matches_pallas(rng, m, k, n, bm, bn, bk, keep):
+    """lo then hi through the int8 GEMM, chained as the reference's callers
+    chain it: bitwise equal to the Pallas kernel (interpret mode) and to the
+    exact int32 product of the code delta."""
+    cur, prev = int8_codes(rng, m, k, keep, overflow=keep > 0)
+    wq = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+    acc = rng.integers(-1000, 1000, size=(m, n)).astype(np.int32)
+    jenc = jdelta_encode_int8(jnp.asarray(cur), jnp.asarray(prev), block_m=bm,
+                              block_k=bk)
+    jlo = jops.reuse_matmul_int8(jenc.lo, jnp.asarray(wq), jnp.asarray(acc),
+                                 jenc.lo_mask, block_m=bm, block_n=bn,
+                                 block_k=bk, interpret=True)
+    jout = jops.reuse_matmul_int8(jenc.hi, jnp.asarray(wq), jlo, jenc.hi_mask,
+                                  block_m=bm, block_n=bn, block_k=bk,
+                                  interpret=True)
+    exact = acc + (cur.astype(np.int64) - prev) @ wq.astype(np.int64)
+    np.testing.assert_array_equal(np.asarray(jout), exact)
+    enc = delta_encode_int8(t(cur), t(prev), block_m=bm, block_k=bk)
+    for impl in ("cuda", "torch"):
+        lo = ops.reuse_matmul_int8(enc.lo, t(wq), t(acc), enc.lo_mask,
+                                   block_m=bm, block_n=bn, block_k=bk,
+                                   impl=impl)
+        np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+        out = ops.reuse_matmul_int8(enc.hi, t(wq), lo, enc.hi_mask,
+                                    block_m=bm, block_n=bn, block_k=bk,
+                                    impl=impl)
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+
+
+def test_reuse_matmul_int8_consumes_mask_and_matches_oracles(rng):
+    m, k, n, bm, bk = 16, 256, 128, 8, 128
+    d = rng.integers(-127, 128, size=(m, k)).astype(np.int8)
+    wq = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+    acc = rng.integers(-1000, 1000, size=(m, n)).astype(np.int32)
+    mask = np.asarray([[1, 0], [0, 1]], np.int32)
+    want = jops.reuse_matmul_int8_ref(jnp.asarray(d), jnp.asarray(wq),
+                                      jnp.asarray(acc), jnp.asarray(mask),
+                                      bm, bk)
+    for got in (tref.reuse_matmul_int8_ref(t(d), t(wq), t(acc), t(mask), bm, bk),
+                reuse_matmul_int8_torch(t(d), t(wq), t(acc), t(mask),
+                                        block_m=bm, block_k=bk),
+                reuse_matmul_int8(t(d), t(wq), t(acc), t(mask), block_m=bm,
+                                  block_n=128, block_k=bk)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(np.asarray(want),
+                              acc + d.astype(np.int32) @ wq.astype(np.int32))
+
+
 # --------------------------------------------------------- wrapper contract
 
 def test_wrappers_reject_non_tile_multiples_and_unknown_devices(rng):
@@ -310,6 +407,17 @@ def test_wrappers_reject_non_tile_multiples_and_unknown_devices(rng):
         ops.reuse_matmul(torch.zeros((8, 128)), torch.zeros((128, 128)),
                          torch.zeros((8, 128)),
                          torch.zeros((1, 1), dtype=torch.int32), impl="jnp")
+    i8 = torch.zeros((8, 200), dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple"):
+        reuse_matmul_int8(i8, torch.zeros((200, 128), dtype=torch.int8),
+                          torch.zeros((8, 128), dtype=torch.int32),
+                          torch.zeros((1, 1), dtype=torch.int32), block_m=8,
+                          block_k=128)
+    with pytest.raises(ValueError, match="mask"):
+        ops.reuse_matmul_int8(i8, torch.zeros((200, 128), dtype=torch.int8),
+                              torch.zeros((8, 128), dtype=torch.int32),
+                              torch.zeros((1, 1), dtype=torch.int32),
+                              block_m=8, block_k=128)
 
 
 def test_import_builds_nothing_and_counts_start_at_zero():

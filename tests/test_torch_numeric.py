@@ -4,6 +4,8 @@ Inputs are made with numpy from a seed and handed to both sides; codes,
 masks, indices and counts must be bitwise equal, float outputs of the same
 elementwise chain too."""
 
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,11 +68,45 @@ def test_similarity_and_block_mask_bitwise(rng, m, k, bm, bk):
 
 
 def test_ema_update_bitwise(rng):
-    stat = rng.random(8).astype(np.float32)
-    obs = rng.random(8).astype(np.float32)
-    np.testing.assert_array_equal(
-        tsim.ema_update(t(stat), t(obs), 0.9).numpy(),
-        np.asarray(jsim.ema_update(jnp.asarray(stat), jnp.asarray(obs), 0.9)))
+    """The EMA of a row similarity, bitwise equal to the reference's
+    `ema_update(stat, row_code_similarity(...))` inside a compiled step."""
+    step = jax.jit(lambda s, c, p: jsim.ema_update(
+        s, jsim.row_code_similarity(c, p), 0.9))
+    for k in (64, 640, 5120):
+        stat = rng.random(8).astype(np.float32)
+        cur = rng.integers(-2, 3, size=(8, k)).astype(np.int8)
+        prev = rng.integers(-2, 3, size=(8, k)).astype(np.int8)
+        want = step(jnp.asarray(stat), jnp.asarray(cur), jnp.asarray(prev))
+        got = tsim.ema_update_mean(
+            t(stat), tsim.row_code_matches(t(cur), t(prev)), k, 0.9)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _round_f32(x: Fraction) -> np.float32:
+    """The f32 nearest to the exact rational x, ties to even."""
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(c.view(np.int32)) & 1))
+
+
+def test_fma_f32_rounds_once(rng):
+    """One rounding of the exact a·b + c, including a case where rounding
+    the f64 sum and then to f32 (two roundings) gives the other neighbour."""
+    a = np.float32(2.0 ** -24 * (1 + 2.0 ** -23))
+    b = float(np.float32(1 - 2.0 ** -23))
+    c = np.float32(1 + 2.0 ** -23)
+    got = tsim.fma_f32(t(np.array([a])), b, t(np.array([c])))
+    assert got.item() == c  # the exact sum lies just below the midpoint
+    assert np.float32(float(a) * b + float(c)) != c  # two roundings miss
+    av = rng.normal(size=64).astype(np.float32)
+    cv = rng.normal(size=64).astype(np.float32) * 1e3
+    got = tsim.fma_f32(t(av), 0.1, t(cv)).numpy()
+    bf = Fraction(float(np.float32(0.1)))
+    want = [_round_f32(Fraction(float(x)) * bf + Fraction(float(y)))
+            for x, y in zip(av, cv)]
+    np.testing.assert_array_equal(got, np.array(want, np.float32))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
