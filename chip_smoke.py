@@ -7,7 +7,10 @@ every phase's failure is fatal (non-zero exit, no result line):
 
   1. device   — name, count, power limit; TF32 off for f32 matmuls and convs
   2. build    — compiles every kernel (one nvcc per source, in parallel) with
-                `-Xptxas -v` and prints registers, shared memory and spills
+                `-Xptxas -v` and prints registers, shared memory and spills;
+                checks that the int8 kernel's SASS holds both kinds of int8
+                tensor-core instruction: IMMA (`mma.sync`, its 8-row tiles)
+                and IGMMA (`wgmma`, its 128-row tiles)
   3. kernels  — each Hopper kernel against its plain PyTorch version on the
                 card: the reuse kernels at the full-width qwen3-32b decode
                 shapes (M = 8, block_m 8, block_k 256, block_n 128) and skip
@@ -15,9 +18,11 @@ every phase's failure is fatal (non-zero exit, no result line):
                 wkv6_decode at rwkv6-7b decode (B 8, H 64, 64 x 64 state) with
                 a nonzero bonus; reuse_matmul_int8 over a delta_encode_int8
                 split at [8|128, 4096] x [4096, 14336] and the same skips, and
-                at a shape whose split overflows; then each kernel's time (CUDA
-                events over a CUDA-graph replay), its bound, the plain
-                version's time and a one-call PyTorch yardstick where one exists
+                at a shape whose split overflows (the int8 kernel runs on the
+                int8 tensor cores); then each kernel's time (CUDA events over
+                a CUDA-graph replay), its bound, the plain version's time and
+                a one-call PyTorch yardstick where one exists (for int8 the
+                faster of two weight layouts of `torch._int_mm`)
   4. serve    — `repro_torch.launch.serve.run` on full-width qwen3-32b cut to
                 8 layers, reuse on (delta_quant, output- and input-stationary
                 reuse_matmul must launch), every kernel call held against its
@@ -88,6 +93,10 @@ F32_ATOL, F32_RTOL = 1e-4, 1e-5   # as tests/test_kernels.py for f32
 # taken of Σ_i |r_i·(u_i·kv_ij + S_ij)|.
 WKV_ATOL, WKV_RTOL = 1e-5, 1e-5
 
+# name: (CUDA source, the TPU kernel it replaces). All hand-written CUDA C++
+# for sm_90a; reuse_matmul_int8 multiplies on the int8 tensor cores
+# (`mma.sync ... s8` for 8-row tiles, `wgmma ... s8` for 128-row tiles), the
+# float kernels on CUDA cores.
 KERNEL_META = {
     "delta_quant": ("src/repro_torch/csrc/delta_quant.cu",
                     "src/repro/kernels/delta_quant.py:77"),
@@ -461,6 +470,16 @@ def main() -> None:
                 print(f"  {src}: {line.strip()}")
     if backend.best() != "cuda":
         fail(f"substrate resolved to {backend.best()!r}, not cuda")
+    sass = backend.sass("reuse_matmul_int8")
+    tc = {kind: sorted({m.group(0) for m in re.finditer(
+        rf"\b{kind}\.\S+", sass)}) for kind in ("IMMA", "IGMMA")}
+    for kind, found in tc.items():
+        if not found:
+            fail(f"no {kind} instruction in the SASS of reuse_matmul_int8")
+    counts = {kind: len(re.findall(rf"\b{kind}\.", sass)) for kind in tc}
+    print("reuse_matmul_int8 SASS, int8 tensor-core instructions: "
+          + "; ".join(f"{counts[kind]} {kind} ({', '.join(found)})"
+                      for kind, found in tc.items()))
     print(f"kernel substrate: {backend.describe()}")
 
     # ------------------------------------------------------------ 3. kernels
@@ -741,10 +760,18 @@ def main() -> None:
             t_e = time_ms(lambda: reuse_matmul_int8(
                 enc.lo, wq, acc, enc.lo_mask, block_m=bm8, block_n=BN,
                 block_k=BK), graph=False)
-            # the yardstick is timed at the M = 128 shape only, the one the
-            # kernels line reports
-            t_l = (time_ms(lambda: torch._int_mm(enc.lo, wq)) if m8 > 16
-                   else None)
+            # The yardstick, which the port never calls: `torch._int_mm` with
+            # the weight as the kernel takes it (N-major) and K-major (the
+            # layout cuBLASLt's int8 path takes natively); the faster one
+            # is library_ms. `_int_mm` requires M > 16, so there is none at
+            # M = 8.
+            t_ln = t_lk = t_l = None
+            if m8 > 16:
+                wq_t = wq.t().contiguous()
+                t_ln = time_ms(lambda: torch._int_mm(enc.lo, wq))
+                t_lk = time_ms(lambda: torch._int_mm(enc.lo, wq_t.t()))
+                t_l = min(t_ln, t_lk)
+                del wq_t
             active_k = int((mask != 0).any(dim=0).sum())
             byts = (active_k * BK * INT8_N + m8 * INT8_K + 2 * 4 * m8 * INT8_N
                     + mask.numel() * 4)
@@ -753,7 +780,9 @@ def main() -> None:
             print(f"  reuse_matmul_int8 [{m8},{INT8_K}]x[{INT8_K},{INT8_N}] "
                   f"skip={skip:.2f}: {t_k:.4f} (eager call {t_e:.4f}) bound "
                   f"{bound:.4f} plain {t_p:.4f} library "
-                  + ("n/a" if t_l is None else f"{t_l:.4f}"))
+                  + ("n/a (torch._int_mm requires M > 16)" if t_l is None
+                     else f"{t_l:.4f} (_int_mm N-major weight {t_ln:.4f}, "
+                          f"K-major {t_lk:.4f})"))
             if m8 == 128 and skip == 0.0:
                 results["reuse_matmul_int8"] = {
                     "shape": f"[{m8},{INT8_K}]x[{INT8_K},{INT8_N}] int8 "

@@ -147,6 +147,14 @@ def build(*, verbose: bool = False, force: bool = False) -> dict[str, str]:
     return logs
 
 
+def sass(name: str) -> str:
+    """The SASS of one built kernel library, by `cuobjdump -sass` (which the
+    CUDA toolkit keeps beside nvcc)."""
+    cuobjdump = pathlib.Path(_nvcc()).resolve().parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(_lib_path(name, ()))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of one kernel source (built if missing)."""

@@ -5,8 +5,9 @@
 Δq is one component (lo or hi) of the overflow split of
 `core.delta.delta_encode_int8`; the hi component's GEMM goes through the same
 kernel and its near-empty mask makes it nearly free. `reuse_matmul_int8`
-launches `csrc/reuse_matmul_int8.cu` on CUDA tensors and takes the plain
-version `reuse_matmul_int8_torch` on CPU tensors.
+launches `csrc/reuse_matmul_int8.cu` (int8 tensor cores: `mma.sync` s8, and
+`wgmma` s8 for 128-row tiles) on CUDA tensors and takes the plain version
+`reuse_matmul_int8_torch` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,8 +17,12 @@ import torch
 from repro_torch.kernels import backend
 from repro_torch.kernels.reuse_matmul import expand_block_mask
 
-ROWS_PER_CTA = 8     # csrc/reuse_matmul_int8.cu kRows
-COLS_PER_CTA = 128   # kCols
+# csrc/reuse_matmul_int8.cu: 8-row CTA tiles (128-row ones when block_m %
+# 128 == 0), at most 128 columns wide, in 32-deep MMA steps (kGroupK, the
+# skip's granularity)
+ROWS_PER_CTA = 8
+COLS_PER_CTA = 128
+GROUP_K = 32
 
 
 def reuse_matmul_int8_torch(
@@ -43,7 +48,8 @@ def reuse_matmul_int8_torch(
     return (prev_acc.long() + prod.long()).to(torch.int32)
 
 
-def _check(delta_q, w_q, prev_acc, block_mask, block_m, block_n) -> None:
+def _check(delta_q, w_q, prev_acc, block_mask, block_m, block_n,
+           block_k) -> None:
     dev = delta_q.device
     if delta_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"reuse_matmul_int8: delta_q {delta_q.dtype} and w_q "
@@ -51,10 +57,11 @@ def _check(delta_q, w_q, prev_acc, block_mask, block_m, block_n) -> None:
     if prev_acc.dtype != torch.int32 or block_mask.dtype != torch.int32:
         raise TypeError("reuse_matmul_int8: prev_acc and block_mask must be "
                         "int32")
-    if block_m % ROWS_PER_CTA or block_n % COLS_PER_CTA:
+    if block_m % ROWS_PER_CTA or block_n % COLS_PER_CTA or block_k % GROUP_K:
         raise ValueError(f"reuse_matmul_int8: the CUDA kernel needs block_m % "
-                         f"{ROWS_PER_CTA} == 0 and block_n % {COLS_PER_CTA} "
-                         f"== 0, got ({block_m}, {block_n})")
+                         f"{ROWS_PER_CTA} == 0, block_n % {COLS_PER_CTA} == 0 "
+                         f"and block_k % {GROUP_K} == 0, got ({block_m}, "
+                         f"{block_n}, {block_k})")
     for name, t in (("delta_q", delta_q), ("w_q", w_q),
                     ("prev_acc", prev_acc), ("block_mask", block_mask)):
         if t.device != dev:
@@ -95,7 +102,7 @@ def reuse_matmul_int8(
     if delta_q.device.type != "cuda":
         raise ValueError(f"reuse_matmul_int8: unsupported device "
                          f"{delta_q.device}")
-    _check(delta_q, w_q, prev_acc, block_mask, block_m, block_n)
+    _check(delta_q, w_q, prev_acc, block_mask, block_m, block_n, block_k)
     out = torch.empty_like(prev_acc)
     rc = backend.library("reuse_matmul_int8").rt_reuse_matmul_int8(
         delta_q.data_ptr(), w_q.data_ptr(), prev_acc.data_ptr(),

@@ -109,23 +109,55 @@ def test_wkv6_decode_matches_plain_on_card(card, b, h, dk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,bm", [(8, 8), (128, 128)])
-def test_int8_split_matches_plain_on_card(card, m, bm):
+@pytest.mark.parametrize("m,bm,k,n,case", [
+    (8, 8, 1024, 384, "split"), (16, 8, 1024, 384, "split"),
+    (16, 16, 1024, 384, "split"), (128, 128, 1024, 384, "split"),
+    (256, 128, 1024, 384, "split"), (8, 8, 256, 128, "split"),
+    (128, 128, 256, 128, "split"), (8, 8, 4096, 384, "masked"),
+    (128, 128, 4096, 384, "masked"), (8, 8, 1024, 256, "extreme"),
+    (128, 128, 4096, 256, "extreme")])
+def test_int8_split_matches_plain_on_card(card, m, bm, k, n, case):
+    """The int8 GEMM on the card, bitwise equal to its plain version and to
+    the exact product, one launch per call. "split": lo then hi of a
+    delta_encode_int8 split whose second k tile (the only one at k = 256)
+    changed and whose |Δ| = 254 at four codes overflows; "masked": no code
+    changed (skip 1.0), so both calls pass prev_acc through; "extreme":
+    every Δ and weight code at ±127, so |Σ| = 127²·k everywhere. The CTA
+    tiles (8 rows through `mma.sync`, 128 rows through `wgmma`; 64 and 128
+    columns) meet here at several rows per mask group: n = 128 is one
+    128-column tile, k = 256 one k tile."""
     gen = torch.Generator(device=card).manual_seed(0)
-    k, n, bk = 1024, 384, 256
-    prev = torch.randint(-127, 128, (m, k), generator=gen, device=card)
-    cur = prev.clone()
-    cur[:, 256:512] = torch.randint(-127, 128, (m, 256), generator=gen,
-                                    device=card)
-    cur[0, :4], prev[0, :4] = 127, -127   # |Δ| = 254: the split overflows
-    cur, prev = cur.to(torch.int8), prev.to(torch.int8)
+    bk = 256
     wq = torch.randint(-127, 128, (k, n), generator=gen,
                        device=card).to(torch.int8)
     acc = torch.randint(-1000, 1000, (m, n), generator=gen, device=card,
                         dtype=torch.int32)
-    enc = delta_encode_int8(cur, prev, block_m=bm, block_k=bk)
-    assert bool(enc.has_overflow)
     before = backend.launch_counts()["reuse_matmul_int8"]
+    if case == "extreme":
+        sign_m = torch.arange(m, device=card) % 2 * 2 - 1
+        sign_n = torch.arange(n, device=card) % 3 % 2 * 2 - 1
+        d = (127 * sign_m[:, None]).expand(m, k).to(torch.int8).contiguous()
+        wq = (127 * sign_n[None, :]).expand(k, n).to(torch.int8).contiguous()
+        mask = torch.ones((m // bm, k // bk), dtype=torch.int32, device=card)
+        out = ops.reuse_matmul_int8(d, wq, acc, mask, block_m=bm, block_k=bk)
+        torch.cuda.synchronize()
+        assert backend.launch_counts()["reuse_matmul_int8"] == before + 1
+        assert torch.equal(out, reuse_matmul_int8_torch(
+            d, wq, acc, mask, block_m=bm, block_k=bk))
+        exact = acc.double() + d.double() @ wq.double()
+        assert torch.equal(out, exact.to(torch.int32))
+        assert bool(((out - acc).abs() == 127 ** 2 * k).all())
+        return
+    prev = torch.randint(-127, 128, (m, k), generator=gen, device=card)
+    cur = prev.clone()
+    if case == "split":
+        j = bk if k > bk else 0
+        cur[:, j:j + bk] = torch.randint(-127, 128, (m, bk), generator=gen,
+                                         device=card)
+        cur[0, :4], prev[0, :4] = 127, -127   # |Δ| = 254: the split overflows
+    cur, prev = cur.to(torch.int8), prev.to(torch.int8)
+    enc = delta_encode_int8(cur, prev, block_m=bm, block_k=bk)
+    assert bool(enc.has_overflow) == (case == "split")
     lo = ops.reuse_matmul_int8(enc.lo, wq, acc, enc.lo_mask, block_m=bm,
                                block_k=bk)
     out = ops.reuse_matmul_int8(enc.hi, wq, lo, enc.hi_mask, block_m=bm,
@@ -135,8 +167,12 @@ def test_int8_split_matches_plain_on_card(card, m, bm):
     want = reuse_matmul_int8_torch(enc.lo, wq, acc, enc.lo_mask, block_m=bm,
                                    block_k=bk)
     assert torch.equal(lo, want)
+    assert torch.equal(out, reuse_matmul_int8_torch(
+        enc.hi, wq, want, enc.hi_mask, block_m=bm, block_k=bk))
     exact = acc.double() + (cur.double() - prev.double()) @ wq.double()
     assert torch.equal(out, exact.to(torch.int32))
+    if case == "masked":
+        assert not bool(enc.lo_mask.any()) and torch.equal(out, acc)
 
 
 @pytest.mark.gpu

@@ -420,6 +420,27 @@ def test_wrappers_reject_non_tile_multiples_and_unknown_devices(rng):
                               block_m=8, block_k=128)
 
 
+@pytest.mark.parametrize("bm,bn,bk,bad", [
+    (8, 128, 256, None), (16, 256, 32, None), (128, 128, 256, None),
+    (12, 128, 256, "block_m"), (8, 64, 256, "block_n"),
+    (8, 128, 48, "block_k")])
+def test_int8_kernel_tiling_contract(bm, bn, bk, bad):
+    """The tensor-core kernel's tiles: m in 8-row MMA tiles, n in 128-column
+    CTA tiles, k in the 32-deep steps of m16n8k32 (the skip's granularity).
+    The contract is checked before any launch, so it holds on the CPU."""
+    from repro_torch.kernels import reuse_matmul_int8 as ri
+
+    args = (torch.zeros((bm, bk), dtype=torch.int8),
+            torch.zeros((bk, bn), dtype=torch.int8),
+            torch.zeros((bm, bn), dtype=torch.int32),
+            torch.zeros((1, 1), dtype=torch.int32))
+    if bad is None:
+        ri._check(*args, bm, bn, bk)
+    else:
+        with pytest.raises(ValueError, match=f"{bad} %"):
+            ri._check(*args, bm, bn, bk)
+
+
 def test_import_builds_nothing_and_counts_start_at_zero():
     backend.reset_launches()
     assert backend.launch_counts() == {k: 0 for k in backend.KERNELS}
