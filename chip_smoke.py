@@ -10,11 +10,15 @@ every phase's failure is fatal (non-zero exit, no result line):
                 `-Xptxas -v` and prints registers, shared memory and spills;
                 checks that the int8 kernel's SASS holds both kinds of int8
                 tensor-core instruction: IMMA (`mma.sync`, its 8-row tiles)
-                and IGMMA (`wgmma`, its 128-row tiles)
+                and IGMMA (`wgmma`, its 128-row tiles); and that the float
+                ΔW GEMM's SASS holds bf16 HMMA (only its input-stationary
+                kernel has one) and no TF32 one
   3. kernels  — each Hopper kernel against its plain PyTorch version on the
                 card: the reuse kernels at the full-width qwen3-32b decode
                 shapes (M = 8, block_m 8, block_k 256, block_n 128) and skip
-                rates {0, 0.5, 0.78, 1.0}, plus an f32 case at a small shape;
+                rates {0, 0.5, 0.78, 1.0}, plus an f32 case at a small shape
+                (the input-stationary kernel also bitwise equal from run to
+                run, and prev_out passed through bitwise at skip 1.0);
                 wkv6_decode at rwkv6-7b decode (B 8, H 64, 64 x 64 state) with
                 a nonzero bonus; reuse_matmul_int8 over a delta_encode_int8
                 split at [8|128, 4096] x [4096, 14336] and the same skips, and
@@ -94,9 +98,11 @@ F32_ATOL, F32_RTOL = 1e-4, 1e-5   # as tests/test_kernels.py for f32
 WKV_ATOL, WKV_RTOL = 1e-5, 1e-5
 
 # name: (CUDA source, the TPU kernel it replaces). All hand-written CUDA C++
-# for sm_90a; reuse_matmul_int8 multiplies on the int8 tensor cores
-# (`mma.sync ... s8` for 8-row tiles, `wgmma ... s8` for 128-row tiles), the
-# float kernels on CUDA cores.
+# for sm_90a. reuse_matmul_int8 multiplies on the int8 tensor cores
+# (`mma.sync ... s8` for 8-row tiles, `wgmma ... s8` for 128-row tiles);
+# input-stationary reuse_matmul on the bf16 tensor cores (`mma.sync
+# ... bf16`, f32 accumulation) and its f32 operands on CUDA cores in IEEE
+# f32; delta_quant, output-stationary, ragged and wkv6_decode on CUDA cores.
 KERNEL_META = {
     "delta_quant": ("src/repro_torch/csrc/delta_quant.cu",
                     "src/repro/kernels/delta_quant.py:77"),
@@ -480,6 +486,16 @@ def main() -> None:
     print("reuse_matmul_int8 SASS, int8 tensor-core instructions: "
           + "; ".join(f"{counts[kind]} {kind} ({', '.join(found)})"
                       for kind, found in tc.items()))
+    # the output-stationary kernel of this library runs on CUDA cores, so a
+    # bf16 HMMA here is the input-stationary kernel's; f32 must not be TF32
+    sass = backend.sass("reuse_matmul")
+    hmma = re.findall(r"\bHMMA\.\S+", sass)
+    if not any("BF16" in h for h in hmma):
+        fail("no bf16 HMMA instruction in the SASS of reuse_matmul")
+    if any("TF32" in h for h in hmma):
+        fail("a TF32 HMMA in the SASS of reuse_matmul: f32 must stay IEEE")
+    print(f"reuse_matmul SASS, tensor-core instructions: {len(hmma)} HMMA "
+          f"({', '.join(sorted(set(hmma)))})")
     print(f"kernel substrate: {backend.describe()}")
 
     # ------------------------------------------------------------ 3. kernels
@@ -539,6 +555,14 @@ def main() -> None:
             kname = f"reuse_matmul_{dataflow}"
             max_err[kname] = max(max_err[kname],
                                  close(out, ref, GEMM_ATOL, GEMM_RTOL))
+            if dataflow == "input":
+                # the cluster sums its ranks' partials in a fixed order
+                again = reuse_matmul(delta, w, prev, mask, block_m=BM,
+                                     block_n=BN, block_k=BK, dataflow=dataflow)
+                if not torch.equal(out, again):
+                    fail(f"{kname} differs from run to run at skip {skip}")
+                if skip == 1.0 and not torch.equal(out, prev):
+                    fail(f"{kname} did not pass prev_out through at skip 1.0")
             if dataflow == "output":
                 idx, counts = compact_rows(mask)
                 out = reuse_matmul_ragged(delta, w, prev, counts, idx,
@@ -547,7 +571,8 @@ def main() -> None:
                     max_err["reuse_matmul_ragged"],
                     close(out, ref, GEMM_ATOL, GEMM_RTOL))
         print(f"{site}: [{M},{k}]x[{k},{n}] bf16 {dataflow}-stationary"
-              + (" and ragged" if dataflow == "output" else "")
+              + (" and ragged" if dataflow == "output" else
+                 " (bitwise from run to run; prev_out bitwise at skip 1.0)")
               + f" within atol {GEMM_ATOL} rtol {GEMM_RTOL} at all skips")
     # ragged: live counts above a budget (the reference's overflow regime,
     # which the budget-free walk needs no fallback for) and a count-0 row
@@ -637,6 +662,10 @@ def main() -> None:
                             >= flops / BF16_FLOPS else "operations"),
                         "library_ms": t_l,
                     }
+            # the input-stationary row also carries the skip at work
+            if skip == 0.78 and dataflow == "input":
+                results[kname]["ms_skip_0.78"] = t_k
+                results[kname]["bound_ms_skip_0.78"] = bound
     for k in (5120, 8192, 25600):
         x = torch.randn((M, k), generator=gen, device=dev).to(torch.bfloat16)
         prev_q = torch.randint(-127, 128, (M, k), generator=gen,

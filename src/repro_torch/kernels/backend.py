@@ -58,8 +58,8 @@ SIGNATURES = {
         # delta, w, dtype, prev_out, mask, out, M, K, N, bm, bk, stream
         "rt_reuse_matmul_output": (_P, _P, _I, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _P),
-        # delta, w, dtype, prev_out, mask, partial, out, M, K, N, bm, bk, stream
-        "rt_reuse_matmul_input": (_P, _P, _I, _P, _P, _P, _P,
+        # delta, w, dtype, prev_out, mask, out, M, K, N, bm, bk, stream
+        "rt_reuse_matmul_input": (_P, _P, _I, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P),
     },
     "reuse_matmul_ragged": {

@@ -20,8 +20,8 @@ import torch
 from repro_torch.kernels import backend
 
 ROWS_PER_CTA = 8     # csrc/reuse_tile.cuh kRows
-COLS_PER_CTA = 128   # OutputTile::kCols
-MAX_SMEM = 48 * 1024
+COLS_PER_CTA = 128   # OutputTile::kCols; the input-stationary kInCols
+SUB_K = 64           # k rows of one input-stationary sub-step (kSubK)
 
 
 def skip_sel(block_mask: torch.Tensor) -> torch.Tensor:
@@ -79,9 +79,13 @@ def reuse_matmul_torch(
     return prev_out + d @ w.float()
 
 
-def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what) -> None:
-    """Device, dtype, shape, contiguity and alignment checks of the ΔW GEMM
-    kernels (shared with reuse_matmul_ragged)."""
+def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what,
+               k_step: int = 1) -> None:
+    """Device, dtype, shape, contiguity, alignment and tiling checks of the
+    ΔW GEMM kernels (shared with reuse_matmul_ragged). Each CUDA CTA covers
+    ROWS_PER_CTA rows of one block_m group and COLS_PER_CTA columns; the
+    input-stationary kernel deals k out in sub-steps of `k_step` = SUB_K
+    rows. A broken divisor raises ValueError naming it, before any launch."""
     dev = delta.device
     if delta.dtype not in backend.DTYPE_CODE or w.dtype != delta.dtype:
         raise TypeError(f"{what}: delta {delta.dtype} and w {w.dtype} must "
@@ -92,10 +96,12 @@ def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what) -> None:
     if w.shape[0] != k or tuple(prev_out.shape) != (m, w.shape[1]):
         raise ValueError(f"{what}: shapes {tuple(delta.shape)} "
                          f"{tuple(w.shape)} {tuple(prev_out.shape)}")
-    if block_m % ROWS_PER_CTA or block_n % COLS_PER_CTA:
-        raise ValueError(f"{what}: the CUDA kernel needs block_m % "
-                         f"{ROWS_PER_CTA} == 0 and block_n % {COLS_PER_CTA} "
-                         f"== 0, got ({block_m}, {block_n})")
+    for name, size, div in (("block_m", block_m, ROWS_PER_CTA),
+                            ("block_n", block_n, COLS_PER_CTA),
+                            ("block_k", block_k, k_step)):
+        if size % div:
+            raise ValueError(f"{what}: the CUDA kernel needs {name} % {div} "
+                             f"== 0, got {name} = {size}")
     for name, t in (("delta", delta), ("w", w), ("prev_out", prev_out)):
         if t.device != dev:
             raise ValueError(f"{what}: {name} on {t.device}, delta on {dev}")
@@ -133,7 +139,9 @@ def reuse_matmul(
                                   block_m=block_m, block_k=block_k)
     if delta.device.type != "cuda":
         raise ValueError(f"reuse_matmul: unsupported device {delta.device}")
-    check_gemm(delta, w, prev_out, block_m, block_k, block_n, "reuse_matmul")
+    check_gemm(delta, w, prev_out, block_m, block_k, block_n,
+               f"reuse_matmul({dataflow})",
+               k_step=SUB_K if dataflow == "input" else 1)
     if block_mask.dtype != torch.int32 or block_mask.device != delta.device \
             or not block_mask.is_contiguous():
         raise ValueError("reuse_matmul: block_mask must be contiguous int32 "
@@ -151,16 +159,12 @@ def reuse_matmul(
         backend.check(rc, "reuse_matmul(output)")
         backend.count_launch("reuse_matmul_output")
         return out
-    if 4 * ROWS_PER_CTA * block_k > MAX_SMEM:
-        raise ValueError(f"reuse_matmul(input): block_k {block_k} exceeds the "
-                         "resident Δ tile's shared memory")
-    # f32 partial products of every k-tile, summed in k order by the second
-    # pass (masked tiles are neither written nor read)
-    partial = torch.empty((gk, m, n), dtype=torch.float32, device=delta.device)
+    # one launch: clusters of 8 CTAs split each tile's active k range and
+    # sum their partials on chip, so no scratch is allocated
     rc = lib.rt_reuse_matmul_input(
         delta.data_ptr(), w.data_ptr(), code, prev_out.data_ptr(),
-        block_mask.data_ptr(), partial.data_ptr(), out.data_ptr(), m, k, n,
-        block_m, block_k, stream,
+        block_mask.data_ptr(), out.data_ptr(), m, k, n, block_m, block_k,
+        stream,
     )
     backend.check(rc, "reuse_matmul(input)")
     backend.count_launch("reuse_matmul_input")

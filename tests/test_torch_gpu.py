@@ -67,6 +67,67 @@ def test_gemm_kernels_match_plain_on_card(card, dtype, dataflow):
     torch.testing.assert_close(out[8:], prev[8:], rtol=0, atol=0)
 
 
+# name: (m, k, n, block_m, block_k, mask). The input-stationary kernel splits
+# each (8-row, 128-column) tile's active k tiles, in 64-row sub-steps, over a
+# cluster of 8 CTAs and sums their partials in rank order.
+INPUT_CASES = {
+    "gk_5": (8, 1280, 256, 8, 256, "all"),      # 20 sub-steps: runs of 2, 3
+    "one_tile": (8, 1024, 256, 8, 256, "one"),  # 4 sub-steps: 4 ranks idle
+    "all_masked": (8, 1024, 256, 8, 256, "none"),
+    "two_rows": (16, 2048, 384, 8, 128, "rows"),
+    "n_128": (8, 1024, 128, 8, 64, 0.5),        # one column tile
+    "block_m_16": (32, 1024, 256, 16, 256, 0.5),
+    "mlp_out": (8, 25600, 5120, 8, 256, 0.0),   # qwen3-32b decode
+    "mlp_out_skip": (8, 25600, 5120, 8, 256, 0.78),
+}
+
+
+def input_mask(rule, gm, gk, gen, dev):
+    mask = torch.ones((gm, gk), dtype=torch.int32, device=dev)
+    if rule == "one":
+        mask[:] = 0
+        mask[:, 2] = 1
+    elif rule == "none":
+        mask[:] = 0
+    elif rule == "rows":  # row 0 keeps even tiles, row 1 every third
+        mask[0, 1::2] = 0
+        mask[1] = (torch.arange(gk, device=dev) % 3 == 1).to(torch.int32)
+    elif isinstance(rule, float):  # exactly round(rule · gm · gk) zeros
+        flat = mask.view(-1)
+        flat[torch.randperm(flat.numel(), generator=gen,
+                            device=dev)[:round(rule * flat.numel())]] = 0
+    return mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(INPUT_CASES))
+def test_input_stationary_on_card(card, dtype, case):
+    """Against the plain version at this file's tolerances, one launch per
+    call, and bitwise equal from run to run (the cluster sums its ranks'
+    partials in a fixed order, with no atomics). Δ is nonzero in masked
+    tiles too, so a kernel that read a masked tile, or another m tile's
+    mask row ("two_rows"), would disagree."""
+    m, k, n, bm, bk, rule = INPUT_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(0)
+    mask = input_mask(rule, m // bm, k // bk, gen, card)
+    delta = torch.randn((m, k), generator=gen, device=card).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=card) / k ** 0.5).to(dtype)
+    prev = torch.randn((m, n), generator=gen, device=card)
+    want = reuse_matmul_torch(delta, w, prev, mask, block_m=bm, block_k=bk)
+    outs = []
+    for _ in range(2):
+        before = backend.launch_counts()["reuse_matmul_input"]
+        outs.append(reuse_matmul(delta, w, prev, mask, block_m=bm,
+                                 block_n=128, block_k=bk, dataflow="input"))
+        torch.cuda.synchronize()
+        assert backend.launch_counts()["reuse_matmul_input"] == before + 1
+    torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(outs[0], outs[1])
+    if rule == "none":
+        assert torch.equal(outs[0], prev)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_delta_quant_matches_plain_on_card(card, dtype):

@@ -441,6 +441,32 @@ def test_int8_kernel_tiling_contract(bm, bn, bk, bad):
             ri._check(*args, bm, bn, bk)
 
 
+@pytest.mark.parametrize("bm,bn,bk,bad", [
+    (8, 128, 256, None), (16, 256, 64, None), (128, 128, 128, None),
+    (12, 128, 256, "block_m"), (8, 64, 256, "block_n"),
+    (8, 128, 96, "block_k"), (8, 128, 32, "block_k")])
+def test_input_stationary_tiling_contract(bm, bn, bk, bad):
+    """The input-stationary kernel's tiles: 8-row m tiles inside one block_m
+    group, 128-column CTA tiles, k dealt to the cluster's ranks in 64-row
+    sub-steps. A broken divisor raises ValueError naming it (and no other)
+    before any launch, so the contract holds on the CPU; the
+    output-stationary kernel takes any block_k."""
+    from repro_torch.kernels import reuse_matmul as rm
+
+    args = (torch.zeros((bm, bk), dtype=torch.bfloat16),
+            torch.zeros((bk, bn), dtype=torch.bfloat16),
+            torch.zeros((bm, bn)), bm, bk, bn)
+    if bad is None:
+        rm.check_gemm(*args, "reuse_matmul(input)", k_step=rm.SUB_K)
+        return
+    with pytest.raises(ValueError, match=f"{bad} %") as err:
+        rm.check_gemm(*args, "reuse_matmul(input)", k_step=rm.SUB_K)
+    others = {"block_m", "block_n", "block_k"} - {bad}
+    assert not any(o in str(err.value) for o in others), err.value
+    if bad == "block_k":
+        rm.check_gemm(*args, "reuse_matmul(output)")
+
+
 def test_import_builds_nothing_and_counts_start_at_zero():
     backend.reset_launches()
     assert backend.launch_counts() == {k: 0 for k in backend.KERNELS}
