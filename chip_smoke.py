@@ -10,15 +10,16 @@ every phase's failure is fatal (non-zero exit, no result line):
                 `-Xptxas -v` and prints registers, shared memory and spills;
                 checks that the int8 kernel's SASS holds both kinds of int8
                 tensor-core instruction: IMMA (`mma.sync`, its 8-row tiles)
-                and IGMMA (`wgmma`, its 128-row tiles); and that the float
-                ΔW GEMM's SASS holds bf16 HMMA (only its input-stationary
-                kernel has one) and no TF32 one
+                and IGMMA (`wgmma`, its 128-row tiles); and that every bf16
+                instance of the three float ΔW GEMMs (output-, input-
+                stationary, ragged) holds a bf16 HMMA, and none a TF32 one
   3. kernels  — each Hopper kernel against its plain PyTorch version on the
-                card: the reuse kernels at the full-width qwen3-32b decode
-                shapes (M = 8, block_m 8, block_k 256, block_n 128) and skip
-                rates {0, 0.5, 0.78, 1.0}, plus an f32 case at a small shape
-                (the input-stationary kernel also bitwise equal from run to
-                run, and prev_out passed through bitwise at skip 1.0);
+                card: the reuse kernels at the full-width qwen3-32b and
+                rwkv6-7b decode shapes (M = 8, block_m 8, block_k 256,
+                block_n 128) and skip rates {0, 0.5, 0.78, 1.0}, plus an f32
+                case at a small shape (each ΔW GEMM also bitwise equal from
+                run to run, and prev_out passed through bitwise at skip
+                1.0);
                 wkv6_decode at rwkv6-7b decode (B 8, H 64, 64 x 64 state) with
                 a nonzero bonus; reuse_matmul_int8 over a delta_encode_int8
                 split at [8|128, 4096] x [4096, 14336] and the same skips, and
@@ -26,7 +27,10 @@ every phase's failure is fatal (non-zero exit, no result line):
                 int8 tensor cores); then each kernel's time (CUDA events over
                 a CUDA-graph replay), its bound, the plain version's time and
                 a one-call PyTorch yardstick where one exists (for int8 the
-                faster of two weight layouts of `torch._int_mm`)
+                faster of two weight layouts of `torch._int_mm`), the ΔW
+                GEMMs with their weights rotated through more than the L2
+                cache holds, and the output-stationary kernel at every k
+                split it can launch
   4. serve    — `repro_torch.launch.serve.run` on full-width qwen3-32b cut to
                 8 layers, reuse on (delta_quant, output- and input-stationary
                 reuse_matmul must launch), every kernel call held against its
@@ -57,6 +61,7 @@ import contextlib
 import dataclasses
 import gc
 import io
+import itertools
 import json
 import math
 import os
@@ -82,6 +87,17 @@ SITES = (
     ("mlp_in", 5120, 51200, "output"),
     ("mlp_out", 25600, 5120, "input"),
 )
+# the same of full-width rwkv6-7b decode: every site is output-stationary
+# (wr, wk, wv, wg, wo and cmix_wr are 4096 -> 4096)
+RWKV_SITES = (
+    ("rwkv_4096", 4096, 4096, "output"),
+    ("cmix_wk", 4096, 14336, "output"),
+    ("cmix_wv", 14336, 4096, "output"),
+)
+# a timed call reads its weight from HBM, as a decode step does: the timing
+# loop rotates through enough copies of a smaller weight to exceed the 50 MB
+# L2 cache three times over
+ROTATE_BYTES = 150e6
 N_LAYERS = 8
 # rwkv6-7b decode: batch 8, 64 heads of 64
 WKV_B, WKV_H, WKV_D = 8, 64, 64
@@ -99,10 +115,11 @@ WKV_ATOL, WKV_RTOL = 1e-5, 1e-5
 
 # name: (CUDA source, the TPU kernel it replaces). All hand-written CUDA C++
 # for sm_90a. reuse_matmul_int8 multiplies on the int8 tensor cores
-# (`mma.sync ... s8` for 8-row tiles, `wgmma ... s8` for 128-row tiles);
-# input-stationary reuse_matmul on the bf16 tensor cores (`mma.sync
-# ... bf16`, f32 accumulation) and its f32 operands on CUDA cores in IEEE
-# f32; delta_quant, output-stationary, ragged and wkv6_decode on CUDA cores.
+# (`mma.sync ... s8` for 8-row tiles, `wgmma ... s8` for 128-row tiles); the
+# three float ΔW GEMMs (output-, input-stationary, ragged: one cluster tile
+# loop) on the bf16 tensor cores (`mma.sync ... bf16`, f32 accumulation) and
+# their f32 operands on CUDA cores in IEEE f32; delta_quant and wkv6_decode
+# on CUDA cores.
 KERNEL_META = {
     "delta_quant": ("src/repro_torch/csrc/delta_quant.cu",
                     "src/repro/kernels/delta_quant.py:77"),
@@ -159,6 +176,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = True) -> float:
         end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sass_functions(sass: str) -> dict[str, str]:
+    """`cuobjdump -sass` text split by kernel: {mangled name: its SASS}."""
+    parts = re.split(r"\n\s*Function : ", sass)[1:]
+    return {p.split("\n", 1)[0].strip(): p for p in parts}
 
 
 def random_mask(gm: int, gk: int, skip: float, gen, dev) -> torch.Tensor:
@@ -433,7 +456,13 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import backend, ops
     from repro_torch.kernels.delta_quant import delta_quant, delta_quant_torch
-    from repro_torch.kernels.reuse_matmul import reuse_matmul, reuse_matmul_torch
+    from repro_torch.kernels.reuse_matmul import (
+        CLUSTERS,
+        SUB_K,
+        k_split,
+        reuse_matmul,
+        reuse_matmul_torch,
+    )
     from repro_torch.kernels.reuse_matmul_ragged import (
         reuse_matmul_ragged,
         reuse_matmul_ragged_torch,
@@ -486,16 +515,27 @@ def main() -> None:
     print("reuse_matmul_int8 SASS, int8 tensor-core instructions: "
           + "; ".join(f"{counts[kind]} {kind} ({', '.join(found)})"
                       for kind, found in tc.items()))
-    # the output-stationary kernel of this library runs on CUDA cores, so a
-    # bf16 HMMA here is the input-stationary kernel's; f32 must not be TF32
-    sass = backend.sass("reuse_matmul")
-    hmma = re.findall(r"\bHMMA\.\S+", sass)
-    if not any("BF16" in h for h in hmma):
-        fail("no bf16 HMMA instruction in the SASS of reuse_matmul")
-    if any("TF32" in h for h in hmma):
-        fail("a TF32 HMMA in the SASS of reuse_matmul: f32 must stay IEEE")
-    print(f"reuse_matmul SASS, tensor-core instructions: {len(hmma)} HMMA "
-          f"({', '.join(sorted(set(hmma)))})")
+    # every bf16 instance of the cluster tile loop multiplies on the bf16
+    # tensor cores; f32 instances stay IEEE f32 (no HMMA, no TF32)
+    for lib, lists in (("reuse_matmul", ("MaskList", "InputList")),
+                       ("reuse_matmul_ragged", ("RaggedList",))):
+        fns = sass_functions(backend.sass(lib))
+        for lst in lists:
+            for dt in ("bfloat16", "f"):
+                found = [body for fn, body in fns.items()
+                         if lst in fn and ("bfloat16" in fn) == (dt != "f")]
+                if len(found) != 1:
+                    fail(f"{lib}: {len(found)} {dt} {lst} kernels in the SASS")
+                hmma = re.findall(r"\bHMMA\.\S+", found[0])
+                if any("TF32" in h for h in hmma):
+                    fail(f"{lib}: a TF32 HMMA in the {lst} kernel")
+                if dt == "f" and hmma:
+                    fail(f"{lib}: f32 {lst} kernel on the tensor cores")
+                if dt != "f" and "HMMA.16816.F32.BF16" not in hmma:
+                    fail(f"{lib}: no HMMA.16816.F32.BF16 in the bf16 {lst} "
+                         "kernel")
+                print(f"{lib} SASS, {dt} {lst} kernel: {len(hmma)} HMMA "
+                      f"({', '.join(sorted(set(hmma))) or 'CUDA cores'})")
     print(f"kernel substrate: {backend.describe()}")
 
     # ------------------------------------------------------------ 3. kernels
@@ -543,37 +583,42 @@ def main() -> None:
     print("delta_quant: q, delta and mask bitwise equal at K in "
           "{5120, 8192, 25600} x skip {0, 0.5, 0.78, 1.0} (+ ties, + f32)")
 
-    # ΔW GEMMs, both dataflows, and ragged, at every site shape and skip
-    for site, k, n, dataflow in SITES:
+    # ΔW GEMMs, both dataflows, and ragged, at every site shape and skip:
+    # each within its tolerance, bitwise equal from run to run (fixed deal,
+    # rank-order reduction) and prev_out passed through bitwise at skip 1.0.
+    # The rwkv6 shapes draw from a generator of their own, so the qwen3
+    # phases see the same inputs whatever is added there.
+    gen_w = torch.Generator(device=dev)
+    gen_w.manual_seed(2)
+    for (site, k, n, dataflow), g in [(s, gen) for s in SITES] + \
+            [(s, gen_w) for s in RWKV_SITES]:
         for skip in SKIPS:
             delta, w, prev, mask = gemm_operands(M, k, n, skip, torch.bfloat16,
-                                                 gen, dev)
+                                                 g, dev)
             ref = reuse_matmul_torch(delta, w, prev, mask, block_m=BM,
                                      block_k=BK)
-            out = reuse_matmul(delta, w, prev, mask, block_m=BM, block_n=BN,
-                               block_k=BK, dataflow=dataflow)
-            kname = f"reuse_matmul_{dataflow}"
-            max_err[kname] = max(max_err[kname],
-                                 close(out, ref, GEMM_ATOL, GEMM_RTOL))
-            if dataflow == "input":
-                # the cluster sums its ranks' partials in a fixed order
-                again = reuse_matmul(delta, w, prev, mask, block_m=BM,
-                                     block_n=BN, block_k=BK, dataflow=dataflow)
-                if not torch.equal(out, again):
-                    fail(f"{kname} differs from run to run at skip {skip}")
-                if skip == 1.0 and not torch.equal(out, prev):
-                    fail(f"{kname} did not pass prev_out through at skip 1.0")
+            runs = {f"reuse_matmul_{dataflow}": lambda: reuse_matmul(
+                delta, w, prev, mask, block_m=BM, block_n=BN, block_k=BK,
+                dataflow=dataflow)}
             if dataflow == "output":
                 idx, counts = compact_rows(mask)
-                out = reuse_matmul_ragged(delta, w, prev, counts, idx,
-                                          block_m=BM, block_n=BN, block_k=BK)
-                max_err["reuse_matmul_ragged"] = max(
-                    max_err["reuse_matmul_ragged"],
-                    close(out, ref, GEMM_ATOL, GEMM_RTOL))
+                runs["reuse_matmul_ragged"] = lambda: reuse_matmul_ragged(
+                    delta, w, prev, counts, idx, block_m=BM, block_n=BN,
+                    block_k=BK)
+            for kname, run in runs.items():
+                out = run()
+                max_err[kname] = max(max_err[kname],
+                                     close(out, ref, GEMM_ATOL, GEMM_RTOL))
+                if not torch.equal(out, run()):
+                    fail(f"{kname} differs from run to run at {site} skip "
+                         f"{skip}")
+                if skip == 1.0 and not torch.equal(out, prev):
+                    fail(f"{kname} did not pass prev_out through at {site} "
+                         "skip 1.0")
         print(f"{site}: [{M},{k}]x[{k},{n}] bf16 {dataflow}-stationary"
-              + (" and ragged" if dataflow == "output" else
-                 " (bitwise from run to run; prev_out bitwise at skip 1.0)")
-              + f" within atol {GEMM_ATOL} rtol {GEMM_RTOL} at all skips")
+              + (" and ragged" if dataflow == "output" else "")
+              + f" within atol {GEMM_ATOL} rtol {GEMM_RTOL} at all skips, "
+              "bitwise from run to run, prev_out bitwise at skip 1.0")
     # ragged: live counts above a budget (the reference's overflow regime,
     # which the budget-free walk needs no fallback for) and a count-0 row
     delta, w, prev, mask = gemm_operands(16, 5120, 10240, 0.5, torch.bfloat16,
@@ -616,48 +661,77 @@ def main() -> None:
     # measures; 0.78 shows the skip at work)
     print("\ntimes (ms per call; CUDA events over a CUDA-graph replay of 20 "
           "calls after 3 warm-up; 'eager call' = 20 Python calls, host "
-          "included):")
-    for site, k, n, dataflow in SITES:
+          "included; ΔW GEMM weights rotated through "
+          f"{ROTATE_BYTES / 1e6:.0f} MB):")
+    lib_rm = backend.library("reuse_matmul")
+    n_sm = backend.sm_count(0)
+    by_shape = {"reuse_matmul_output": {}, "reuse_matmul_ragged": {}}
+    for (site, k, n, dataflow), g in [(s, gen) for s in SITES] + \
+            [(s, gen_w) for s in RWKV_SITES]:
         for skip in (0.0, 0.78):
             delta, w, prev, mask = gemm_operands(M, k, n, skip, torch.bfloat16,
-                                                 gen, dev)
+                                                 g, dev)
+            copies = math.ceil(ROTATE_BYTES / (w.numel() * w.element_size()))
+            nxt = itertools.cycle([w] + [w.clone() for _ in range(copies - 1)])
+            wn = nxt.__next__
             byts = gemm_bytes(delta, w, mask, BK)
             flops = 2 * M * n * int(mask.sum()) * BK
             bound = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
             kname = f"reuse_matmul_{dataflow}"
             t_k = time_ms(lambda: reuse_matmul(
-                delta, w, prev, mask, block_m=BM, block_n=BN, block_k=BK,
+                delta, wn(), prev, mask, block_m=BM, block_n=BN, block_k=BK,
                 dataflow=dataflow))
             t_p = time_ms(lambda: reuse_matmul_torch(
-                delta, w, prev, mask, block_m=BM, block_k=BK), iters=5)
-            t_l = time_ms(lambda: torch.addmm(prev, delta, w,
+                delta, wn(), prev, mask, block_m=BM, block_k=BK), iters=5)
+            t_l = time_ms(lambda: torch.addmm(prev, delta, wn(),
                                               out_dtype=torch.float32))
             t_e = time_ms(lambda: reuse_matmul(
-                delta, w, prev, mask, block_m=BM, block_n=BN, block_k=BK,
+                delta, wn(), prev, mask, block_m=BM, block_n=BN, block_k=BK,
                 dataflow=dataflow), graph=False)
             line = (f"  {site:9s} skip={skip:.2f} {kname}: {t_k:.4f} "
                     f"(eager call {t_e:.4f}) bound {bound:.4f} plain "
                     f"{t_p:.4f} library {t_l:.4f}")
-            entries = [(kname, t_k)]
+            entries = [(kname, t_k, t_p)]
             if dataflow == "output":
                 idx, counts = compact_rows(mask)
                 t_r = time_ms(lambda: reuse_matmul_ragged(
-                    delta, w, prev, counts, idx, block_m=BM, block_n=BN,
+                    delta, wn(), prev, counts, idx, block_m=BM, block_n=BN,
                     block_k=BK))
                 t_rp = time_ms(lambda: reuse_matmul_ragged_torch(
-                    delta, w, prev, counts, idx, block_m=BM, block_n=BN,
+                    delta, wn(), prev, counts, idx, block_m=BM, block_n=BN,
                     block_k=BK), iters=5)
                 line += f" | ragged {t_r:.4f} plain {t_rp:.4f}"
-                entries.append(("reuse_matmul_ragged", t_r))
+                entries.append(("reuse_matmul_ragged", t_r, t_rp))
+                # the output-stationary kernel at each k split it can
+                # launch, called directly; k_split's pick is marked
+                pick = k_split(M, n, k, n_sm)
+                if skip == 0.0:
+                    out = torch.empty_like(prev)
+                    code = backend.DTYPE_CODE[delta.dtype]
+                    sweep = []
+                    for c in (c for c in CLUSTERS if c <= k // SUB_K):
+                        t_c = time_ms(lambda: backend.check(
+                            lib_rm.rt_reuse_matmul_output(
+                                delta.data_ptr(), wn().data_ptr(), code,
+                                prev.data_ptr(), mask.data_ptr(),
+                                out.data_ptr(), M, k, n, BM, BK, c,
+                                backend.stream_ptr(dev)), "k split sweep"))
+                        sweep.append(f"C={c}{'*' if c == pick else ''} "
+                                     f"{t_c:.4f}")
+                    line += "\n      k split (* = k_split): " + ", ".join(sweep)
             print(line)
+            for kn, t, tp in entries:
+                if kn in by_shape:
+                    by_shape[kn][f"{site} [{M},{k}]x[{k},{n}] skip {skip}"] = {
+                        "ms": t, "bound_ms": bound, "library_ms": t_l}
             # the JSON line keeps each kernel's largest main-path shape at
             # skip 0: mlp_in (output, ragged) and mlp_out (input)
             if skip == 0.0 and site in ("mlp_in", "mlp_out"):
-                for kn, t in entries:
+                for kn, t, tp in entries:
                     results[kn] = {
                         "shape": f"[{M},{k}]x[{k},{n}] bf16 skip {skip}",
-                        "ms": t, "plain_ms": t_p if kn != "reuse_matmul_ragged"
-                        else t_rp, "bound_ms": bound, "bound_by": (
+                        "ms": t, "plain_ms": tp, "bound_ms": bound,
+                        "bound_by": (
                             "bytes" if byts / HBM_BYTES_PER_S
                             >= flops / BF16_FLOPS else "operations"),
                         "library_ms": t_l,
@@ -666,6 +740,9 @@ def main() -> None:
             if skip == 0.78 and dataflow == "input":
                 results[kname]["ms_skip_0.78"] = t_k
                 results[kname]["bound_ms_skip_0.78"] = bound
+            del nxt, wn
+    for kn, shapes in by_shape.items():
+        results[kn]["by_shape"] = shapes
     for k in (5120, 8192, 25600):
         x = torch.randn((M, k), generator=gen, device=dev).to(torch.bfloat16)
         prev_q = torch.randint(-127, 128, (M, k), generator=gen,

@@ -51,6 +51,26 @@ _SNAP_DTYPES = {"sim_l": np.float32, "mode_id": np.int8,
                 "cooldown": np.int32, "quarantine": np.int32}
 
 
+def lane_mean(sim: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis (the batch lanes), rounded as the reference's
+    compiled `jnp.mean(sim, axis=-1)` on the CPU: the M lanes are cut into
+    ceil(M / 32) windows of ceil(M / windows) lanes, each window is summed
+    in lane order, the window sums are added in order, and the total is
+    multiplied by f32(1 / M). Every step is an elementwise f32 add, so the
+    bits are the same on the CPU and on the card. Matches the reference for
+    every M <= 64 and for M = 32j and 32j - 1 up to 256; other widths round
+    differently (ROADMAP, Queue 3)."""
+    m = sim.shape[-1]
+    win = -(-m // -(-m // 32))
+    total = None
+    for start in range(0, m, win):
+        acc = sim[..., start]
+        for j in range(start + 1, min(start + win, m)):
+            acc = acc + sim[..., j]
+        total = acc if total is None else total + acc
+    return total * float(np.float32(1.0 / m))
+
+
 @dataclasses.dataclass
 class ReuseEngine:
     policy: ReusePolicy = dataclasses.field(default_factory=ReusePolicy)
@@ -235,7 +255,7 @@ class ReuseEngine:
             if ctrl is not None:
                 sim = entry["sim_ema"]
                 lanes = {
-                    "sim_l": sim if sim.ndim == 0 else sim.mean(dim=-1),
+                    "sim_l": sim if sim.ndim == 0 else lane_mean(sim),
                     **{k: ctrl[k] for k in _SNAP_LANES[1:]},
                 }
                 for key in _SNAP_LANES:

@@ -55,17 +55,19 @@ SIGNATURES = {
         "rt_delta_quant": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     },
     "reuse_matmul": {
-        # delta, w, dtype, prev_out, mask, out, M, K, N, bm, bk, stream
+        # delta, w, dtype, prev_out, mask, out, M, K, N, bm, bk, cluster,
+        # stream
         "rt_reuse_matmul_output": (_P, _P, _I, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _P),
+                                   _I, _I, _I, _I, _I, _I, _P),
         # delta, w, dtype, prev_out, mask, out, M, K, N, bm, bk, stream
         "rt_reuse_matmul_input": (_P, _P, _I, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P),
     },
     "reuse_matmul_ragged": {
-        # delta, w, dtype, prev_out, counts, idx, idx_ld, out, M, K, N, bm, bk, stream
+        # delta, w, dtype, prev_out, counts, idx, idx_ld, out, M, K, N, bm, bk,
+        # cluster, stream
         "rt_reuse_matmul_ragged": (_P, _P, _I, _P, _P, _P, _I, _P,
-                                   _I, _I, _I, _I, _I, _P),
+                                   _I, _I, _I, _I, _I, _I, _P),
     },
     "reuse_matmul_int8": {
         # delta, w, prev_acc, mask, out, M, K, N, bm, bk, stream
@@ -177,6 +179,12 @@ def check(rc: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (a host query)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=1)

@@ -20,8 +20,26 @@ import torch
 from repro_torch.kernels import backend
 
 ROWS_PER_CTA = 8     # csrc/reuse_tile.cuh kRows
-COLS_PER_CTA = 128   # OutputTile::kCols; the input-stationary kInCols
-SUB_K = 64           # k rows of one input-stationary sub-step (kSubK)
+COLS_PER_CTA = 128   # csrc/reuse_tile.cuh kCols
+SUB_K = 64           # k rows of one sub-step, csrc/reuse_tile.cuh kSubK
+CLUSTERS = (1, 2, 4, 8)  # k splits the kernels launch
+SM_FILL = 0.875      # share of the SMs k_split gives at least one CTA
+
+
+def k_split(m: int, n: int, k: int, n_sm: int) -> int:
+    """Cluster size C that splits each (8-row, 128-column) output tile's k
+    range in the output-stationary and ragged kernels: the smallest C in
+    CLUSTERS whose (n / 128) · (m / 8) · C CTAs reach SM_FILL · n_sm, and at
+    most the tile's k / SUB_K sub-steps. From the shape alone: the active
+    count lives on the device and is never read. On the H100 one CTA an SM
+    already streams at the card's rate and each further split costs its own
+    ring fill and reduction, so more CTAs only lose (PERF.md §6)."""
+    tiles = (n // COLS_PER_CTA) * (m // ROWS_PER_CTA)
+    fits = [c for c in CLUSTERS if c <= max(1, k // SUB_K)]
+    for c in fits:
+        if tiles * c >= SM_FILL * n_sm:
+            return c
+    return fits[-1]
 
 
 def skip_sel(block_mask: torch.Tensor) -> torch.Tensor:
@@ -79,13 +97,12 @@ def reuse_matmul_torch(
     return prev_out + d @ w.float()
 
 
-def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what,
-               k_step: int = 1) -> None:
+def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what) -> None:
     """Device, dtype, shape, contiguity, alignment and tiling checks of the
     ΔW GEMM kernels (shared with reuse_matmul_ragged). Each CUDA CTA covers
-    ROWS_PER_CTA rows of one block_m group and COLS_PER_CTA columns; the
-    input-stationary kernel deals k out in sub-steps of `k_step` = SUB_K
-    rows. A broken divisor raises ValueError naming it, before any launch."""
+    ROWS_PER_CTA rows of one block_m group and COLS_PER_CTA columns and
+    deals k out in sub-steps of SUB_K rows. A broken divisor raises
+    ValueError naming it, before any launch."""
     dev = delta.device
     if delta.dtype not in backend.DTYPE_CODE or w.dtype != delta.dtype:
         raise TypeError(f"{what}: delta {delta.dtype} and w {w.dtype} must "
@@ -98,7 +115,7 @@ def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what,
                          f"{tuple(w.shape)} {tuple(prev_out.shape)}")
     for name, size, div in (("block_m", block_m, ROWS_PER_CTA),
                             ("block_n", block_n, COLS_PER_CTA),
-                            ("block_k", block_k, k_step)):
+                            ("block_k", block_k, SUB_K)):
         if size % div:
             raise ValueError(f"{what}: the CUDA kernel needs {name} % {div} "
                              f"== 0, got {name} = {size}")
@@ -140,8 +157,7 @@ def reuse_matmul(
     if delta.device.type != "cuda":
         raise ValueError(f"reuse_matmul: unsupported device {delta.device}")
     check_gemm(delta, w, prev_out, block_m, block_k, block_n,
-               f"reuse_matmul({dataflow})",
-               k_step=SUB_K if dataflow == "input" else 1)
+               f"reuse_matmul({dataflow})")
     if block_mask.dtype != torch.int32 or block_mask.device != delta.device \
             or not block_mask.is_contiguous():
         raise ValueError("reuse_matmul: block_mask must be contiguous int32 "
@@ -150,17 +166,18 @@ def reuse_matmul(
     out = torch.empty_like(prev_out)
     code = backend.DTYPE_CODE[delta.dtype]
     stream = backend.stream_ptr(delta.device)
+    # one launch: clusters of CTAs split each tile's active k range and sum
+    # their partials on chip, so no scratch is allocated
     if dataflow == "output":
+        cluster = k_split(m, n, k, backend.sm_count(delta.device.index))
         rc = lib.rt_reuse_matmul_output(
             delta.data_ptr(), w.data_ptr(), code, prev_out.data_ptr(),
             block_mask.data_ptr(), out.data_ptr(), m, k, n, block_m, block_k,
-            stream,
+            cluster, stream,
         )
         backend.check(rc, "reuse_matmul(output)")
         backend.count_launch("reuse_matmul_output")
         return out
-    # one launch: clusters of 8 CTAs split each tile's active k range and
-    # sum their partials on chip, so no scratch is allocated
     rc = lib.rt_reuse_matmul_input(
         delta.data_ptr(), w.data_ptr(), code, prev_out.data_ptr(),
         block_mask.data_ptr(), out.data_ptr(), m, k, n, block_m, block_k,

@@ -3,8 +3,9 @@
 Per m-row-block, only the `counts[m]` front-compacted active K-blocks
 `idx[m, :]` are walked, so a skipped tile costs no iteration; a row with
 count 0 passes prev_out through. `reuse_matmul_ragged` launches
-`csrc/reuse_matmul_ragged.cu` on CUDA tensors — the kernel loops to
-`counts[m]` on the device, so it needs no budget and no fallback — and takes
+`csrc/reuse_matmul_ragged.cu` on CUDA tensors — the kernel walks
+`counts[m]` on the device, so it needs no budget and no fallback, with each
+tile's k range split over a cluster of `k_split` CTAs — and takes
 `reuse_matmul_ragged_torch`, the counterpart of the reference's
 `xla_tier.reuse_matmul_ragged_xla` (a gather GEMM over `idx`, guarded by
 `counts`), on CPU tensors. Both take the full-extent `[gm, gk]` idx, so both
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.reuse_matmul import check_gemm
+from repro_torch.kernels.reuse_matmul import check_gemm, k_split
 
 
 def reuse_matmul_ragged_torch(
@@ -91,6 +92,7 @@ def reuse_matmul_ragged(
         delta.data_ptr(), w.data_ptr(), backend.DTYPE_CODE[delta.dtype],
         prev_out.data_ptr(), counts.data_ptr(), idx.data_ptr(), idx.stride(0),
         out.data_ptr(), m, k, n, block_m, block_k,
+        k_split(m, n, k, backend.sm_count(delta.device.index)),
         backend.stream_ptr(delta.device),
     )
     backend.check(rc, "reuse_matmul_ragged")

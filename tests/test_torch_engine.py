@@ -153,6 +153,29 @@ def test_refresh_modes_and_report_match_reference(rng):
         je.sensor_report(jc).summary_lines()
 
 
+@pytest.mark.parametrize("m", [3, 6, 16, 32, 64])
+def test_ctrl_snapshot_and_refresh_modes_match_reference_at_batch(m):
+    """sim_l bitwise at batch widths where a plain torch mean rounds other
+    than the reference's compiled mean, and the mode pass that reads it."""
+    rng = np.random.default_rng(m)
+    je, te = build(2)
+    jc, tc = je.init_cache(m), te.init_cache(m, device="cpu")
+    for name in jc:
+        sim = rng.random(tuple(jc[name]["sim_ema"].shape), dtype=np.float32)
+        jc[name] = {**jc[name], "sim_ema": jnp.asarray(sim)}
+        tc[name]["sim_ema"].copy_(t(sim))
+    jsnap, tsnap = je.ctrl_snapshot(jc), te.ctrl_snapshot(tc)
+    for name in jc:
+        want = np.asarray(jsnap[name]["sim_l"])
+        assert tsnap[name]["sim_l"].dtype == want.dtype
+        np.testing.assert_array_equal(tsnap[name]["sim_l"], want,
+                                      err_msg=name)
+    assert te.refresh_modes(tc) == je.refresh_modes(jc)
+    assert te.last_mode_events == je.last_mode_events
+    assert len(te.last_mode_events) > 0
+    assert_caches_match(jc, tc)
+
+
 def _spec_like(jspec):
     from repro_torch.core.reuse_cache import ReuseSiteSpec
 

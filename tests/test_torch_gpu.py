@@ -6,6 +6,8 @@ This file imports no JAX (the machine with the card has none):
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -89,6 +91,8 @@ def input_mask(rule, gm, gk, gen, dev):
         mask[:, 2] = 1
     elif rule == "none":
         mask[:] = 0
+    elif rule == "first":  # row 0 keeps every tile, the rest keep none
+        mask[1:] = 0
     elif rule == "rows":  # row 0 keeps even tiles, row 1 every third
         mask[0, 1::2] = 0
         mask[1] = (torch.arange(gk, device=dev) % 3 == 1).to(torch.int32)
@@ -126,6 +130,94 @@ def test_input_stationary_on_card(card, dtype, case):
     assert torch.equal(outs[0], outs[1])
     if rule == "none":
         assert torch.equal(outs[0], prev)
+
+
+def masked_or_ragged(kernel, delta, w, prev, mask, bm, bk):
+    """One launch of the output-stationary or the ragged kernel (the ragged
+    list is the mask compacted), checked to be one launch."""
+    name = f"reuse_matmul_{kernel}"
+    before = backend.launch_counts()[name]
+    if kernel == "ragged":
+        idx, counts = compact_rows(mask)
+        out = reuse_matmul_ragged(delta, w, prev, counts, idx, block_m=bm,
+                                  block_n=128, block_k=bk)
+    else:
+        out = reuse_matmul(delta, w, prev, mask, block_m=bm, block_n=128,
+                           block_k=bk, dataflow="output")
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[name] == before + 1
+    return out
+
+
+def check_cluster_gemm(kernel, m, k, n, bm, bk, rule, dtype, dev, seed=0):
+    """Against the plain version at this file's tolerances, and bitwise equal
+    from run to run (fixed deal, rank-order reduction, no atomics). Δ is
+    nonzero in masked tiles too, so a kernel that read a masked tile, or
+    another m tile's list, would disagree; an all-masked row passes
+    prev_out through bitwise."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = input_mask(rule, m // bm, k // bk, gen, dev)
+    delta = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=dev) / k ** 0.5).to(dtype)
+    prev = torch.randn((m, n), generator=gen, device=dev)
+    want = reuse_matmul_torch(delta, w, prev, mask, block_m=bm, block_k=bk)
+    outs = [masked_or_ragged(kernel, delta, w, prev, mask, bm, bk)
+            for _ in range(2)]
+    torch.testing.assert_close(outs[0], want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(outs[0], outs[1])
+    for mb in range(m // bm):
+        if not bool(mask[mb].any()):
+            rows = slice(mb * bm, (mb + 1) * bm)
+            assert torch.equal(outs[0][rows], prev[rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["output", "ragged"])
+@pytest.mark.parametrize("case", list(INPUT_CASES))
+def test_output_and_ragged_cases_on_card(card, dtype, kernel, case):
+    """The input-stationary cases through the two kernels that share its
+    tile loop and pick their k split from the shape."""
+    m, k, n, bm, bk, rule = INPUT_CASES[case]
+    check_cluster_gemm(kernel, m, k, n, bm, bk, rule, dtype, card)
+
+
+# (k, n) of every output-stationary site of both archetypes at decode batch 8
+SITE_SHAPES = {
+    "rwkv6_4096": (4096, 4096),     # wr, wk, wv, wg, wo, cmix_wr
+    "rwkv6_cmix_wk": (4096, 14336),
+    "rwkv6_cmix_wv": (14336, 4096),
+    "qwen3_attn_qkv": (5120, 10240),
+    "qwen3_attn_out": (8192, 5120),
+    "qwen3_mlp_in": (5120, 51200),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["output", "ragged"])
+@pytest.mark.parametrize("site", list(SITE_SHAPES))
+def test_output_and_ragged_at_site_shapes_on_card(card, dtype, kernel, site):
+    k, n = SITE_SHAPES[site]
+    for seed, skip in enumerate((0.0, 0.5, 0.78, 1.0)):
+        check_cluster_gemm(kernel, 8, k, n, 8, 256, skip, dtype, card, seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_each_k_split_on_card(card, dtype, cluster):
+    """A shape for each cluster size k_split can pick on this card: the
+    fewest column tiles with which it picks `cluster`, two 8-row m tiles of
+    which the second is all masked, and 20 sub-steps (runs of 2 and 3)."""
+    from repro_torch.kernels import reuse_matmul as rm
+
+    n_sm = backend.sm_count(card.index)
+    tiles = math.ceil(rm.SM_FILL * n_sm / cluster)
+    m, k, n = 16, 1280, 128 * -(-tiles // 2)
+    assert rm.k_split(m, n, k, n_sm) == cluster
+    for kernel in ("output", "ragged"):
+        check_cluster_gemm(kernel, m, k, n, 8, 256, "first", dtype, card)
 
 
 @pytest.mark.gpu

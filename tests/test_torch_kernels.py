@@ -446,25 +446,62 @@ def test_int8_kernel_tiling_contract(bm, bn, bk, bad):
     (12, 128, 256, "block_m"), (8, 64, 256, "block_n"),
     (8, 128, 96, "block_k"), (8, 128, 32, "block_k")])
 def test_input_stationary_tiling_contract(bm, bn, bk, bad):
-    """The input-stationary kernel's tiles: 8-row m tiles inside one block_m
-    group, 128-column CTA tiles, k dealt to the cluster's ranks in 64-row
-    sub-steps. A broken divisor raises ValueError naming it (and no other)
-    before any launch, so the contract holds on the CPU; the
-    output-stationary kernel takes any block_k."""
+    """The tiles of the cluster tile loop, which the input-stationary kernel
+    shares with the output-stationary and ragged ones: 8-row m tiles inside
+    one block_m group, 128-column CTA tiles, k dealt to the cluster's ranks
+    in 64-row sub-steps. A broken divisor raises ValueError naming it (and
+    no other) before any launch, so the contract holds on the CPU."""
     from repro_torch.kernels import reuse_matmul as rm
 
     args = (torch.zeros((bm, bk), dtype=torch.bfloat16),
             torch.zeros((bk, bn), dtype=torch.bfloat16),
             torch.zeros((bm, bn)), bm, bk, bn)
-    if bad is None:
-        rm.check_gemm(*args, "reuse_matmul(input)", k_step=rm.SUB_K)
-        return
-    with pytest.raises(ValueError, match=f"{bad} %") as err:
-        rm.check_gemm(*args, "reuse_matmul(input)", k_step=rm.SUB_K)
-    others = {"block_m", "block_n", "block_k"} - {bad}
-    assert not any(o in str(err.value) for o in others), err.value
-    if bad == "block_k":
-        rm.check_gemm(*args, "reuse_matmul(output)")
+    for what in ("reuse_matmul(input)", "reuse_matmul(output)",
+                 "reuse_matmul_ragged"):
+        if bad is None:
+            rm.check_gemm(*args, what)
+            continue
+        with pytest.raises(ValueError, match=f"{bad} %") as err:
+            rm.check_gemm(*args, what)
+        others = {"block_m", "block_n", "block_k"} - {bad}
+        assert not any(o in str(err.value) for o in others), err.value
+
+
+# (k, n) of every output-stationary site of both archetypes at decode batch
+# 8, with the k split k_split gives it on a 132-SM H100
+SITE_SPLITS = {
+    "rwkv6 wr/wk/wv/wg/wo, cmix_wr": (4096, 4096, 4),
+    "rwkv6 cmix_wk": (4096, 14336, 2),
+    "rwkv6 cmix_wv": (14336, 4096, 4),
+    "qwen3 attn_qkv": (5120, 10240, 2),
+    "qwen3 attn_out": (8192, 5120, 4),
+    "qwen3 mlp_in": (5120, 51200, 1),
+}
+
+
+@pytest.mark.parametrize("site", list(SITE_SPLITS))
+def test_k_split_at_every_site(site):
+    """The cluster size is one of the launchable ones, gives SM_FILL of the
+    SMs a CTA where the sub-steps allow (and no smaller one does), and never
+    exceeds the tile's 64-row sub-steps."""
+    from repro_torch.kernels import reuse_matmul as rm
+
+    k, n, want = SITE_SPLITS[site]
+    c = rm.k_split(8, n, k, 132)
+    assert c == want
+    assert c in rm.CLUSTERS and c <= k // rm.SUB_K
+    tiles = n // rm.COLS_PER_CTA
+    smaller = [s for s in rm.CLUSTERS if s < c]
+    assert all(tiles * s < rm.SM_FILL * 132 for s in smaller)
+
+
+def test_k_split_caps_at_the_sub_steps():
+    from repro_torch.kernels import reuse_matmul as rm
+
+    assert rm.k_split(8, 128, 64, 132) == 1     # one sub-step
+    assert rm.k_split(8, 128, 256, 132) == 4    # four sub-steps
+    assert rm.k_split(8, 128, 4096, 132) == 8
+    assert rm.k_split(64, 2048, 4096, 132) == 1  # 128 tiles fill the card
 
 
 def test_import_builds_nothing_and_counts_start_at_zero():
