@@ -12,7 +12,10 @@ every phase's failure is fatal (non-zero exit, no result line):
                 tensor-core instruction: IMMA (`mma.sync`, its 8-row tiles)
                 and IGMMA (`wgmma`, its 128-row tiles); and that every bf16
                 instance of the three float ΔW GEMMs (output-, input-
-                stationary, ragged) holds a bf16 HMMA, and none a TF32 one
+                stationary, ragged) holds a bf16 HMMA, and none a TF32 one;
+                that every 8-wide delta_quant instance loads x in 16-byte
+                LDGs (printed: each instance's loads and stores by width,
+                and the loads issued before its first barrier)
   3. kernels  — each Hopper kernel against its plain PyTorch version on the
                 card: the reuse kernels at the full-width qwen3-32b and
                 rwkv6-7b decode shapes (M = 8, block_m 8, block_k 256,
@@ -20,6 +23,11 @@ every phase's failure is fatal (non-zero exit, no result line):
                 case at a small shape (each ΔW GEMM also bitwise equal from
                 run to run, and prev_out passed through bitwise at skip
                 1.0);
+                delta_quant bitwise at every qwen3 and rwkv6 width (K 4096,
+                5120, 8192, 14336, 25600), at blocks 128x256, 8x64 and 8x128,
+                x/delta bf16/bf16, bf16/f32, f32/f32, and on views at an
+                unaligned storage offset (its scalar instance), timed at
+                every width beside the launch floor (a one-element add_);
                 wkv6_decode at rwkv6-7b decode (B 8, H 64, 64 x 64 state) with
                 a nonzero bonus; reuse_matmul_int8 over a delta_encode_int8
                 split at [8|128, 4096] x [4096, 14336] and the same skips, and
@@ -382,7 +390,8 @@ def profile_step(fn) -> None:
     print(f"  profile of one bf16 decode step: wall {wall:.2f} ms, device "
           f"busy {busy:.2f} ms ({busy / wall:.1%}), idle share "
           f"{max(0.0, 1 - busy / wall):.1%}")
-    for e in rows[:12]:
+    # the top rows, and delta_quant's wherever it ranks
+    for e in rows[:12] + [e for e in rows[12:] if "delta_quant" in e.key]:
         print(f"    {e.device_time_total / 1e3:8.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
 
@@ -455,7 +464,11 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import backend, ops
-    from repro_torch.kernels.delta_quant import delta_quant, delta_quant_torch
+    from repro_torch.kernels.delta_quant import (
+        delta_quant,
+        delta_quant_torch,
+        vector_access,
+    )
     from repro_torch.kernels.reuse_matmul import (
         CLUSTERS,
         SUB_K,
@@ -536,6 +549,22 @@ def main() -> None:
                          "kernel")
                 print(f"{lib} SASS, {dt} {lst} kernel: {len(hmma)} HMMA "
                       f"({', '.join(sorted(set(hmma))) or 'CUDA cores'})")
+    # delta_quant: every 8-wide vector instance moves x in 16-byte loads;
+    # printed per instance: its loads by width and how many of them are
+    # issued before the CTA's first barrier (one round trip per thread)
+    for fn, body in sass_functions(backend.sass("delta_quant")).items():
+        vec, items = re.search(r"delta_quant_kernel.*Li(\d+)ELi(\d+)E",
+                               fn).groups()
+        head = body.split("BAR.SYNC", 1)[0]
+        ldg = re.findall(r"\bLDG\.E\.?(\d+|[US]\d+)?", body)
+        stg = re.findall(r"\bSTG\.E\.?(\d+|[US]\d+)?", body)
+        if vec == "8" and "128" not in ldg:
+            fail(f"delta_quant vector instance {fn} has no 16-byte load")
+        width = lambda ws: ", ".join(f"{ws.count(w)}x{w or '32'}"
+                                     for w in sorted(set(ws)))
+        print(f"delta_quant SASS, VEC {vec} ITEMS {items} ({fn[:60]}...): "
+              f"LDG {width(ldg)} ({len(re.findall(r'LDG', head))} before the "
+              f"first barrier), STG {width(stg)}")
     print(f"kernel substrate: {backend.describe()}")
 
     # ------------------------------------------------------------ 3. kernels
@@ -545,43 +574,79 @@ def main() -> None:
     results: dict[str, dict] = {}
     max_err = {k: 0.0 for k in KERNEL_META}
 
-    # delta_quant: bitwise on q, mask and delta
-    for k in sorted({s[1] for s in SITES}):
+    # delta_quant: bitwise on q, mask and delta at every serve width (qwen3
+    # 5120, 8192, 25600; rwkv6 4096, 14336), skip, tie and scale; then the
+    # other tile shapes, dtype pairs and a storage offset that is not 16-byte
+    # aligned (the kernel's scalar instance). The rwkv6 widths and the extra
+    # cases draw from a generator of their own, so the qwen3 phases see the
+    # same inputs whatever is added here.
+    def dq_check(x, prev_q, scale, bm, bk, delta_dtype, what):
+        got = delta_quant(x, prev_q, scale, block_m=bm, block_k=bk,
+                          delta_dtype=delta_dtype)
+        want = delta_quant_torch(x, prev_q, scale, block_m=bm, block_k=bk,
+                                 delta_dtype=delta_dtype)
+        for a, b, part in zip(got, want, ("q", "delta", "mask")):
+            if not torch.equal(a, b):
+                fail(f"delta_quant {part} differs at {what}")
+
+    def dq_inputs(m, k, bk, skip, scale_v, ties, g, x_dtype=torch.bfloat16):
+        x = torch.randn((m, k), generator=g, device=dev) * 2.0
+        if ties:  # exact half-way codes exercise round-half-to-even
+            half = (torch.randint(-100, 100, (m, k), generator=g,
+                                  device=dev) + 0.5) * scale_v
+            pick = torch.rand((m, k), generator=g, device=dev) < 0.25
+            x = torch.where(pick, half, x)
+        x = x.to(x_dtype)
+        scale = torch.tensor(scale_v, dtype=torch.float32, device=dev)
+        mask = random_mask(1, k // bk, skip, g, dev)
+        same = expand(mask, m, bk) == 0
+        rand_q = torch.randint(-127, 128, (m, k), generator=g,
+                               device=dev).to(torch.int8)
+        return x, torch.where(same, quantize_int8(x, scale), rand_q), scale
+
+    gen_d = torch.Generator(device=dev)
+    gen_d.manual_seed(3)
+    dq_widths = sorted({s[1] for s in SITES} | {4096, 14336})
+    for k in dq_widths:
+        g = gen if any(k == s[1] for s in SITES) else gen_d
         for skip in SKIPS:
             for scale_v, ties in ((0.05, False), (0.0625, True)):
-                x = torch.randn((M, k), generator=gen, device=dev) * 2.0
-                if ties:  # exact half-way codes exercise round-half-to-even
-                    half = (torch.randint(-100, 100, (M, k), generator=gen,
-                                          device=dev) + 0.5) * scale_v
-                    pick = torch.rand((M, k), generator=gen, device=dev) < 0.25
-                    x = torch.where(pick, half, x)
-                x = x.to(torch.bfloat16)
-                scale = torch.tensor(scale_v, dtype=torch.float32, device=dev)
-                mask = random_mask(1, k // BK, skip, gen, dev)
-                same = expand(mask, M, BK) == 0
-                rand_q = torch.randint(-127, 128, (M, k), generator=gen,
-                                       device=dev).to(torch.int8)
-                prev_q = torch.where(same, quantize_int8(x, scale), rand_q)
-                got = delta_quant(x, prev_q, scale, block_m=BM, block_k=BK,
-                                  delta_dtype=torch.bfloat16)
-                want = delta_quant_torch(x, prev_q, scale, block_m=BM,
-                                         block_k=BK,
-                                         delta_dtype=torch.bfloat16)
-                for a, b, what in zip(got, want, ("q", "delta", "mask")):
-                    if not torch.equal(a, b):
-                        fail(f"delta_quant {what} differs at K={k} skip={skip}")
+                x, prev_q, scale = dq_inputs(M, k, BK, skip, scale_v, ties, g)
+                dq_check(x, prev_q, scale, BM, BK, torch.bfloat16,
+                         f"K={k} skip={skip} scale={scale_v}")
     xq = torch.randn((16, 512), generator=gen, device=dev)
     pq = torch.randint(-127, 128, (16, 512), generator=gen,
                        device=dev).to(torch.int8)
     sc = torch.tensor(0.05, device=dev)
-    for a, b in zip(delta_quant(xq, pq, sc, block_m=8, block_k=128,
-                                delta_dtype=torch.float32),
-                    delta_quant_torch(xq, pq, sc, block_m=8, block_k=128,
-                                      delta_dtype=torch.float32)):
-        if not torch.equal(a, b):
-            fail("delta_quant f32 case differs")
-    print("delta_quant: q, delta and mask bitwise equal at K in "
-          "{5120, 8192, 25600} x skip {0, 0.5, 0.78, 1.0} (+ ties, + f32)")
+    dq_check(xq, pq, sc, 8, 128, torch.float32, "f32 [16,512] block_k 128")
+    dq_cases = 0
+    for m, k, bm, bk in ((128, 4096, 128, 256), (M, 4096, 8, 64),
+                         (M, 14336, 8, 128), (M, 25600, 8, 64)):
+        for x_dtype, d_dtype in ((torch.bfloat16, torch.bfloat16),
+                                 (torch.bfloat16, torch.float32),
+                                 (torch.float32, torch.float32)):
+            x, prev_q, scale = dq_inputs(m, k, bk, 0.5, 0.0625, True, gen_d,
+                                         x_dtype)
+            dq_check(x, prev_q, scale, bm, bk, d_dtype,
+                     f"[{m},{k}] block {bm}x{bk} x {x_dtype} delta {d_dtype}")
+            dq_cases += 1
+    for x_dtype in (torch.bfloat16, torch.float32):
+        x, prev_q, scale = dq_inputs(M, 4096, BK, 0.5, 0.0625, True, gen_d,
+                                     x_dtype)
+        xo = torch.empty(x.numel() + 1, dtype=x_dtype, device=dev)[1:]
+        po = torch.empty(x.numel() + 3, dtype=torch.int8, device=dev)[3:]
+        xo, po = xo.view(x.shape).copy_(x), po.view(x.shape).copy_(prev_q)
+        if vector_access((xo.data_ptr(), po.data_ptr()), BK):
+            fail("the offset views took the vector instance")
+        dq_check(xo, po, scale, BM, BK, x_dtype,
+                 f"unaligned offset views, x {x_dtype}")
+        dq_cases += 1
+    torch.cuda.synchronize()
+    print(f"delta_quant: q, delta and mask bitwise equal at K in "
+          f"{set(dq_widths)} x skip {{0, 0.5, 0.78, 1.0}} (+ ties), f32 at "
+          f"[16,512], and {dq_cases} cases of block 128x256 / 8x64 / 8x128, "
+          "x/delta bf16/bf16, bf16/f32, f32/f32 and unaligned offset views "
+          "(the scalar instance)")
 
     # ΔW GEMMs, both dataflows, and ragged, at every site shape and skip:
     # each within its tolerance, bitwise equal from run to run (fixed deal,
@@ -743,9 +808,18 @@ def main() -> None:
             del nxt, wn
     for kn, shapes in by_shape.items():
         results[kn]["by_shape"] = shapes
-    for k in (5120, 8192, 25600):
-        x = torch.randn((M, k), generator=gen, device=dev).to(torch.bfloat16)
-        prev_q = torch.randint(-127, 128, (M, k), generator=gen,
+    # delta_quant at every serve width. At these sizes its byte bound is
+    # below what a launch costs, so beside the bound it is held against the
+    # launch floor: a one-element PyTorch elementwise op in the same graph
+    # replay (a yardstick; the port never calls it).
+    one = torch.zeros(1, device=dev)
+    floor = time_ms(lambda: one.add_(1))
+    print(f"  launch floor (one-element add_, graph replay): {floor:.4f}")
+    dq_by_shape = []
+    for k in dq_widths:
+        g = gen if any(k == s[1] for s in SITES) else gen_d
+        x = torch.randn((M, k), generator=g, device=dev).to(torch.bfloat16)
+        prev_q = torch.randint(-127, 128, (M, k), generator=g,
                                device=dev).to(torch.int8)
         scale = torch.tensor(0.05, dtype=torch.float32, device=dev)
         t_k = time_ms(lambda: delta_quant(x, prev_q, scale, block_m=BM,
@@ -757,12 +831,14 @@ def main() -> None:
         byts = M * k * (2 + 1 + 1 + 2) + (k // BK) * 4 + 4
         bound = byts / HBM_BYTES_PER_S * 1e3
         print(f"  delta_quant K={k}: {t_k:.4f} (eager call {t_e:.4f}) "
-              f"bound {bound:.6f} plain {t_p:.4f}")
+              f"bound {bound:.6f} floor {floor:.4f} plain {t_p:.4f}")
+        dq_by_shape.append({"K": k, "ms": t_k, "bound_ms": bound})
         if k == 25600:
             results["delta_quant"] = {
                 "shape": f"[{M},{k}] bf16", "ms": t_k, "plain_ms": t_p,
                 "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
             }
+    results["delta_quant"].update(by_shape=dq_by_shape, floor_ms=floor)
 
     # wkv6_decode at rwkv6-7b decode with a nonzero bonus and a random
     # state (the serve path's bonus is zero): S' bitwise, out within

@@ -51,23 +51,33 @@ _SNAP_DTYPES = {"sim_l": np.float32, "mode_id": np.int8,
                 "cooldown": np.int32, "quarantine": np.int32}
 
 
+def _window_sum(v: list[torch.Tensor]) -> torch.Tensor:
+    """Sum of the lane slices `v`, in the order of XLA's CPU reduction: up to
+    32 lanes are added in lane order; more are cut into reduce-windows of 32
+    whose padding P = 32·ceil(n/32) − n is split floor(P/2) low and
+    ceil(P/2) high, each window is summed in lane order, and the window sums
+    are reduced by the same rule."""
+    n = len(v)
+    if n <= 32:
+        acc = v[0]
+        for x in v[1:]:
+            acc = acc + x
+        return acc
+    lo = (32 * -(-n // 32) - n) // 2
+    sums = [_window_sum(v[max(0, 32 * w - lo):32 * (w + 1) - lo])
+            for w in range(-(-n // 32))]
+    return _window_sum(sums)
+
+
 def lane_mean(sim: torch.Tensor) -> torch.Tensor:
     """Mean over the last axis (the batch lanes), rounded as the reference's
-    compiled `jnp.mean(sim, axis=-1)` on the CPU: the M lanes are cut into
-    ceil(M / 32) windows of ceil(M / windows) lanes, each window is summed
-    in lane order, the window sums are added in order, and the total is
-    multiplied by f32(1 / M). Every step is an elementwise f32 add, so the
-    bits are the same on the CPU and on the card. Matches the reference for
-    every M <= 64 and for M = 32j and 32j - 1 up to 256; other widths round
-    differently (ROADMAP, Queue 3)."""
+    compiled `jnp.mean(sim, axis=-1)` on the CPU: the lanes are summed by
+    `_window_sum` (XLA's reduce-window rewrite) and the total is multiplied
+    by f32(1 / M). Every step is an elementwise f32 add of lane slices, so
+    the bits are the same on the CPU and on the card, at every batch width
+    (tests/test_torch_engine.py holds it against the compiled mean)."""
     m = sim.shape[-1]
-    win = -(-m // -(-m // 32))
-    total = None
-    for start in range(0, m, win):
-        acc = sim[..., start]
-        for j in range(start + 1, min(start + win, m)):
-            acc = acc + sim[..., j]
-        total = acc if total is None else total + acc
+    total = _window_sum([sim[..., j] for j in range(m)])
     return total * float(np.float32(1.0 / m))
 
 

@@ -7,87 +7,307 @@
 //   mask  = any(q != prev_q) over each (block_m × block_k) tile -> int32
 //
 // Bound on the H100: bytes. It reads x and prev_q and writes q and delta
-// once (about 6 bytes per element in bf16, 1 FLOP-ish each), so it is a pure
-// stream; at decode (8 × K ≤ 8 × 25600) it is over in a few microseconds and
-// its launch is most of its cost.
+// once (6 bytes per element in bf16, a few operations each), so it is a pure
+// stream. At decode (8 × K, K ≤ 25600) the byte bound is a fraction of a
+// microsecond, below what one launch costs: the floor that counts is the
+// launch plus one memory round trip.
 //
-// Design. One CTA per tile, as one grid step on the TPU; the tile's "any
-// changed" bit is a CTA-wide `__syncthreads_or`, written once. The codes must
-// equal the reference bit for bit, so the division is a true IEEE division
-// (`__fdiv_rn`, never a multiply by the reciprocal), the rounding is half to
-// even (`rintf`), the delta product is `__fmul_rn` (no contraction), and the
-// bf16 cast rounds to nearest even. Build without --use_fast_math.
+// Design: one memory round trip per thread. One CTA per tile (the TPU's grid
+// step), with threads laid out (tx, ty) over (vectors of a row, rows): a
+// thread owns VEC consecutive elements of a row, so its row and column come
+// from blockIdx/threadIdx alone, with no integer division. In the vector
+// instance (VEC = 8) that is one 16-byte load of bf16 x (two of f32), one
+// 8-byte load of prev_q, one 8-byte store of q and one 16-byte store of bf16
+// delta (two of f32). Every load of a chunk of rows is issued before any
+// arithmetic, and the first chunk's loads go out before the barrier that
+// hands every thread `scale` (read once per CTA), so at the serve's tiles
+// (8 × 256, one row per thread) the whole tile is one pass with one wait.
+// A tile taller than one pass (block_m 128) is cut into row slices over a
+// cluster of up to 8 CTAs on as many SMs, two rows in flight per thread
+// (a 128 × 256 tile: 16 rows a CTA, one chunk);
+// rank 0 ORs the slices' bits through distributed shared memory. The tile's
+// "any changed" bit is a CTA-wide `__syncthreads_or`, written by one thread,
+// once: no atomics, so no zeroing launch. The scalar instance (VEC = 1) is
+// the same kernel for operands the vector access cannot take (a pointer not
+// 16-byte aligned, block_k % 8 != 0).
+//
+// The codes must equal the reference bit for bit, so the division is a true
+// IEEE division (`__fdiv_rn`, never a multiply by the reciprocal), the
+// rounding is half to even (`rintf`), the delta product is `__fmul_rn` (no
+// contraction), and the bf16 cast rounds to nearest even. Build without
+// --use_fast_math.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // most threads of a CTA
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+// ---- loads of VEC consecutive elements, widened to f32 / int
+template <int VEC>
+__device__ __forceinline__ void load_x(const __nv_bfloat16* p, float (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+    v[0] = __bfloat162float(p[0]);
+  }
 }
 
-template <typename TX, typename TD>
+template <int VEC>
+__device__ __forceinline__ void load_x(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_q(const int8_t* p, int (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] = (int)(int8_t)(u.x >> (8 * i));
+      v[4 + i] = (int)(int8_t)(u.y >> (8 * i));
+    }
+  } else {
+    v[0] = (int)__ldg(p);
+  }
+}
+
+// ---- stores of VEC consecutive results (through the store intrinsics, so a
+// packed 16-byte value leaves as one STG.E.128, not four 4-byte stores)
+template <int VEC>
+__device__ __forceinline__ void store_q(int8_t* p, const int (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    uint2 u = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      u.x |= (uint32_t)(v[i] & 0xff) << (8 * i);
+      u.y |= (uint32_t)(v[4 + i] & 0xff) << (8 * i);
+    }
+    __stwb(reinterpret_cast<uint2*>(p), u);
+  } else {
+    p[0] = (int8_t)v[0];
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float f) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_d(__nv_bfloat16* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = bf16_bits(v[2 * i]) | (bf16_bits(v[2 * i + 1]) << 16);
+    __stwb(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+  } else {
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_d(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 8) {
+    __stwb(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    __stwb(reinterpret_cast<float4*>(p) + 1,
+           make_float4(v[4], v[5], v[6], v[7]));
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// One CTA per (block_m × block_k) tile, or per row slice of it: a tile of
+// more rows than one pass of the CTA covers is cut across a cluster of
+// 2^shift CTAs along y (at most 8), each owning block_m >> shift rows, so a
+// 128-row tile is not one SM's serial work. blockDim = (tx, ty), tx threads
+// over a row's block_k / VEC vectors and ty over its rows. A CTA walks its
+// rows in chunks of (tx vectors) × (ITEMS · ty rows), from bases that
+// advance by addition (no integer division); at the serve's tiles there is
+// one chunk and no cluster.
+template <typename TX, typename TD, int VEC, int ITEMS>
 __global__ void __launch_bounds__(kThreads)
 delta_quant_kernel(const TX* __restrict__ x, const int8_t* __restrict__ prev_q,
                    const float* __restrict__ scale, int8_t* __restrict__ q,
                    TD* __restrict__ delta, int* __restrict__ mask, int K,
-                   int block_m, int block_k) {
-  const int kt = blockIdx.x, mt = blockIdx.y;
-  const int gk = gridDim.x;
-  const float s = *scale;
+                   int block_m, int block_k, int shift) {
+  __shared__ float s_scale;
+  __shared__ int s_changed;
+  const int vpr = block_k / VEC;               // vectors in a tile row
+  const int chunk = ITEMS * blockDim.y;        // rows in a chunk
+  const int rows = block_m >> shift;           // rows of this CTA
+  const int rank = blockIdx.y & ((1 << shift) - 1);
+  const int tm = blockIdx.y >> shift;          // tile row
+  const size_t base = ((size_t)tm * block_m + (size_t)rank * rows) * K +
+                      (size_t)blockIdx.x * block_k;
+
+  float xv[ITEMS][VEC];
+  int pv[ITEMS][VEC];
+  // the chunk at (column base cb, row base rb): this thread's vector column
+  // cb + threadIdx.x and rows rb + threadIdx.y + i·blockDim.y, i < ITEMS
+  auto load = [&](int cb, int rb) {
+    const int cv = cb + threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int r = rb + threadIdx.y + i * blockDim.y;
+      if (cv < vpr && r < rows) {
+        const size_t off = base + (size_t)r * K + (size_t)cv * VEC;
+        load_x<VEC>(x + off, xv[i]);
+        load_q<VEC>(prev_q + off, pv[i]);
+      }
+    }
+  };
+
+  // the first chunk's loads are in flight while thread 0 fetches the scale
+  const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
+  load(0, 0);
+  if (lead) s_scale = __ldg(scale);
+  __syncthreads();
+  const float s = s_scale;
+
   int changed = 0;
-  for (int e = threadIdx.x; e < block_m * block_k; e += kThreads) {
-    const int r = e / block_k, c = e % block_k;
-    const size_t i = (size_t)(mt * block_m + r) * K + (size_t)kt * block_k + c;
-    float qf = rintf(__fdiv_rn(load_f32(x + i), s));
-    qf = fminf(fmaxf(qf, -127.f), 127.f);
-    const int qi = (int)qf;
-    const int dq = qi - (int)prev_q[i];
-    q[i] = (int8_t)qi;
-    store(delta + i, __fmul_rn((float)dq, s));
-    changed |= (dq != 0);
+  for (int cb = 0; cb < vpr; cb += blockDim.x) {
+    for (int rb = 0; rb < rows; rb += chunk) {
+      if (cb | rb) load(cb, rb);
+      const int cv = cb + threadIdx.x;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const int r = rb + threadIdx.y + i * blockDim.y;
+        if (cv < vpr && r < rows) {
+          int qi[VEC];
+          float dv[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            float qf = rintf(__fdiv_rn(xv[i][e], s));
+            qf = fminf(fmaxf(qf, -127.f), 127.f);
+            qi[e] = (int)qf;
+            const int dq = qi[e] - pv[i][e];
+            dv[e] = __fmul_rn((float)dq, s);
+            changed |= (dq != 0);
+          }
+          const size_t off = base + (size_t)r * K + (size_t)cv * VEC;
+          store_q<VEC>(q + off, qi);
+          store_d<VEC>(delta + off, dv);
+        }
+      }
+    }
   }
   changed = __syncthreads_or(changed);
-  if (threadIdx.x == 0) mask[(size_t)mt * gk + kt] = changed ? 1 : 0;
+  int* word = mask + (size_t)tm * gridDim.x + blockIdx.x;
+  if (shift == 0) {
+    if (lead) *word = changed ? 1 : 0;
+    return;
+  }
+  // rank 0 ORs the slices' bits out of their shared memory: one writer
+  cg::cluster_group cl = cg::this_cluster();
+  if (lead) s_changed = changed;
+  cl.sync();
+  if (rank == 0 && lead) {
+    int any = 0;
+    for (int r = 0; r < (1 << shift); ++r)
+      any |= *cl.map_shared_rank(&s_changed, r);
+    *word = any ? 1 : 0;
+  }
+  cl.sync();  // no CTA leaves while rank 0 still reads its bit
+}
+
+template <int ITEMS, typename TX, typename TD, int VEC>
+cudaError_t launch_items(const cudaLaunchConfig_t& cfg, const void* x,
+                         const void* prev_q, const void* scale, void* q,
+                         void* delta, void* mask, int K, int block_m,
+                         int block_k, int shift) {
+  return cudaLaunchKernelEx(
+      &cfg, delta_quant_kernel<TX, TD, VEC, ITEMS>, static_cast<const TX*>(x),
+      static_cast<const int8_t*>(prev_q), static_cast<const float*>(scale),
+      static_cast<int8_t*>(q), static_cast<TD*>(delta),
+      static_cast<int*>(mask), K, block_m, block_k, shift);
+}
+
+// The CTA shape, the cluster's row slices and the rows in flight per thread,
+// from the tile shape.
+template <typename TX, typename TD, int VEC>
+cudaError_t launch_vec(const void* x, const void* prev_q, const void* scale,
+                       void* q, void* delta, void* mask, int M, int K,
+                       int block_m, int block_k, cudaStream_t stream) {
+  const int vpr = block_k / VEC;
+  const int tx = vpr < kThreads ? vpr : kThreads;
+  const int ty = kThreads / tx < block_m ? kThreads / tx : block_m;
+  int shift = 0;  // slices = 2^shift <= 8, dividing block_m, of >= ty rows
+  while (shift < 3 && (block_m >> (shift + 1)) >= ty &&
+         block_m % (2 << shift) == 0)
+    ++shift;
+  const int per_thread = ((block_m >> shift) + ty - 1) / ty;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K / block_k, (M / block_m) << shift, 1);
+  cfg.blockDim = dim3(tx, ty, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1 << shift;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = shift > 0 ? 1 : 0;
+  // one row per thread at the serve's tiles; else two rows in flight per
+  // chunk (a 128-row tile's slice of 16 rows is one chunk)
+  const cudaError_t e =
+      per_thread == 1
+          ? launch_items<1, TX, TD, VEC>(cfg, x, prev_q, scale, q, delta, mask,
+                                         K, block_m, block_k, shift)
+          : launch_items<2, TX, TD, VEC>(cfg, x, prev_q, scale, q, delta, mask,
+                                         K, block_m, block_k, shift);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <typename TX, typename TD>
 cudaError_t launch(const void* x, const void* prev_q, const void* scale,
                    void* q, void* delta, void* mask, int M, int K, int block_m,
-                   int block_k, cudaStream_t stream) {
-  dim3 grid(K / block_k, M / block_m);
-  delta_quant_kernel<TX, TD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const int8_t*>(prev_q),
-      static_cast<const float*>(scale), static_cast<int8_t*>(q),
-      static_cast<TD*>(delta), static_cast<int*>(mask), K, block_m, block_k);
-  return cudaGetLastError();
+                   int block_k, int vec, cudaStream_t stream) {
+  if (vec)
+    return launch_vec<TX, TD, 8>(x, prev_q, scale, q, delta, mask, M, K,
+                                 block_m, block_k, stream);
+  return launch_vec<TX, TD, 1>(x, prev_q, scale, q, delta, mask, M, K,
+                               block_m, block_k, stream);
 }
 
 }  // namespace
 
-// dtype codes: 0 = f32, 1 = bf16.
+// dtype codes: 0 = f32, 1 = bf16. vec = 1 takes the 8-wide vector instance:
+// the caller vouches that x, prev_q, q and delta are 16-byte aligned and
+// block_k % 8 == 0; vec = 0 takes the scalar instance, which needs neither.
 extern "C" int rt_delta_quant(const void* x, int x_dtype, const void* prev_q,
                               const void* scale, void* q, void* delta,
                               int delta_dtype, void* mask, int M, int K,
-                              int block_m, int block_k, void* stream) {
+                              int block_m, int block_k, int vec,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 1 && delta_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, prev_q, scale, q, delta,
-                                                mask, M, K, block_m, block_k, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        x, prev_q, scale, q, delta, mask, M, K, block_m, block_k, vec, s);
   if (x_dtype == 1)
     return launch<__nv_bfloat16, float>(x, prev_q, scale, q, delta, mask, M, K,
-                                        block_m, block_k, s);
+                                        block_m, block_k, vec, s);
   if (delta_dtype == 1)
     return launch<float, __nv_bfloat16>(x, prev_q, scale, q, delta, mask, M, K,
-                                        block_m, block_k, s);
+                                        block_m, block_k, vec, s);
   return launch<float, float>(x, prev_q, scale, q, delta, mask, M, K, block_m,
-                              block_k, s);
+                              block_k, vec, s);
 }

@@ -51,8 +51,10 @@ _I = ctypes.c_int
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "delta_quant": {
-        # x, x_dtype, prev_q, scale, q, delta, delta_dtype, mask, M, K, bm, bk, stream
-        "rt_delta_quant": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+        # x, x_dtype, prev_q, scale, q, delta, delta_dtype, mask, M, K, bm, bk,
+        # vec, stream
+        "rt_delta_quant": (_P, _I, _P, _P, _P, _P, _I, _P,
+                           _I, _I, _I, _I, _I, _P),
     },
     "reuse_matmul": {
         # delta, w, dtype, prev_out, mask, out, M, K, N, bm, bk, cluster,

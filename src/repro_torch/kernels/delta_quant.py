@@ -4,8 +4,9 @@
     delta = (cur_q − prev_q) · scale            exact zero where codes match
     mask[m, k] = any(delta tile != 0)           one int32 per (bm × bk) tile
 
-`delta_quant` launches `csrc/delta_quant.cu` on CUDA tensors and takes the
-plain twin `delta_quant_torch` (the counterpart of the reference's
+`delta_quant` launches `csrc/delta_quant.cu` on CUDA tensors (its 8-wide
+vector instance where `vector_access` allows, else its scalar instance) and
+takes the plain twin `delta_quant_torch` (the counterpart of the reference's
 `xla_tier.delta_quant_xla`) on CPU tensors. Operands are tile multiples; the
 padding entry is `ops.delta_quant_fused`.
 """
@@ -37,6 +38,14 @@ def delta_quant_torch(
     tiles = dq.reshape(gm, block_m, gk, block_k)
     mask = (tiles != 0).any(dim=3).any(dim=1).to(torch.int32)
     return cur_q, delta, mask
+
+
+def vector_access(ptrs, block_k: int) -> bool:
+    """Whether the kernel's 8-wide vector instance can take these operands:
+    every pointer 16-byte aligned and block_k a multiple of 8 (so every row
+    and tile starts aligned). Views at a storage offset can miss this; they
+    take the scalar instance of the same kernel."""
+    return block_k % 8 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 def _check(x, prev_q, scale, block_m, block_k, delta_dtype) -> None:
@@ -80,11 +89,12 @@ def delta_quant(
     q = torch.empty_like(prev_q)
     delta = torch.empty((m, k), dtype=delta_dtype, device=x.device)
     mask = torch.empty((gm, gk), dtype=torch.int32, device=x.device)
+    ptrs = (x.data_ptr(), prev_q.data_ptr(), q.data_ptr(), delta.data_ptr())
     rc = backend.library("delta_quant").rt_delta_quant(
-        x.data_ptr(), backend.DTYPE_CODE[x.dtype], prev_q.data_ptr(),
-        scale.data_ptr(), q.data_ptr(), delta.data_ptr(),
-        backend.DTYPE_CODE[delta_dtype], mask.data_ptr(), m, k,
-        block_m, block_k, backend.stream_ptr(x.device),
+        ptrs[0], backend.DTYPE_CODE[x.dtype], ptrs[1], scale.data_ptr(),
+        ptrs[2], ptrs[3], backend.DTYPE_CODE[delta_dtype], mask.data_ptr(),
+        m, k, block_m, block_k, int(vector_access(ptrs, block_k)),
+        backend.stream_ptr(x.device),
     )
     backend.check(rc, "delta_quant")
     backend.count_launch("delta_quant")

@@ -19,7 +19,7 @@ from repro.core.engine import ReuseEngine as JEngine
 from repro.core.policy import ReusePolicy as JPolicy
 from repro.core.policy import SiteTunables as JTunables
 from repro.tune.table import save_table
-from repro_torch.core.engine import ReuseEngine
+from repro_torch.core.engine import ReuseEngine, lane_mean
 from repro_torch.core.policy import ReusePolicy, SiteTunables
 from repro_torch.sensor.counters import COUNTER_KEYS
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, reset_slot
@@ -153,7 +153,7 @@ def test_refresh_modes_and_report_match_reference(rng):
         je.sensor_report(jc).summary_lines()
 
 
-@pytest.mark.parametrize("m", [3, 6, 16, 32, 64])
+@pytest.mark.parametrize("m", [3, 6, 16, 32, 64, 65, 100, 129, 200, 255])
 def test_ctrl_snapshot_and_refresh_modes_match_reference_at_batch(m):
     """sim_l bitwise at batch widths where a plain torch mean rounds other
     than the reference's compiled mean, and the mode pass that reads it."""
@@ -174,6 +174,19 @@ def test_ctrl_snapshot_and_refresh_modes_match_reference_at_batch(m):
     assert te.last_mode_events == je.last_mode_events
     assert len(te.last_mode_events) > 0
     assert_caches_match(jc, tc)
+
+
+def test_lane_mean_matches_compiled_mean_at_every_width():
+    """lane_mean against the compiled `jnp.mean(·, axis=-1)` bitwise at every
+    batch width 1-256 (one reduce-window level, the padding split floor/ceil)
+    and at 1056 and 1100 (a second level over 33 and 35 window sums)."""
+    mean = jax.jit(lambda s: jnp.mean(s, axis=-1))
+    rng = np.random.default_rng(0)
+    for m in [*range(1, 257), 1056, 1100]:
+        sim = rng.random((64, m), dtype=np.float32)
+        np.testing.assert_array_equal(lane_mean(t(sim)).numpy(),
+                                      np.asarray(mean(jnp.asarray(sim))),
+                                      err_msg=f"M={m}")
 
 
 def _spec_like(jspec):

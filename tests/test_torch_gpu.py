@@ -13,7 +13,11 @@ import torch
 
 from repro_torch.core.delta import compact_rows, delta_encode_int8
 from repro_torch.kernels import backend, ops
-from repro_torch.kernels.delta_quant import delta_quant, delta_quant_torch
+from repro_torch.kernels.delta_quant import (
+    delta_quant,
+    delta_quant_torch,
+    vector_access,
+)
 from repro_torch.kernels.reuse_matmul import reuse_matmul, reuse_matmul_torch
 from repro_torch.kernels.reuse_matmul_int8 import reuse_matmul_int8_torch
 from repro_torch.kernels.reuse_matmul_ragged import (
@@ -220,23 +224,94 @@ def test_each_k_split_on_card(card, dtype, cluster):
         check_cluster_gemm(kernel, m, k, n, 8, 256, "first", dtype, card)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _offset_view(shape, dtype, card, offset):
+    """A contiguous [M, K] view `offset` elements into a larger buffer, so its
+    pointer is not 16-byte aligned (as a cache slice can be)."""
+    n = shape[0] * shape[1]
+    return torch.empty(n + offset, dtype=dtype, device=card)[offset:] \
+        .view(shape)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_delta_quant_matches_plain_on_card(card, dtype):
-    gen = torch.Generator(device=card).manual_seed(0)
-    x = (torch.randn((16, 1024), generator=gen, device=card) * 2).to(dtype)
-    scale = torch.tensor(0.0625, device=card)
-    prev_q = torch.randint(-127, 128, (16, 1024), generator=gen,
+@pytest.mark.parametrize("case", ["aligned", "offset", "clamp"])
+@pytest.mark.parametrize("x_dtype,delta_dtype",
+                         [(BF16, BF16), (BF16, F32), (F32, F32)])
+@pytest.mark.parametrize("bm,bk", [(8, 256), (8, 64), (128, 256)])
+@pytest.mark.parametrize("k", [4096, 14336, 25600])
+def test_delta_quant_matches_plain_on_card(card, k, bm, bk, x_dtype,
+                                           delta_dtype, case):
+    """q, delta and mask bitwise at the serve widths (rwkv6 4096, 14336;
+    qwen3 25600), the serve's tile, a narrow tile and the JAX default 128-row
+    tile. "offset" puts x and prev_q at storage offsets that are not 16-byte
+    aligned (the scalar instance); "clamp" drives |x / scale| past 127.
+    Half-way codes exercise round-half-to-even. The left half of the columns
+    keeps its codes, so its tiles are clean and the right half's dirty."""
+    gen = torch.Generator(device=card).manual_seed(k + bm + bk)
+    m, scale_v = (16 if bm == 8 else bm), 0.0625
+    x = torch.randn((m, k), generator=gen, device=card) * 2.0
+    half = (torch.randint(-100, 100, (m, k), generator=gen, device=card)
+            + 0.5) * scale_v
+    x = torch.where(torch.rand((m, k), generator=gen, device=card) < 0.25,
+                    half, x)
+    if case == "clamp":
+        x = x * 100.0
+    x = x.to(x_dtype)
+    scale = torch.tensor(scale_v, device=card)
+    prev_q = torch.randint(-127, 128, (m, k), generator=gen,
                            device=card).to(torch.int8)
-    prev_q[:8] = torch.clamp(torch.round(x[:8].float() / scale), -127,
-                             127).to(torch.int8)
-    got = delta_quant(x, prev_q, scale, block_m=8, block_k=256,
-                      delta_dtype=dtype)
-    want = delta_quant_torch(x, prev_q, scale, block_m=8, block_k=256,
-                             delta_dtype=dtype)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert int(got[2][0].sum()) == 0 and bool(got[2][1].all())
+    prev_q[:, :k // 2] = delta_quant_torch(
+        x[:, :k // 2].contiguous(), prev_q[:, :k // 2].contiguous(), scale,
+        block_m=bm, block_k=bk)[0]
+    if case == "offset":
+        x0, p0 = x, prev_q
+        x = _offset_view((m, k), x_dtype, card, 1)
+        prev_q = _offset_view((m, k), torch.int8, card, 3)
+        x.copy_(x0)
+        prev_q.copy_(p0)
+    ptrs = (x.data_ptr(), prev_q.data_ptr())
+    assert vector_access(ptrs, bk) == (case != "offset")
+    before = backend.launch_counts()["delta_quant"]
+    got = delta_quant(x, prev_q, scale, block_m=bm, block_k=bk,
+                      delta_dtype=delta_dtype)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["delta_quant"] == before + 1
+    want = delta_quant_torch(x, prev_q, scale, block_m=bm, block_k=bk,
+                             delta_dtype=delta_dtype)
+    for a, b, what in zip(got, want, ("q", "delta", "mask")):
+        assert a.dtype == b.dtype and torch.equal(a, b), what
+    gk = k // bk
+    assert int(got[2][:, :gk // 2].sum()) == 0
+    assert bool(got[2][:, gk // 2:].all())
+    if case == "clamp":
+        assert int((got[0].abs() == 127).sum()) > m * k // 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,bm,bk,offset", [
+    (8, 4096, 8, 512, 1),        # scalar: 512 columns, two column chunks
+    (128, 8192, 128, 4096, 0),   # vector: 512 vectors a row, two chunks
+    (128, 4096, 128, 256, 1),    # scalar: 16 rows a CTA, eight row chunks
+])
+def test_delta_quant_multi_chunk_tiles_on_card(card, m, k, bm, bk, offset):
+    """Tiles a CTA walks in more than one chunk, bitwise."""
+    gen = torch.Generator(device=card).manual_seed(bk + offset)
+    x = _offset_view((m, k), BF16, card, offset)
+    x.copy_(torch.randn((m, k), generator=gen, device=card) * 2.0)
+    prev_q = _offset_view((m, k), torch.int8, card, 3 * offset)
+    prev_q.copy_(torch.randint(-127, 128, (m, k), generator=gen, device=card))
+    prev_q[:, :bk] = delta_quant_torch(
+        x[:, :bk].contiguous(), prev_q[:, :bk].contiguous(),
+        torch.tensor(0.05, device=card), block_m=bm, block_k=bk)[0]
+    scale = torch.tensor(0.05, device=card)
+    assert vector_access((x.data_ptr(), prev_q.data_ptr()), bk) == (not offset)
+    got = delta_quant(x, prev_q, scale, block_m=bm, block_k=bk)
+    want = delta_quant_torch(x, prev_q, scale, block_m=bm, block_k=bk)
+    for a, b, what in zip(got, want, ("q", "delta", "mask")):
+        assert torch.equal(a, b), what
+    assert int(got[2][:, 0].sum()) == 0 and bool(got[2][:, 1:].all())
 
 
 @pytest.mark.gpu

@@ -23,7 +23,11 @@ from repro_torch.core.delta import compact_rows, delta_encode_int8
 from repro_torch.core.similarity import block_zero_mask
 from repro_torch.kernels import backend, ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.delta_quant import delta_quant, delta_quant_torch
+from repro_torch.kernels.delta_quant import (
+    delta_quant,
+    delta_quant_torch,
+    vector_access,
+)
 from repro_torch.kernels.reuse_matmul import (
     reuse_matmul,
     skip_sel,
@@ -113,6 +117,20 @@ def test_delta_quant_fused_padding_vs_reference(rng, m, k, bm, bk):
         np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
         np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
         np.testing.assert_array_equal(msk.numpy(), np.asarray(jm))
+
+
+@pytest.mark.parametrize("ptrs,bk,want", [
+    ((0, 4096, 1 << 20, 48), 256, True),     # aligned, the serve's tile
+    ((0, 4096, 1 << 20, 48), 64, True),
+    ((2, 4096, 1 << 20, 48), 256, False),    # bf16 x one element in
+    ((0, 4099, 1 << 20, 48), 256, False),    # prev_q three bytes in
+    ((0, 4096, 1 << 20, 48), 100, False),    # rows of 100: tiles unaligned
+    ((0, 4096, 1 << 20, 52), 128, False),
+])
+def test_delta_quant_vector_access_needs_alignment(ptrs, bk, want):
+    """The wrapper takes the kernel's 8-wide vector instance only when every
+    pointer is 16-byte aligned and block_k % 8 == 0; else the scalar one."""
+    assert vector_access(ptrs, bk) is want
 
 
 def test_delta_quant_ref_casts_delta_to_bf16(rng):
