@@ -41,26 +41,36 @@ every phase's failure is fatal (non-zero exit, no result line):
                 split it can launch
   4. serve    — `repro_torch.launch.serve.run` on full-width qwen3-32b cut to
                 8 layers, reuse on (delta_quant, output- and input-stationary
-                reuse_matmul must launch), every kernel call held against its
-                plain version on that call's own inputs; then one decode step
-                with impl="cuda" and with impl="torch" on the same card tensors
-  5. ragged   — serve again with a tuned table pinning exec_path="ragged"
-                (with a k-extent budget) on attn_qkv and mlp_in, checked the
-                same way
-  6. rwkv6    — serve full-width rwkv6-7b at full depth (32 layers) with
-                reuse on: delta_quant, reuse_matmul_output and wkv6_decode must
-                launch, every call held against its plain version on its own
-                inputs; then one profiled decode step, and a cuda-vs-torch
-                decode step as a diagnostic
+                reuse_matmul must launch), twice: with `--eager`, every kernel
+                call held against its plain version on that call's own inputs;
+                then through the CUDA graphs of the compiled step on the same
+                seed and traffic, whose tokens, SensorReport lines, launch
+                counts and final reuse cache and decode state must equal the
+                eager serve's (bitwise); then the decode step eagerly and as a
+                graph replay in turns (median host times), one profiled eager
+                step and one profiled replay (device busy and idle share), and
+                one decode step with impl="cuda" and with impl="torch" on the
+                same card tensors
+  5. ragged   — the same pair with a tuned table pinning exec_path="ragged"
+                (with a k-extent budget) on attn_qkv and mlp_in
+  5b. refresh — the same pair with `--refresh-every 2` and a forced mode flip
+                and flip back between steps: the graph serve must capture a
+                new variant after a flip, and replay a known one after a flip
+                back unless the policy refresh itself moved the key
+  6. rwkv6    — the same pair on full-width rwkv6-7b at full depth (32
+                layers): delta_quant, reuse_matmul_output and wkv6_decode must
+                launch; then a cuda-vs-torch decode step as a diagnostic
   7. int8     — the int8 split entry point (delta_encode_int8, then
                 ops.reuse_matmul_int8 on lo and on hi) at the rwkv6-7b channel
                 mix shape, against the exact product
 
-Before the last line it prints the kernels JSON line (launch counts from the
-serve runs and the int8 path, errors and times from phase 3) and the card's
-name and power limit; the last line is {"ok": true, "device": {...}}. Exits
-non-zero when no CUDA device is available, and when the repository's package
-is not beside it.
+Each phase prints its seconds. Before the last line it prints a JSON line of
+the graph serves (step times both ways, variants, captures, capture seconds,
+pools, device busy and idle share), the kernels JSON line (launch counts from
+the serve runs and the int8 path, errors and times from phase 3) and the
+card's name and power limit; the last line is {"ok": true, "device": {...}}.
+Exits non-zero when no CUDA device is available, and when the repository's
+package is not beside it.
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ import math
 import os
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -149,8 +160,19 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def phase(name: str) -> None:
-    print(f"\n=== {name} ===", flush=True)
+_PHASE = {"name": None, "t0": 0.0}
+
+
+def phase(name: str | None) -> None:
+    """Start the phase `name` (None: the end), printing the seconds the
+    previous one took."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"(phase {_PHASE['name']}: {now - _PHASE['t0']:.1f} s)",
+              flush=True)
+    _PHASE.update(name=name and name.split()[0].rstrip("."), t0=now)
+    if name is not None:
+        print(f"\n=== {name} ===", flush=True)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = True) -> float:
@@ -370,9 +392,10 @@ def exact_int8(cur, prev, wq, acc):
             @ wq.double()).to(torch.int32)
 
 
-def profile_step(fn) -> None:
+def profile_step(fn, what: str) -> tuple:
     """Where one decode step's time goes: device time by kernel name
-    (torch.profiler, CUPTI) against the host wall time of the step."""
+    (torch.profiler, CUPTI) against the host wall time of the step. Returns
+    (wall ms, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -387,13 +410,88 @@ def profile_step(fn) -> None:
             if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
     rows.sort(key=lambda e: -e.device_time_total)
     busy = sum(e.device_time_total for e in rows) / 1e3
-    print(f"  profile of one bf16 decode step: wall {wall:.2f} ms, device "
+    print(f"  profile of {what}: wall {wall:.2f} ms, device "
           f"busy {busy:.2f} ms ({busy / wall:.1%}), idle share "
-          f"{max(0.0, 1 - busy / wall):.1%}")
+          f"{max(0.0, 1 - busy / wall):.1%}; "
+          f"{sum(e.count for e in rows)} kernels and copies")
     # the top rows, and delta_quant's wherever it ranks
     for e in rows[:12] + [e for e in rows[12:] if "delta_quant" in e.key]:
         print(f"    {e.device_time_total / 1e3:8.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
+    return wall, busy
+
+
+def tensor_leaves(tree, prefix: str = "") -> dict:
+    """{path: tensor} of every tensor leaf of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tensor_leaves(v, f"{prefix}{k}."))
+        elif isinstance(v, torch.Tensor):
+            out[prefix + k] = v
+    return out
+
+
+def outcome(res, text: str) -> dict:
+    """What the two serves of a pair must hold equal: each request's tokens,
+    the SensorReport lines, the mode mirrors, and every tensor of the final
+    reuse cache and decode state (cloned)."""
+    step = res["step"]
+    return {
+        "tokens": {r.rid: list(r.output) for r in res["done"]},
+        "reports": [ln for ln in text.splitlines()
+                    if ln.startswith("SensorReport rid=")]
+        + res["report"].summary_lines(),
+        "modes": {n: e["mode_host"].tobytes() for n, e in step.rcache.items()},
+        "tensors": {k: t.clone() for k, t in tensor_leaves(
+            {"rcache": step.rcache, "state": step.state}).items()},
+    }
+
+
+def step_times(step, pairs: int) -> tuple[list, list]:
+    """Decode step times in ms (host clock around synchronize) on the graph
+    serve's buffers after its run: the step function run eagerly, and its
+    graph replayed, in turns (eager, graph, graph, eager, ...)."""
+    sync = torch.cuda.synchronize
+    step.decode(step.tokens)  # builds the variant of the current key if new
+    times = {"eager": [], "graph": []}
+    runs = {"eager": step.run_decode, "graph": lambda: step.decode(step.tokens)}
+    for i in range(pairs):
+        for how in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            sync()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                runs[how]()
+            sync()
+            times[how].append((time.perf_counter() - t0) * 1e3)
+    return times["eager"], times["graph"]
+
+
+def flip_hook():
+    """A forced mode flip of attn_out's layer-0 lane after decode step 1 and
+    its flip back after step 3 (between policy refreshes at even steps), the
+    same in both serves of a pair. Logs, after each step, the index of the
+    next step's decode key among the keys seen and whether a variant of it
+    exists already (False: the next step captures one)."""
+    log = {"keys": [], "seq": []}
+
+    def index(key):
+        if key not in log["keys"]:
+            log["keys"].append(key)
+        return log["keys"].index(key)
+
+    def hook(i, step):
+        entry = step.rcache["attn_out"]
+        if i == 1:
+            index(step.decode_key())  # the key step 1 ran with
+            log["orig"] = "reuse" if int(entry["mode_host"][0]) else "basic"
+            flip = {"reuse": "basic", "basic": "reuse"}[log["orig"]]
+            step.engine.set_mode(step.rcache, "attn_out", flip, layer=0)
+        elif i == 3:
+            step.engine.set_mode(step.rcache, "attn_out", log["orig"], layer=0)
+        key = step.decode_key()
+        log["seq"].append((i, index(key), key in step.variants))
+    return hook, log
 
 
 def decode_compare(cfg, gen, dev):
@@ -427,10 +525,6 @@ def decode_compare(cfg, gen, dev):
             torch.cuda.synchronize()
             times[impl] = (time.perf_counter() - t0) * 1e3
         logits[impl] = lg
-        if impl == "cuda" and cfg.param_dtype == "bfloat16":
-            profile_step(lambda: decode_step(
-                params, cfg, tok, clone_state(state), engine=eng,
-                reuse_cache=eng.init_cache(8, device=dev)))
         codes[impl] = {name: e["prev_q"] for name, e in rc.items()}
         first[impl] = rc[next(iter(eng.sites))]["prev_out"][0]
     if not bool(torch.isfinite(logits["cuda"]).all()):
@@ -486,6 +580,7 @@ def main() -> None:
     )
     from repro_torch.kernels.wkv6_decode import wkv6_decode, wkv6_decode_torch
     from repro_torch.launch import serve
+    from repro_torch.serve.compiled_step import summary_line
     from repro_torch.core.delta import compact_rows, delta_encode_int8
     from repro_torch.quant import quantize_int8
 
@@ -983,40 +1078,128 @@ def main() -> None:
                   "--requests", "8", "--prompt-len", "32", "--cache-len",
                   "128", "--max-new", "8"]
 
-    def drive(cfg, argv):
+    def drive(cfg, argv, *, check=True, after_step=None):
+        """One serve. With `check`, every kernel call is held against its
+        plain version (PathCheck) and the counts of checked calls must equal
+        the launches."""
         args = serve.build_parser().parse_args(argv)
         buf = io.StringIO()
         backend.reset_launches()
-        with PathCheck(ops) as chk, contextlib.redirect_stdout(buf):
-            res = serve.run(cfg, args)
+        with (PathCheck(ops) if check else contextlib.nullcontext()) as chk, \
+                contextlib.redirect_stdout(buf):
+            res = serve.run(cfg, args, after_step=after_step)
         torch.cuda.synchronize()
         counts = backend.launch_counts()
         text = buf.getvalue()
         print(text, end="")
-        if chk.checked != counts:
-            fail(f"kernel calls checked {chk.checked} != launches {counts}")
-        for kn, n in chk.checked.items():
-            if n:
-                max_err[kn] = max(max_err[kn], chk.max_err[kn])
-        print("serve path: every kernel call (each site, layer and decode "
-              "step) held against its plain version on the call's own "
-              "inputs — delta_quant q/delta/mask bitwise, GEMMs within atol "
-              f"{GEMM_ATOL} rtol {GEMM_RTOL}, wkv6 state bitwise and out "
-              f"within atol {WKV_ATOL} + rtol {WKV_RTOL}·Σ|terms|; max err "
-              + ", ".join(f"{kn} {chk.max_err[kn]:.3e}"
-                          for kn, n in chk.checked.items() if n))
-        if chk.checked["wkv6_decode"]:
-            print(f"  wkv6 outputs outside atol + rtol·|out| (diagnostic): "
-                  f"{chk.wkv_strict}")
+        if check:
+            if chk.checked != counts:
+                fail(f"kernel calls checked {chk.checked} != launches {counts}")
+            for kn, n in chk.checked.items():
+                if n:
+                    max_err[kn] = max(max_err[kn], chk.max_err[kn])
+            print("serve path: every kernel call (each site, layer and decode "
+                  "step) held against its plain version on the call's own "
+                  "inputs — delta_quant q/delta/mask bitwise, GEMMs within "
+                  f"atol {GEMM_ATOL} rtol {GEMM_RTOL}, wkv6 state bitwise and "
+                  f"out within atol {WKV_ATOL} + rtol {WKV_RTOL}·Σ|terms|; max "
+                  "err " + ", ".join(f"{kn} {chk.max_err[kn]:.3e}"
+                                     for kn, n in chk.checked.items() if n))
+            if chk.checked["wkv6_decode"]:
+                print(f"  wkv6 outputs outside atol + rtol·|out| (diagnostic): "
+                      f"{chk.wkv_strict}")
         if len(res["done"]) != args.requests:
             fail("not every request finished")
         if text.count("SensorReport rid=") != args.requests or \
                 "SensorReport model:" not in text:
             fail("SensorReport lines missing")
         print(f"launches: {counts}")
-        return res, counts
+        return res, counts, text
 
-    _, launches_default = drive(cfg, serve_argv)
+    graph_rows = []
+
+    def serve_pair(cfg, argv, label, hook=None, pairs=5):
+        """The checked serve (`--eager`, every kernel call held against its
+        plain version), then the graph serve on the same seed and traffic.
+        Tokens, SensorReport lines, launch counts, mode mirrors and every
+        tensor of the final reuse cache and decode state must be equal.
+        Prints the graph serve's variants, captures, capture seconds and
+        pools, the step time both ways and one profiled eager step and
+        replay. Returns (launch counts, the hook logs of both serves)."""
+        hooks = [hook() if hook else (None, None) for _ in range(2)]
+        print(f"--- {label}: checked serve, --eager")
+        res, counts_e, text = drive(cfg, argv + ["--eager"],
+                                    after_step=hooks[0][0])
+        want = outcome(res, text)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"--- {label}: graph serve")
+        res, counts_g, text = drive(cfg, argv, check=False,
+                                    after_step=hooks[1][0])
+        got = outcome(res, text)
+        step = res["step"]
+        for part in ("tokens", "reports", "modes"):
+            if got[part] != want[part]:
+                fail(f"{label}: the graph serve's {part} differ from the "
+                     "eager serve's")
+        if counts_g != counts_e:
+            fail(f"{label}: graph serve launches {counts_g} != eager "
+                 f"{counts_e}")
+        diff = [k for k, t in want["tensors"].items()
+                if not torch.equal(t, got["tensors"][k])]
+        if diff:
+            fail(f"{label}: final reuse cache / decode state differ at "
+                 f"{diff[:8]} ({len(diff)} tensors)")
+        if hook and hooks[0][1]["seq"] != hooks[1][1]["seq"]:
+            fail(f"{label}: the decode keys differ between the serves")
+        summ = step.summary()
+        print(f"{label}: graph serve equal to the checked eager serve — "
+              f"tokens of {len(got['tokens'])} requests, "
+              f"{len(got['reports'])} SensorReport lines, launch counts, and "
+              f"{len(got['tensors'])} tensors of the final reuse cache and "
+              "decode state bitwise")
+        print(f"{label}: {summary_line(summ)}")
+        for key, v in step.variants.items():
+            print(f"  {key[0]} variant: capture {v.seconds:.3f} s, pool "
+                  f"{v.pool_bytes / 1e6:.1f} MB, "
+                  f"{sum(v.launches.values())} kernel launches a replay")
+        del want, got
+        eager, graph = step_times(step, pairs)
+        med_e, med_g = statistics.median(eager), statistics.median(graph)
+        print(f"{label}: decode step (host clock around synchronize, "
+              f"{pairs} each in turns): eager median {med_e:.2f} ms "
+              f"({', '.join(f'{t:.2f}' for t in eager)}), graph replay median "
+              f"{med_g:.2f} ms ({', '.join(f'{t:.2f}' for t in graph)}); "
+              f"{med_e / med_g:.2f}x")
+        wall_e, busy_e = profile_step(step.run_decode,
+                                      f"{label}: one eager decode step")
+        wall_g, busy_g = profile_step(lambda: step.decode(step.tokens),
+                                      f"{label}: one graph replay")
+        # the profiler slows the host and each traced kernel, so the idle
+        # share is also read against the unprofiled median step time; the
+        # busy time comes from the profiled run and can exceed it slightly,
+        # so that share is clamped at 0
+        idle_e, idle_g = (max(0.0, 1 - b / m)
+                          for b, m in ((busy_e, med_e), (busy_g, med_g)))
+        print(f"{label}: device busy (profiled) against the unprofiled "
+              f"median step: eager {busy_e:.2f} of {med_e:.2f} ms (idle "
+              f"{idle_e:.1%}), graph replay {busy_g:.2f} of {med_g:.2f} ms "
+              f"(idle {idle_g:.1%})")
+        graph_rows.append({
+            "serve": label, "eager_ms": med_e, "graph_ms": med_g,
+            "variants": summ["variants"], "captures": summ["captures"],
+            "capture_s": summ["capture_s"], "pool_mb": summ["pool_bytes"] / 1e6,
+            "busy_eager_ms": busy_e, "busy_graph_ms": busy_g,
+            "idle_eager": idle_e, "idle_graph": idle_g,
+            "idle_eager_profiled": 1 - busy_e / wall_e,
+            "idle_graph_profiled": 1 - busy_g / wall_g})
+        del res, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return counts_e, [h[1] for h in hooks]
+
+    launches_default, _ = serve_pair(cfg, serve_argv, "qwen3 default")
     for kn in ("delta_quant", "reuse_matmul_output", "reuse_matmul_input"):
         if launches_default[kn] <= 0:
             fail(f"{kn} was not launched on the serve path")
@@ -1066,10 +1249,28 @@ def main() -> None:
                 "sites": {s: {"exec_path": "ragged", "max_active_k": 10}
                           for s in ("attn_qkv", "mlp_in")},
             }, f)
-        _, launches_ragged = drive(cfg, serve_argv + ["--tuned-policy",
-                                                      table])
+        launches_ragged, _ = serve_pair(
+            cfg, serve_argv + ["--tuned-policy", table], "qwen3 ragged")
     if launches_ragged["reuse_matmul_ragged"] <= 0:
         fail("reuse_matmul_ragged was not launched on the ragged serve path")
+
+    # ------------------------------------------------- 5b. refresh, recapture
+    phase("5b. serve with --refresh-every 2 (mode and exec flips recapture)")
+    _, logs = serve_pair(cfg, serve_argv + ["--refresh-every", "2"],
+                         "qwen3 refresh", hook=flip_hook)
+    seq = logs[1]["seq"]
+    print(f"decode keys after each step (step, key index, variant exists): "
+          f"{seq}")
+    moved = [j for j in range(1, len(seq)) if seq[j][1] != seq[j - 1][1]]
+    if all(known for _, _, known in seq):
+        fail("the refresh serve never recaptured after a flip")
+    traffic = any(seq[j][0] % 2 == 0 for j in moved)
+    reused = any(seq[j][2] for j in moved)
+    print(f"recaptured after a flip: yes; a flip back to a known key "
+          f"replayed its variant: {'yes' if reused else 'no'}; the policy "
+          f"refresh itself flipped: {'yes' if traffic else 'no'}")
+    if not (traffic or reused):
+        fail("the forced flip back did not replay the known variant")
 
     # ------------------------------------------------------------- 6. rwkv6
     # uncut: all 32 layers, 15.1 GB of bf16 weights
@@ -1079,11 +1280,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, launches_rwkv = drive(rcfg, [
+    launches_rwkv, _ = serve_pair(rcfg, [
         "--arch", "rwkv6-7b", "--reuse", "--batch-slots", "8", "--requests",
-        "8", "--prompt-len", "32", "--cache-len", "128", "--max-new", "8"])
-    print(f"rwkv6 serve phase: {time.perf_counter() - t0:.1f} s with the "
-          f"checks; peak device memory "
+        "8", "--prompt-len", "32", "--cache-len", "128", "--max-new", "8"],
+        "rwkv6", pairs=3)
+    print(f"rwkv6 serves: {time.perf_counter() - t0:.1f} s (checked eager, "
+          f"graph, timing and profiles); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     for kn in ("delta_quant", "reuse_matmul_output", "wkv6_decode"):
         if launches_rwkv[kn] <= 0:
@@ -1147,6 +1349,8 @@ def main() -> None:
         kernels.append({"name": kn, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max_err[kn], **r})
+    print(json.dumps({"graph_serves": graph_rows}))
+    phase(None)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,16 @@ flags, so an edited source rebuilds and an unchanged one loads as it is. On a
 machine with a card a build failure raises: nothing gives way to the twins.
 
 Each kernel wrapper counts its launches here (`count_launch`), so a run can
-show which kernels the main path went through.
+show which kernels the main path went through. `launch_counts()` means
+kernels the card ran: a CUDA graph capture records kernels and runs none, so
+its counts are taken back out (`recorded_launches`) and added once for each
+replay (`count_replay`).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -94,6 +98,25 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: int(launches[name]) for name in KERNELS}
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Collect the launches counted inside the block into the Counter this
+    yields, and take them back out of the totals (a capture ran nothing)."""
+    before = launches.copy()
+    recorded: collections.Counter = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        recorded.update(launches - before)
+        launches.clear()
+        launches.update(before)
+
+
+def count_replay(recorded: collections.Counter) -> None:
+    """One replay of a captured graph ran the launches its capture recorded."""
+    launches.update(recorded)
 
 
 def _nvcc() -> str:

@@ -208,8 +208,8 @@ def ragged_grid_steps(
     """Grid steps the reference's ragged path executes (fallback-aware), f32:
     gm·gn·kb, or the full gm·gn·gk when any row overflows the budget."""
     kb = clamp_budget(max_active_k, gk)
-    full = torch.tensor(float(gm * gn * gk), dtype=torch.float32,
-                        device=counts.device)
+    full = torch.full((), float(gm * gn * gk), dtype=torch.float32,
+                      device=counts.device)
     if kb >= gk:
         return full
     return torch.where((counts > kb).any(), full,

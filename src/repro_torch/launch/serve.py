@@ -10,6 +10,12 @@ the end. `--device` defaults to `cuda`, where the engine runs the Hopper
 kernels; on a machine without a card that default fails loudly instead of
 falling back to the CPU. `--device cpu` runs the plain PyTorch versions.
 
+The steps go through `serve/compiled_step.CompiledStep`: on the card each
+prefill shape and each decode operating point (spec and mode signature) is
+captured once as a CUDA graph over static buffers and replayed after;
+`--eager` (the counterpart of `jax.disable_jit`) and `--device cpu` run the
+same step functions directly.
+
 `run(cfg, args)` is the callable entry (chip_smoke.py drives it with a config
 cut in depth); `main()` parses the flags and calls it.
 """
@@ -18,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -28,13 +35,12 @@ from repro_torch.core.reuse_cache import cache_bytes
 from repro_torch.kernels import backend
 from repro_torch.models import init_params
 from repro_torch.sensor.aggregate import slot_telemetry
+from repro_torch.serve.compiled_step import CompiledStep, summary_line
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, reset_slot
 from repro_torch.serve.serve_step import (
     build_reuse_engine,
-    decode_step,
     greedy_sample,
     init_serve_state,
-    prefill_step,
 )
 
 
@@ -57,12 +63,19 @@ def build_parser() -> argparse.ArgumentParser:
                     "decode steps (0 = keep registration-time modes)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs; cuda runs the Hopper kernels")
+    ap.add_argument("--eager", action="store_true",
+                    help="run each step directly instead of replaying its "
+                    "CUDA graph")
     return ap
 
 
-def run(cfg: ModelConfig, args: argparse.Namespace) -> dict:
+def run(cfg: ModelConfig, args: argparse.Namespace, *,
+        after_step: Callable | None = None) -> dict:
     """Serve `args.requests` random-prompt requests on `cfg`. Returns
-    {"done", "stats", "report", "engine", "seconds"}."""
+    {"done", "stats", "report", "engine", "rcache", "step", "seconds"}:
+    `step` is the CompiledStep, whose buffers hold the final state and
+    cache. `after_step(step_idx, step)` runs after each decode step, after
+    the policy refresh."""
     for flag in ("tuned_policy", "refresh_every"):
         if getattr(args, flag) and not args.reuse:
             raise ValueError(f"--{flag.replace('_', '-')} requires --reuse")
@@ -104,53 +117,60 @@ def run(cfg: ModelConfig, args: argparse.Namespace) -> dict:
                   f"dataflow={spec.dataflow} exec={spec.exec_path}{budget} "
                   f"block_k={spec.block_k}")
 
-    sstate = {"state": state, "rcache": rcache}
+    step = CompiledStep(params, cfg, state, batch=args.batch_slots,
+                        engine=engine, rcache=rcache,
+                        graphs=device.type == "cuda" and not args.eager,
+                        log=print)
 
     # Batched-prefill simplification (as the reference): a slot's prefill
     # re-runs the batch prefill with the slot's prompt in its lane.
     def prefill_fn(prompt, slot):
-        full = torch.zeros((args.batch_slots, prompt.shape[1]),
-                           dtype=torch.int32, device=device)
-        full[slot] = torch.from_numpy(np.asarray(prompt[0], np.int32)).to(device)
-        with torch.no_grad():
-            logits, sstate["state"] = prefill_step(params, cfg, full,
-                                                   sstate["state"])
-        reset_slot(sstate["rcache"], slot)
+        full = np.zeros((args.batch_slots, prompt.shape[1]), np.int32)
+        full[slot] = prompt[0]
+        logits = step.prefill(full)
+        reset_slot(rcache, slot)
         return int(greedy_sample(logits[slot:slot + 1, -1:])[0, 0])
 
+    step_ms: list[float] = []
+
     def decode_fn(tokens):
-        toks = torch.from_numpy(np.asarray(tokens, np.int32)).to(device)
-        with torch.no_grad():
-            logits, sstate["state"], sstate["rcache"] = decode_step(
-                params, cfg, toks, sstate["state"], engine=engine,
-                reuse_cache=sstate["rcache"])
-        return greedy_sample(logits).cpu().numpy()
+        t0 = time.perf_counter()
+        out = greedy_sample(step.decode(np.asarray(tokens, np.int32)))
+        out = out.cpu().numpy()  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
 
     telemetry_fn = on_retire = on_step = None
     if engine is not None:
         def telemetry_fn(slot):
-            return slot_telemetry(engine, sstate["rcache"], slot)
+            return slot_telemetry(engine, rcache, slot)
 
         def on_retire(req):
             t = req.telemetry
             print(f"SensorReport rid={req.rid} slot={t['slot']} "
                   f"steps={t['steps']} hit_rate={t['hit_rate']:.3f} "
                   f"sites={t['n_sites']}")
-            reset_slot(sstate["rcache"], req.slot)
+            reset_slot(rcache, req.slot)
 
-    if engine is not None and args.refresh_every > 0:
+    refreshing = engine is not None and args.refresh_every > 0
+    if refreshing or after_step is not None:
         def on_step(step_idx):
-            if step_idx % args.refresh_every:
-                return
-            changed = engine.refresh_modes(sstate["rcache"])
-            if engine.last_mode_events:
-                flips = ", ".join(
-                    f"{e['site']}"
-                    + (f"@{e['layer']}" if e["layer"] is not None else "")
-                    + f"->{e['after']}" for e in engine.last_mode_events)
-                print(f"mode refresh @step {step_idx}: {flips}")
-            if changed:
-                print(f"exec refresh @step {step_idx}: {changed}")
+            # mode and exec-path flips change the decode key: the next step
+            # captures a new variant, or replays the one of a known key
+            if refreshing and step_idx % args.refresh_every == 0:
+                changed = engine.refresh_modes(rcache)
+                if engine.last_mode_events:
+                    flips = ", ".join(
+                        f"{e['site']}"
+                        + (f"@{e['layer']}" if e["layer"] is not None else "")
+                        + f"->{e['after']}" for e in engine.last_mode_events)
+                    print(f"mode refresh @step {step_idx}: {flips} (captures "
+                          f"so far: {step.captures})")
+                if changed:
+                    print(f"exec refresh @step {step_idx}: {changed} "
+                          f"(captures so far: {step.captures})")
+            if after_step is not None:
+                after_step(step_idx, step)
 
     batcher = ContinuousBatcher(
         batch_slots=args.batch_slots,
@@ -173,14 +193,18 @@ def run(cfg: ModelConfig, args: argparse.Namespace) -> dict:
     dt = time.perf_counter() - t0
     print(f"served {len(done)}/{args.requests} requests in {dt:.2f}s; "
           f"{batcher.stats}")
+    print(summary_line(step.summary()))
+    if step_ms:
+        print(f"decode step: median {float(np.median(step_ms)):.2f} ms over "
+              f"{len(step_ms)} steps (host clock to the tokens on the host)")
     report = None
     if engine is not None:
-        report = engine.sensor_report(sstate["rcache"])
+        report = engine.sensor_report(rcache)
         print("\n".join(report.summary_lines()))
     if len(done) != args.requests:
         raise RuntimeError(f"served {len(done)} of {args.requests} requests")
     return {"done": done, "stats": batcher.stats, "report": report,
-            "engine": engine, "seconds": dt}
+            "engine": engine, "rcache": rcache, "step": step, "seconds": dt}
 
 
 def main(argv=None) -> None:

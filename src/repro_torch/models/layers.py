@@ -120,12 +120,12 @@ def blockwise_attention(
         s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc).reshape(b, h, chunk_q, chunk_kv)
         qpos = q_offset + i * chunk_q + torch.arange(chunk_q, device=dev)
         kpos = j * chunk_kv + torch.arange(chunk_kv, device=dev)
-        mask = torch.ones((chunk_q, chunk_kv), dtype=torch.bool, device=dev)
+        masked = torch.zeros((chunk_q, chunk_kv), dtype=torch.bool, device=dev)
         if causal:
-            mask = mask & (qpos[:, None] >= kpos[None, :])
+            masked = masked | (qpos[:, None] < kpos[None, :])
         if window is not None:
-            mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        s = torch.where(mask[None, None], s, torch.tensor(-math.inf, device=dev))
+            masked = masked | (kpos[None, :] <= qpos[:, None] - window)
+        s = s.masked_fill(masked[None, None], -math.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
         p = torch.exp(s - m_safe[..., None])
@@ -156,10 +156,10 @@ def decode_attention(
     h = q.shape[2]
     rep = h // kv
     scale = 1.0 / math.sqrt(d)
-    valid = torch.arange(s, device=q.device) < length
+    invalid = torch.arange(s, device=q.device) >= length
     qg = q.reshape(b, 1, kv, rep, d).float() * scale
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache.float())
-    logits = torch.where(valid, logits, torch.tensor(-math.inf, device=q.device))
+    logits = logits.masked_fill(invalid, -math.inf)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)

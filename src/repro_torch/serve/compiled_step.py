@@ -1,0 +1,219 @@
+"""The compiled serve step: CUDA graphs over static buffers, the counterpart
+of the reference's jitted prefill and its dict of jitted, donated decode
+variants (`repro.launch.serve`, and the same per replica in
+`repro.launch.replicas`).
+
+`CompiledStep` owns the buffers the step reads and writes, which never move:
+the token buffer [B, 1] int32, one prompt buffer [B, S] int32 per prompt
+length, the decode state and the reuse cache (the step writes both in place,
+and advances the state's `len` in place). A variant is one captured graph
+with its own output logits, keyed as the reference keys its compiled steps:
+
+  decode   (spec signature, mode signature). The spec signature is the
+           reference's `tuple(sorted(engine.sites.items()))`: exec paths,
+           budgets and tile geometry. The mode signature is the bytes of
+           every non-pinned site's `mode_host`: the port branches on that
+           host mirror (`core/reuse_linear.py`) where the reference branches
+           on the device lane, so a mode flip is a new operating point here
+           and a ctrl write there. A flip back to a known key reuses its graph.
+  prefill  the prompt buffer's shape.
+
+The first call with a key runs the step eagerly on a side stream (the real
+step; it also loads the kernel libraries and lets cuBLAS and the kernels'
+shared-memory grants initialise outside the capture), then captures it.
+Capture only records, so the caches advance once. Every later call copies
+its input into the buffer and replays. Each variant has a private memory
+pool: variants replay in any order, and one's logits must not live in
+another's blocks. A failed capture raises and nothing falls back to the
+eager step; a replay under another key than its graph's raises.
+
+Launch accounting: the wrappers count in Python, so a capture's counts are
+taken back out and added once per replay (`backend.recorded_launches`,
+`backend.count_replay`); `backend.launch_counts()` stays the kernels the
+card ran.
+
+With `graphs=False` (the CPU, or `--eager`, the counterpart of
+`jax.disable_jit`) the same class runs the step function directly: buffers
+and variant bookkeeping are the same, and `captures` counts what would have
+been captured.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import gc
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import ReuseEngine
+from repro_torch.kernels import backend
+from repro_torch.serve.serve_step import decode_step, prefill_step
+
+
+@dataclasses.dataclass
+class Variant:
+    key: tuple
+    graph: Any                      # torch.cuda.CUDAGraph; None: runs directly
+    out: torch.Tensor | None        # the graph's output logits
+    launches: collections.Counter   # kernel launches one replay runs
+    seconds: float = 0.0            # host time of the capture
+    pool_bytes: int = 0             # device memory the capture reserved
+
+
+class CompiledStep:
+    def __init__(
+        self,
+        params: Any,
+        cfg: ModelConfig,
+        state: dict,
+        *,
+        batch: int,
+        engine: ReuseEngine | None = None,
+        rcache: dict | None = None,
+        graphs: bool,
+        log: Callable[[str], None] | None = None,
+    ):
+        self.params, self.cfg = params, cfg
+        self.state, self.engine, self.rcache = state, engine, rcache
+        self.device = state["len"].device
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
+        self.graphs = graphs
+        self.log = log or (lambda msg: None)
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.prompts: dict[tuple, torch.Tensor] = {}
+        self.variants: dict[tuple, Variant] = {}
+        self.captures = 0
+        self._side = torch.cuda.Stream(self.device) if graphs else None
+
+    # ------------------------------------------------------------- the keys
+
+    def spec_signature(self) -> tuple:
+        if self.engine is None:
+            return ()
+        return tuple(sorted(self.engine.sites.items()))
+
+    def mode_signature(self) -> tuple:
+        if self.engine is None or self.rcache is None:
+            return ()
+        return tuple((name, self.rcache[name]["mode_host"].tobytes())
+                     for name, spec in sorted(self.engine.sites.items())
+                     if spec.mode not in ("reuse", "basic"))
+
+    def decode_key(self) -> tuple:
+        return ("decode", self.spec_signature(), self.mode_signature())
+
+    # ------------------------------------------- the functions a graph holds
+
+    def run_prefill(self, prompt: torch.Tensor) -> torch.Tensor:
+        """One prefill of the prompt buffer `prompt` into the static state;
+        returns the last-token logits [B, 1, V]."""
+        logits, new = prefill_step(self.params, self.cfg, prompt, self.state)
+        self.state["len"].copy_(new["len"])
+        return logits
+
+    def run_decode(self) -> torch.Tensor:
+        """One decode step of the token buffer on the static state and reuse
+        cache; returns the logits [B, 1, V]."""
+        logits, new, _ = decode_step(
+            self.params, self.cfg, self.tokens, self.state,
+            engine=self.engine, reuse_cache=self.rcache)
+        self.state["len"].copy_(new["len"])
+        return logits
+
+    # ------------------------------------------------------------ the calls
+
+    @torch.no_grad()
+    def prefill(self, tokens) -> torch.Tensor:
+        """Prompt tokens [B, S] (host array or tensor) into the caches.
+        Returns the last-token logits, valid until the next call."""
+        shape = tuple(tokens.shape)
+        buf = self.prompts.get(shape)
+        if buf is None:
+            buf = self.prompts[shape] = torch.zeros(
+                shape, dtype=torch.int32, device=self.device)
+        buf.copy_(torch.as_tensor(tokens))
+        return self._call(("prefill", shape), lambda: self.run_prefill(buf))
+
+    @torch.no_grad()
+    def decode(self, tokens) -> torch.Tensor:
+        """Tokens [B, 1] (host array or tensor) through one decode step.
+        Returns the logits, valid until the next call."""
+        self.tokens.copy_(torch.as_tensor(tokens))
+        return self._call(self.decode_key(), self.run_decode)
+
+    def _call(self, key: tuple, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+        v = self.variants.get(key)
+        if v is None:
+            return self._build(key, fn)
+        if v.graph is None:
+            return fn()
+        return self.replay(v, key)
+
+    def replay(self, v: Variant, key: tuple) -> torch.Tensor:
+        if v.key != key:
+            raise RuntimeError(f"{key[0]} step: replaying a graph captured "
+                               "under another key")
+        v.graph.replay()
+        backend.count_replay(v.launches)
+        return v.out
+
+    def _build(self, key: tuple, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+        kind = key[0]
+        if not self.graphs:
+            self.captures += 1
+            self.variants[key] = Variant(key, None, None, collections.Counter())
+            self.log(f"compiled step: {kind} variant {len(self.variants)} "
+                     f"runs directly on {self.device} (captures: "
+                     f"{self.captures})")
+            return fn()
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            out = fn()  # the real step, and the warm-up of the capture
+        cur.wait_stream(self._side)
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with backend.recorded_launches() as rec, torch.cuda.graph(graph):
+                gout = fn()
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of the {kind} step "
+                               "failed") from e
+        seconds = time.perf_counter() - t0
+        pool = torch.cuda.memory_reserved(self.device) - before
+        self.captures += 1
+        self.variants[key] = Variant(key, graph, gout, rec, seconds, pool)
+        self.log(f"compiled step: captured {kind} variant "
+                 f"{len(self.variants)} in {seconds:.3f} s, pool "
+                 f"{pool / 1e6:.1f} MB, {sum(rec.values())} kernel launches "
+                 f"(captures: {self.captures})")
+        return out
+
+    def summary(self) -> dict:
+        """Variants by kind, captures, capture seconds and pool bytes."""
+        kinds = collections.Counter(k[0] for k in self.variants)
+        vs = self.variants.values()
+        return {"variants": len(self.variants), "decode": kinds["decode"],
+                "prefill": kinds["prefill"], "captures": self.captures,
+                "capture_s": sum(v.seconds for v in vs),
+                "pool_bytes": sum(v.pool_bytes for v in vs),
+                "graphs": self.graphs}
+
+
+def summary_line(s: dict) -> str:
+    how = ("CUDA graphs" if s["graphs"]
+           else "run directly, no CUDA graph")
+    return (f"compiled step ({how}): {s['variants']} variants ({s['decode']} "
+            f"decode, {s['prefill']} prefill), {s['captures']} captures, "
+            f"capture {s['capture_s']:.3f} s, pools "
+            f"{s['pool_bytes'] / 1e6:.1f} MB")

@@ -6,12 +6,15 @@ This file imports no JAX (the machine with the card has none):
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import math
 
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.delta import compact_rows, delta_encode_int8
+from repro_torch.core.policy import ReusePolicy, SiteTunables
 from repro_torch.kernels import backend, ops
 from repro_torch.kernels.delta_quant import (
     delta_quant,
@@ -26,6 +29,9 @@ from repro_torch.kernels.reuse_matmul_ragged import (
 )
 from repro_torch.kernels.wkv6_decode import wkv6_decode, wkv6_decode_torch
 from repro_torch.launch import serve as tserve_cli
+from repro_torch.models import init_params
+from repro_torch.serve.compiled_step import CompiledStep
+from repro_torch.serve.serve_step import build_reuse_engine, init_serve_state
 
 # f32 GEMMs as tests/test_kernels.py: the same products summed in another order
 RTOL, ATOL = 1e-5, 1e-4
@@ -415,3 +421,171 @@ def test_serve_runs_the_kernels_on_the_card(card, capsys, arch, kernels):
     counts = backend.launch_counts()
     assert all(counts[kn] > 0 for kn in kernels), counts
     assert "served 2/2 requests" in capsys.readouterr().out
+
+
+# ------------------------------------------------ CUDA graphs of the serve step
+
+def _graph_kernel_call(kernel, card):
+    """(call, state): a zero-argument call of one serve-path kernel at a
+    serve shape on fixed inputs, and the tensor it updates in place (or
+    None). The cluster launches (delta_quant at block_m 128, the float ΔW
+    GEMMs at C > 1) go through cudaLaunchKernelEx."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    if kernel == "wkv6_decode":
+        r, k, v, u = (torch.randn(s, generator=gen, device=card)
+                      for s in ((8, 64, 64),) * 3 + ((64, 64),))
+        w = torch.rand((8, 64, 64), generator=gen, device=card) * 0.9 + 0.05
+        state = torch.randn((8, 64, 64, 64), generator=gen, device=card)
+        return (lambda s: wkv6_decode(r, k, v, w, u, s)[0]), state
+    if kernel.startswith("delta_quant"):
+        m, bm = (128, 128) if kernel.endswith("128") else (8, 8)
+        x = torch.randn((m, 25600), generator=gen, device=card).to(BF16)
+        prev_q = torch.randint(-127, 128, (m, 25600), generator=gen,
+                               device=card).to(torch.int8)
+        scale = torch.tensor(0.05, device=card)
+        return (lambda s: delta_quant(x, prev_q, scale, block_m=bm,
+                                      block_k=256)), None
+    k, n = {"output": (5120, 10240), "ragged": (5120, 10240),
+            "input": (25600, 5120)}[kernel]
+    mask = input_mask(0.5, 1, k // 256, gen, card)
+    em = mask.repeat_interleave(8, 0).repeat_interleave(256, 1)
+    delta = (torch.randn((8, k), generator=gen, device=card) * em).to(BF16)
+    w = (torch.randn((k, n), generator=gen, device=card) / 64).to(BF16)
+    prev = torch.randn((8, n), generator=gen, device=card)
+    if kernel == "ragged":
+        idx, counts = compact_rows(mask)
+        return (lambda s: reuse_matmul_ragged(
+            delta, w, prev, counts, idx, block_m=8, block_n=128,
+            block_k=256)), None
+    return (lambda s: reuse_matmul(delta, w, prev, mask, block_m=8,
+                                   block_n=128, block_k=256,
+                                   dataflow=kernel)), None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["delta_quant", "delta_quant_128",
+                                    "output", "input", "ragged",
+                                    "wkv6_decode"])
+def test_kernel_in_a_captured_graph_matches_eager_on_card(card, kernel):
+    """Launched inside a captured CUDA graph, each serve-path kernel gives
+    bitwise its eager launch's results (in-place state included), and the
+    capture's launch is counted once per replay, not at capture."""
+    call, state = _graph_kernel_call(kernel, card)
+    s_eager = None if state is None else state.clone()
+    s_graph = None if state is None else state.clone()
+    want = call(s_eager)        # eager, and the warm-up of the capture
+    torch.cuda.synchronize()
+    before = backend.launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with backend.recorded_launches() as rec, torch.cuda.graph(g):
+        got = call(s_graph)
+    assert backend.launch_counts() == before and sum(rec.values()) == 1
+    g.replay()
+    backend.count_replay(rec)
+    torch.cuda.synchronize()
+    assert sum(backend.launch_counts().values()) == sum(before.values()) + 1
+    for a, b in zip(want if isinstance(want, tuple) else (want,),
+                    got if isinstance(got, tuple) else (got,)):
+        assert torch.equal(a, b)
+    if state is not None:
+        assert torch.equal(s_eager, s_graph)
+
+
+def _reduced_step(arch, card, graphs, variant="default"):
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="bfloat16")
+    policy = ReusePolicy()
+    if variant == "ragged":
+        policy = ReusePolicy(site_tunables={
+            s: SiteTunables(exec_path="ragged", max_active_k=1)
+            for s in ("attn_qkv", "mlp_in", "rwkv_wr", "rwkv_cmix_wk")})
+    engine = build_reuse_engine(cfg, block_k=64, policy=policy)
+    return CompiledStep(init_params(cfg, 0, device=card), cfg,
+                        init_serve_state(cfg, 2, 32, device=card), batch=2,
+                        engine=engine, rcache=engine.init_cache(2, device=card),
+                        graphs=graphs)
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b"])
+def test_graph_step_matches_eager_step_on_card(card, arch):
+    """Reduced bf16 models: the same prefills and decode steps, eagerly and
+    through captured graphs (with a mode flip and a flip back between
+    steps, so one variant is captured and one replayed after a flip), give
+    bitwise the same logits, state, reuse cache and launch counts."""
+    runs = []
+    for graphs in (False, True):
+        backend.reset_launches()
+        step = _reduced_step(arch, card, graphs)
+        site = "attn_out" if arch == "qwen3-32b" else "rwkv_wo"
+        gen = torch.Generator(device=card).manual_seed(0)
+        logits = [step.prefill(torch.randint(
+            0, step.cfg.vocab, (2, 8), generator=gen, device=card)).clone()]
+        tok = logits[0][:, -1:].argmax(-1).to(torch.int32)
+        for i in range(6):
+            if i in (2, 4):
+                step.engine.set_mode(step.rcache, site,
+                                     "basic" if i == 2 else "reuse", layer=0)
+            logits.append(step.decode(tok).clone())
+            tok = logits[-1].argmax(-1).to(torch.int32)
+        logits.append(step.prefill(torch.randint(
+            0, step.cfg.vocab, (2, 8), generator=gen, device=card)).clone())
+        torch.cuda.synchronize()
+        runs.append((logits, _tensor_leaves(step.state),
+                     _tensor_leaves(step.rcache), backend.launch_counts(),
+                     step.summary()))
+    (le, se, re, ce, _), (lg, sg, rg, cg, summ) = runs
+    assert summ["captures"] == 3 and summ["decode"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(le, lg))
+    assert all(torch.equal(a, b) for a, b in zip(se + re, sg + rg))
+    assert ce == cg and ce["delta_quant"] > 0
+    backend.reset_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b"])
+@pytest.mark.parametrize("variant", ["default", "ragged", "basic"])
+def test_eager_decode_step_syncs_nothing_on_card(card, arch, variant):
+    """Under torch.cuda.set_sync_debug_mode("error") an eager decode step
+    raises on any call that waits for the card: there must be none."""
+    step = _reduced_step(arch, card, graphs=False,
+                         variant="ragged" if variant == "ragged" else
+                         "default")
+    step.prefill(torch.ones((2, 8), dtype=torch.int32, device=card))
+    step.decode(torch.ones((2, 1), dtype=torch.int32, device=card))
+    if variant == "basic":
+        for name in step.engine.sites:
+            step.engine.set_mode(step.rcache, name, "basic")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            step.run_decode()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card(card, monkeypatch):
+    """A step that cannot be captured (here it waits for the card) raises;
+    it never gives way to the eager step."""
+    step = _reduced_step("qwen3-32b", card, graphs=True)
+    orig = step.run_decode
+
+    def waits():
+        out = orig()
+        torch.cuda.synchronize()
+        return out
+    monkeypatch.setattr(step, "run_decode", waits)
+    step.prefill(torch.ones((2, 8), dtype=torch.int32, device=card))
+    with pytest.raises(RuntimeError, match="capture of the decode step"):
+        step.decode(torch.ones((2, 1), dtype=torch.int32, device=card))
+    torch.cuda.synchronize()
+    assert step.captures == 1 and step.decode_key() not in step.variants
