@@ -63,12 +63,33 @@ every phase's failure is fatal (non-zero exit, no result line):
   7. int8     — the int8 split entry point (delta_encode_int8, then
                 ops.reuse_matmul_int8 on lo and on hi) at the rwkv6-7b channel
                 mix shape, against the exact product
+  8. measured — the measured-decode and trace-tuning loop on correlated
+                traffic: (a) a skip sweep at every serve site shape (M = 8,
+                skips 0-0.9: the site's masked kernel, ragged at
+                ReusePolicy.ragged_budget, torch.addmm; each kernel held
+                against its plain version) and two crossings a shape from
+                tune.harvest.derive_break_even_skip; (b) record:
+                sensor.runner.run_measured_decode on qwen3-32b (8 layers;
+                batch 8 and 2) and rwkv6-7b (32 layers; batch 8) at
+                correlation 0.95, eagerly with every kernel call checked,
+                then twice through the CUDA graphs (timed; profiled), all
+                three equal bitwise (summary lines, JSONL rows, launch
+                counts, final cache and state); per-site skips, replay
+                times, the ΔW GEMMs' device ms beside sensor_speedup; layer
+                0 attn_qkv must skip; (c) fit: the record's JSONL through
+                tune.load_trace and fit_trace(FitConfig(pallas_target=True,
+                ragged_min_skip=<the measured break-even>)), save_table,
+                load_tuned_policy; (d) exploit: the same stream on the tuned
+                policy, checked as in (b); a site promoted to ragged must
+                launch reuse_matmul_ragged
 
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
-pools, device busy and idle share), the kernels JSON line (launch counts from
-the serve runs and the int8 path, errors and times from phase 3) and the
-card's name and power limit; the last line is {"ok": true, "device": {...}}.
+pools, device busy and idle share), a JSON line of phase 8 (its runs, the
+sweep, the break-even and the fitted tables), the kernels JSON line (launch
+counts from the serve runs and the int8 path, and per phase 8 run; errors
+and times from phase 3) and the card's name and power limit; the last line
+is {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the repository's
 package is not beside it.
 """
@@ -395,7 +416,7 @@ def exact_int8(cur, prev, wq, acc):
 def profile_step(fn, what: str) -> tuple:
     """Where one decode step's time goes: device time by kernel name
     (torch.profiler, CUPTI) against the host wall time of the step. Returns
-    (wall ms, device busy ms)."""
+    (wall ms, device busy ms, the kernel rows of `key_averages()`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -418,7 +439,7 @@ def profile_step(fn, what: str) -> tuple:
     for e in rows[:12] + [e for e in rows[12:] if "delta_quant" in e.key]:
         print(f"    {e.device_time_total / 1e3:8.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
-    return wall, busy
+    return wall, busy, rows
 
 
 def tensor_leaves(tree, prefix: str = "") -> dict:
@@ -542,6 +563,462 @@ def decode_compare(cfg, gen, dev):
     first_err = close(first["cuda"], first["torch"], GEMM_ATOL, GEMM_RTOL)
     del params, state
     return err, scale_l, toks_equal, times, flips, first_err
+
+
+# phase 8: the skip sweep at every serve site shape, and the measured-decode
+# runs on the reference runner's correlated stream (correlation 0.95, as its
+# MEASURED_OPERATING_POINTS), recorded, fitted and exploited
+SWEEP_SKIPS = (0.0, 0.25, 0.5, 0.75, 0.9)
+CORRELATION, MEASURED_SEED = 0.95, 0
+# decode steps a run: rwkv6's 32-layer eager step under the per-call checks
+# takes about a second, so it runs fewer
+MEASURED_STEPS = {"qwen3-32b": 24, "rwkv6-7b": 12}
+# the three float ΔW GEMMs are one template, `cluster_gemm`, named in a
+# profile by its tile list
+GEMM_LISTS = {"MaskList": "reuse_matmul_output",
+              "InputList": "reuse_matmul_input",
+              "RaggedList": "reuse_matmul_ragged"}
+
+
+def skip_sweep(dev, gen, max_err) -> dict:
+    """Phase 8a. At every serve site shape (M = 8, bf16) and skip in
+    SWEEP_SKIPS: the site's masked kernel (output- or input-stationary), the
+    ragged kernel (its live counts checked against the budget
+    `ReusePolicy.ragged_budget(gk, skip)`) and the dense yardstick
+    `torch.addmm(prev, Δ, W, out_dtype=f32)`, each kernel held against its
+    plain version, then timed with the weight rotated through
+    ROTATE_BYTES. Two crossings a shape from `derive_break_even_skip`: the
+    best reuse kernel against dense (as the reference's sweep feeds it),
+    and ragged against the masked kernel. Returns {model: [row, ...]}."""
+    from repro_torch.core.delta import compact_rows
+    from repro_torch.core.policy import ReusePolicy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.reuse_matmul import (
+        reuse_matmul,
+        reuse_matmul_torch,
+    )
+    from repro_torch.kernels.reuse_matmul_ragged import (
+        reuse_matmul_ragged,
+        reuse_matmul_ragged_torch,
+    )
+    from repro_torch.tune.harvest import derive_break_even_skip
+
+    out = {}
+    print(f"skip sweep, ms per call (CUDA-graph replay of 20 calls, weight "
+          f"rotated through {ROTATE_BYTES / 1e6:.0f} MB), M = {M}, bf16; "
+          "kernel = the site's masked kernel, ragged at the budget "
+          "ragged_budget(gk, skip), dense = torch.addmm:")
+    for model, shapes in (("qwen3-32b", SITES), ("rwkv6-7b", RWKV_SITES)):
+        rows = out[model] = []
+        for site, k, n, dataflow in shapes:
+            gk = k // BK
+            w = (torch.randn((k, n), generator=gen, device=dev)
+                 / math.sqrt(k)).to(torch.bfloat16)
+            copies = math.ceil(ROTATE_BYTES / (w.numel() * w.element_size()))
+            nxt = itertools.cycle([w] + [w.clone() for _ in range(copies - 1)])
+            wn = nxt.__next__
+            kname = f"reuse_matmul_{dataflow}"
+            pts = []
+            for skip in SWEEP_SKIPS:
+                mask = random_mask(1, gk, skip, gen, dev)
+                delta = (torch.randn((M, k), generator=gen, device=dev)
+                         * expand(mask, BM, BK)).to(torch.bfloat16)
+                prev = torch.randn((M, n), generator=gen, device=dev)
+                idx, counts = compact_rows(mask)
+                budget = ReusePolicy.ragged_budget(gk, skip)
+                if int(ops.budget_overflow(counts, gk=gk,
+                                           max_active_k=budget)):
+                    fail(f"sweep {site} skip {skip}: live tiles overflow the "
+                         f"budget {budget}")
+                ref = reuse_matmul_torch(delta, w, prev, mask, block_m=BM,
+                                         block_k=BK)
+                got = reuse_matmul(delta, w, prev, mask, block_m=BM,
+                                   block_n=BN, block_k=BK, dataflow=dataflow)
+                max_err[kname] = max(max_err[kname], close(
+                    got, ref, GEMM_ATOL, GEMM_RTOL, f"sweep {site} {kname}"))
+                want = reuse_matmul_ragged_torch(
+                    delta, w, prev, counts, idx, block_m=BM, block_n=BN,
+                    block_k=BK)
+                got = reuse_matmul_ragged(delta, w, prev, counts, idx,
+                                          block_m=BM, block_n=BN, block_k=BK)
+                max_err["reuse_matmul_ragged"] = max(
+                    max_err["reuse_matmul_ragged"],
+                    close(got, want, GEMM_ATOL, GEMM_RTOL,
+                          f"sweep {site} reuse_matmul_ragged"))
+                t_k = time_ms(lambda: reuse_matmul(
+                    delta, wn(), prev, mask, block_m=BM, block_n=BN,
+                    block_k=BK, dataflow=dataflow))
+                t_r = time_ms(lambda: reuse_matmul_ragged(
+                    delta, wn(), prev, counts, idx, block_m=BM, block_n=BN,
+                    block_k=BK))
+                t_d = time_ms(lambda: torch.addmm(prev, delta, wn(),
+                                                  out_dtype=torch.float32))
+                active = int(mask.sum())
+                byts = (active * BK * n * 2 + delta.numel() * 2
+                        + 2 * M * n * 4 + mask.numel() * 4)
+                bound = max(byts / HBM_BYTES_PER_S,
+                            2 * M * n * active * BK / BF16_FLOPS) * 1e3
+                pts.append({"skip": skip, "budget": budget, "kernel_ms": t_k,
+                            "ragged_ms": t_r, "dense_ms": t_d,
+                            "bound_ms": bound})
+            del nxt, wn, w
+            be = derive_break_even_skip(
+                [(p["skip"], min(p["kernel_ms"], p["ragged_ms"]),
+                  p["dense_ms"]) for p in pts])
+            rk = derive_break_even_skip(
+                [(p["skip"], p["ragged_ms"], p["kernel_ms"]) for p in pts])
+            rows.append({"site": site, "shape": f"[{M},{k}]x[{k},{n}]",
+                         "kernel": kname, "points": pts, "break_even": be,
+                         "ragged_over_kernel": rk})
+            print(f"  {model} {site:9s} [{M},{k}]x[{k},{n}] {kname}: "
+                  + "; ".join(f"skip {p['skip']:.2f} kernel "
+                              f"{p['kernel_ms']:.4f} ragged@{p['budget']} "
+                              f"{p['ragged_ms']:.4f} dense "
+                              f"{p['dense_ms']:.4f} bound {p['bound_ms']:.4f}"
+                              for p in pts))
+            print(f"    crossings: best reuse kernel vs dense {be:.4f}, "
+                  f"ragged vs {kname} {rk:.4f} (2.0 = never)")
+    return out
+
+
+def gpu_clocks() -> str:
+    """The card's SM and memory clocks and power draw, as nvidia-smi reads
+    them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+@contextlib.contextmanager
+def timed_decodes(profile_at: int | None, what: str):
+    """Times each decode step of the measured-decode run inside it (host
+    clock around synchronize) by wrapping `CompiledStep.decode`, and the
+    host time until the call returns (the token copy, the key and the
+    graph launch, before the device is waited for); decode number
+    `profile_at` (1-based) is profiled instead. Yields a log: per decode its
+    ms and host ms (None: profiled) and whether it captured a variant, per
+    replay the host time of the graph launch alone (`CompiledStep.replay`),
+    and the profile (wall ms, busy ms, kernel rows)."""
+    from repro_torch.serve.compiled_step import CompiledStep
+
+    orig, orig_replay = CompiledStep.decode, CompiledStep.replay
+    log = {"ms": [], "host_ms": [], "launch_ms": [], "captured": [],
+           "profile": None}
+
+    def replay(self, v, key):
+        t0 = time.perf_counter()
+        out = orig_replay(self, v, key)
+        log["launch_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def decode(self, tokens):
+        before = self.captures
+        ms = host = None
+        if len(log["ms"]) + 1 == profile_at:
+            box = []
+            log["profile"] = profile_step(
+                lambda: box.append(orig(self, tokens)), what)
+            out = box[0]
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(self, tokens)
+            host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        log["ms"].append(ms)
+        log["host_ms"].append(host)
+        log["captured"].append(self.captures != before)
+        return out
+
+    CompiledStep.decode, CompiledStep.replay = decode, replay
+    try:
+        yield log
+    finally:
+        CompiledStep.decode, CompiledStep.replay = orig, orig_replay
+
+
+def measured_pair(label, arch, cfg, params, *, steps, batch, policy, dev,
+                  max_err):
+    """Phase 8b and 8d: `run_measured_decode` three times on one seed and
+    stream: eagerly (`graphs=False`) with every kernel call held against its
+    plain version (PathCheck); through the CUDA graphs of the compiled step
+    with each decode timed (no profiler in that run, the card's clocks read
+    before and after); and through the graphs again with the middle decode
+    profiled. Summary lines, JSONL rows, launch counts, mode mirrors and
+    every tensor of the final reuse cache and decode state must be equal
+    (bitwise) in all three. `policy()` makes each run's policy. Returns (the
+    timed run's MeasuredDecode, its launch counts, its decode log with the
+    profiled run's profile)."""
+    from repro_torch.kernels import backend, ops
+    from repro_torch.sensor.runner import run_measured_decode
+
+    kw = dict(steps=steps, batch=batch, correlation=CORRELATION,
+              seed=MEASURED_SEED, device=dev, params=params, cfg=cfg)
+    runs, logs = [], []
+    for how in ("eager", "timed", "profiled"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        backend.reset_launches()
+        if how == "eager":
+            ctx = PathCheck(ops)
+        else:
+            ctx = timed_decodes(steps // 2 + 1 if how == "profiled" else None,
+                                f"{label}: one replay")
+        clocks = gpu_clocks() if how == "timed" else None
+        with ctx as got:
+            md = run_measured_decode(arch, policy=policy(),
+                                     graphs=how != "eager", **kw)
+        torch.cuda.synchronize()
+        counts = backend.launch_counts()
+        if how == "timed":
+            print(f"{label}: card clocks (sm, mem, power) before the timed "
+                  f"graph run: {clocks}; after: {gpu_clocks()}")
+            timed = md, counts
+        if how == "eager":
+            if got.checked != counts:
+                fail(f"{label}: kernel calls checked {got.checked} != "
+                     f"launches {counts}")
+            for kn, n in got.checked.items():
+                if n:
+                    max_err[kn] = max(max_err[kn], got.max_err[kn])
+        else:
+            if not got["captured"][0]:
+                fail(f"{label}: the {how} graph run did not capture its "
+                     "first step")
+            logs.append(got)
+        runs.append({
+            "lines": md.report.summary_lines(), "rows": md.report.to_dicts(),
+            "counts": counts,
+            "modes": {n: e["mode_host"].tobytes() for n, e in md.cache.items()},
+            "tensors": {k: t.clone() for k, t in tensor_leaves(
+                {"rcache": md.cache, "state": md.step.state}).items()}})
+        del md
+    want = runs[0]
+    for how, got in zip(("timed", "profiled"), runs[1:]):
+        for part in ("lines", "rows", "counts", "modes"):
+            if got[part] != want[part]:
+                fail(f"{label}: the {how} graph run's {part} differ from the "
+                     "checked eager run's")
+        diff = [k for k, t in want["tensors"].items()
+                if not torch.equal(t, got["tensors"][k])]
+        if diff:
+            fail(f"{label}: the {how} graph run's final reuse cache / decode "
+                 f"state differ at {diff[:8]} ({len(diff)} tensors)")
+    print(f"{label}: both graph runs equal to the checked eager run — "
+          f"{len(want['lines'])} summary lines, {len(want['rows'])} JSONL "
+          f"rows, launch counts {want['counts']}, {len(want['tensors'])} "
+          "tensors of the final reuse cache and decode state bitwise; every "
+          "kernel call of the eager run held against its plain version")
+    log = dict(logs[0], profile=logs[1]["profile"])
+    return timed[0], timed[1], log
+
+
+def measured_summary(label, md, counts, log, ref=None) -> dict:
+    """Prints a measured-decode run's per-site skips, its replay step times
+    (captures and the profiled step left out), the ΔW GEMMs' device ms of
+    the profiled replay beside `sensor_speedup` on the card's datasheet
+    rates, and returns the run's row for the JSON line. `ref` is (what,
+    ms): a replay time to print beside this run's."""
+    from repro_torch.sensor.cost_model import sensor_speedup
+
+    rep, steps = md.report, md.steps
+    m = rep.model
+    print(f"{label}: {steps} decode steps at batch {md.batch}, correlation "
+          f"{CORRELATION}, seed {MEASURED_SEED}; model tile_skip "
+          f"{m['tile_skip_rate']:.4f} mac_skip {m['mac_skip_rate']:.4f} "
+          f"weight_byte_skip {m['weight_byte_skip_rate']:.4f} hit_rate "
+          f"{m['hit_rate']:.4f}")
+    sites = {}
+    for s in rep.per_site:
+        sites[s.site] = {"exec_path": s.exec_path, "block_k": s.block_k,
+                         "tile_skip": s.tile_skip_rate,
+                         "mac_skip": s.mac_skip_rate,
+                         "weight_byte_skip": s.weight_byte_skip_rate,
+                         "hit_rate": s.hit_rate}
+        print(f"  {s.site:13s} exec={s.exec_path:6s} block_k={s.block_k:3d} "
+              f"tile_skip={s.tile_skip_rate:.4f} "
+              f"mac_skip={s.mac_skip_rate:.4f} "
+              f"weight_byte_skip={s.weight_byte_skip_rate:.4f} "
+              f"hit={s.hit_rate:.4f} grid_skip={s.grid_step_skip_rate:.4f}")
+    first = rep.per_layer[0]
+    print(f"  layer 0 {first.site}: tile_skip {first.tile_skip_rate:.4f} "
+          f"({first.skipped_tiles} of {first.total_tiles} tiles)")
+    if first.site == "attn_qkv" and first.skipped_tiles == 0:
+        fail(f"{label}: layer 0 attn_qkv skipped no tile on the correlated "
+             "stream")
+    replays = [t for t, cap in zip(log["ms"], log["captured"]) if not cap]
+    hosts = [t for t, cap in zip(log["host_ms"], log["captured"]) if not cap]
+    med = statistics.median(replays)
+    launch = statistics.median(log["launch_ms"] or [math.nan])
+    print(f"{label}: replay step (host clock around synchronize, "
+          f"{len(replays)} replays, no profiler): median {med:.2f} ms ("
+          + ", ".join(f"{t:.2f}" for t in replays) + ")"
+          + (f"; {ref[0]}: {ref[1]:.2f} ms" if ref else "")
+          + f"; host time until the decode call returns: median "
+          f"{statistics.median(hosts):.2f} ms (max {max(hosts):.2f}), of it "
+          f"the graph launch (replay()) median {launch:.2f} ms")
+    # the final key's step timed as phases 4-6 time theirs: the step
+    # function eagerly and its graph replayed, in turns, on the run's
+    # buffers after its last step (the token buffer holds the last token)
+    eager, graph = step_times(md.step, 3)
+    print(f"{label}: the final key's step in turns as phases 4-6 time it: "
+          f"eager median {statistics.median(eager):.2f} ms, graph replay "
+          f"median {statistics.median(graph):.2f} ms ("
+          + ", ".join(f"{t:.2f}" for t in graph) + ")")
+    _, busy, rows = log["profile"]
+    gemm = {kn: 0.0 for kn in GEMM_LISTS.values()}
+    for e in rows:
+        if "cluster_gemm" in e.key:
+            kn = next(v for k, v in GEMM_LISTS.items() if k in e.key)
+            gemm[kn] += e.device_time_total / 1e3
+    dw = sum(gemm.values())
+    sp = sensor_speedup(rep)
+    base_ms, meas_ms = (sp[k] / steps * 1e3
+                        for k in ("baseline_site_s", "measured_site_s"))
+    print(f"{label}: ΔW GEMMs in the profiled replay {dw:.3f} ms of "
+          f"{busy:.3f} ms busy ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in gemm.items() if v)
+          + f"); sensor_speedup per step on the H100 datasheet rates: dense "
+          f"{base_ms:.4f} ms, measured {meas_ms:.4f} ms, site speedup "
+          f"{sp['site_speedup']:.3f}x")
+    return {"run": label, "batch": md.batch, "steps": steps,
+            "tile_skip": m["tile_skip_rate"], "mac_skip": m["mac_skip_rate"],
+            "weight_byte_skip": m["weight_byte_skip_rate"],
+            "hit_rate": m["hit_rate"], "sites": sites,
+            "replay_ms": med, "replays_ms": replays, "ref": ref,
+            "host_ms": statistics.median(hosts),
+            "launch_ms": launch,
+            "turns_graph_ms": statistics.median(graph),
+            "turns_eager_ms": statistics.median(eager),
+            "busy_ms": busy, "dw_gemm_ms": dw, "dw_gemm_by_kernel": gemm,
+            "speedup_dense_ms": base_ms, "speedup_measured_ms": meas_ms,
+            "site_speedup": sp["site_speedup"], "launches": dict(counts)}
+
+
+def measured_decode_phase(cfg, rcfg, dev, graph_rows, max_err) -> dict:
+    """Phase 8 on the configs of phases 4 (qwen3 `cfg`) and 6 (rwkv6
+    `rcfg`): (a) the skip sweep and the measured break-even; (b) record:
+    measured decode on the correlated stream, eager-checked and as graphs;
+    (c) fit: the record's JSONL through load_trace, fit_trace at the
+    measured gate for the kernel tier, save_table, load_tuned_policy; (d)
+    exploit: the same stream on the tuned policy, eager-checked and as
+    graphs. Prints a JSON line of the runs; returns {run: launch counts}."""
+    from repro_torch.core.policy import ReusePolicy
+    from repro_torch.models import init_params
+    from repro_torch.tune import (
+        FitConfig,
+        fit_trace,
+        load_trace,
+        load_tuned_policy,
+        save_table,
+    )
+    from repro_torch.tune.fit import summary_lines as fit_summary_lines
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen_s = torch.Generator(device=dev)
+    gen_s.manual_seed(4)
+    sweep = skip_sweep(dev, gen_s, max_err)
+    # one gate a model: the largest crossing of its shapes, so a site is
+    # promoted only at a skip where the reuse kernels beat dense on each
+    break_even = {model: max(r["break_even"] for r in rows)
+                  for model, rows in sweep.items()}
+    print("measured break-even skip (best reuse kernel vs dense, the largest "
+          "of the model's shapes; the fit's ragged_min_skip and the policy's "
+          "ragged_break_even_skip): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in break_even.items())
+          + "; RAGGED_BREAK_EVEN_SKIP stays the reference's "
+          f"{ReusePolicy().ragged_break_even_skip}")
+    replay_ref = {r["serve"]: r["graph_ms"] for r in graph_rows}
+    measured, launches_measured, fitted = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, mcfg, ref_label, ref_phase in (
+                ("qwen3-32b", cfg, "qwen3 default", 4),
+                ("rwkv6-7b", rcfg, "rwkv6", 6)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = init_params(mcfg, MEASURED_SEED, device=dev)
+            steps = MEASURED_STEPS[arch]
+            # (b) record: batch 8, and qwen3 also at the reference runner's
+            # default batch 2
+            for batch in ((8, 2) if arch == "qwen3-32b" else (8,)):
+                label = f"{arch} b{batch} record"
+                print(f"--- {label}")
+                md, counts, log = measured_pair(
+                    label, arch, mcfg, params, steps=steps, batch=batch,
+                    policy=lambda: None, dev=dev, max_err=max_err)
+                measured.append(measured_summary(
+                    label, md, counts, log,
+                    (f"random-traffic replay of phase {ref_phase}",
+                     replay_ref[ref_label]) if batch == 8 else None))
+                launches_measured[label] = counts
+                if batch == 8:
+                    record, record_ms = md, measured[-1]["replay_ms"]
+                del md
+            for kn in (("delta_quant", "reuse_matmul_output",
+                        "reuse_matmul_input") if arch == "qwen3-32b" else
+                       ("delta_quant", "reuse_matmul_output", "wkv6_decode")):
+                if launches_measured[f"{arch} b8 record"][kn] <= 0:
+                    fail(f"{kn} was not launched in the {arch} record run")
+            # (c) fit: the record's JSONL, loaded, fitted for the card's
+            # kernel tier at the measured gate, saved and loaded as a policy
+            be = break_even[arch]
+            trace_path = os.path.join(tmp, f"{arch}_trace.jsonl")
+            record.report.write_jsonl(trace_path, mode="w")
+            del record
+            trace = load_trace(trace_path)
+            tunables = fit_trace(trace, FitConfig(pallas_target=True,
+                                                  ragged_min_skip=be))
+            table = os.path.join(tmp, f"{arch}_tuned.json")
+            save_table(table, tunables, meta={
+                "trace": os.path.basename(trace_path),
+                "n_rows": trace.n_rows, "ragged_min_skip": be})
+            print(f"{arch} fit (FitConfig(pallas_target=True, "
+                  f"ragged_min_skip={be:.4f})), from {trace.n_rows} rows:")
+            print("\n".join(fit_summary_lines(trace, tunables)))
+            fitted[arch] = {name: t.to_dict() for name, t in tunables.items()
+                            if name in trace.sites}
+            # beside it, the gate the other crossing would give: ragged
+            # against the masked kernel (not served; printed only)
+            rk = max(r["ragged_over_kernel"] for r in sweep[arch])
+            alt = fit_trace(trace, FitConfig(pallas_target=True,
+                                             ragged_min_skip=rk))
+            print(f"{arch}: with the ragged-over-kernel crossing as the gate "
+                  f"({rk:.4f}) the fit would promote "
+                  f"{[n for n in trace.sites if alt[n].exec_path] or 'no site'}")
+            base = ReusePolicy(ragged_break_even_skip=be)
+            # (d) exploit: the same seed and stream on the tuned policy
+            label = f"{arch} b8 exploit"
+            print(f"--- {label}")
+            md, counts, log = measured_pair(
+                label, arch, mcfg, params, steps=steps, batch=8,
+                policy=lambda: load_tuned_policy(table, base=base), dev=dev,
+                max_err=max_err)
+            measured.append(measured_summary(
+                label, md, counts, log, ("the record's replay", record_ms)))
+            launches_measured[label] = counts
+            for name, spec in md.engine.sites.items():
+                t = tunables[name]
+                if spec.exec_path != (t.exec_path or "auto") or (
+                        t.block_k is not None and spec.block_k != t.block_k):
+                    fail(f"{label}: site {name} runs exec "
+                         f"{spec.exec_path} block_k {spec.block_k}, not the "
+                         "fitted table's")
+            promoted = [n for n, t in tunables.items()
+                        if n in trace.sites and t.exec_path == "ragged"]
+            print(f"{label}: fitted exec paths promote {promoted or 'no site'}"
+                  " to ragged; replay "
+                  f"{measured[-1]['replay_ms']:.2f} ms against the record's "
+                  f"{record_ms:.2f} ms")
+            if promoted and counts["reuse_matmul_ragged"] <= 0:
+                fail(f"{label}: promoted sites but reuse_matmul_ragged was "
+                     "not launched")
+            del md, params
+    print(json.dumps({"measured_decode": measured, "sweep": sweep,
+                      "break_even": break_even, "fitted": fitted}))
+    return launches_measured
 
 
 def main() -> None:
@@ -1172,10 +1649,10 @@ def main() -> None:
               f"({', '.join(f'{t:.2f}' for t in eager)}), graph replay median "
               f"{med_g:.2f} ms ({', '.join(f'{t:.2f}' for t in graph)}); "
               f"{med_e / med_g:.2f}x")
-        wall_e, busy_e = profile_step(step.run_decode,
-                                      f"{label}: one eager decode step")
-        wall_g, busy_g = profile_step(lambda: step.decode(step.tokens),
-                                      f"{label}: one graph replay")
+        wall_e, busy_e, _ = profile_step(step.run_decode,
+                                         f"{label}: one eager decode step")
+        wall_g, busy_g, _ = profile_step(lambda: step.decode(step.tokens),
+                                         f"{label}: one graph replay")
         # the profiler slows the host and each traced kernel, so the idle
         # share is also read against the unprofiled median step time; the
         # busy time comes from the profiled run and can exceed it slightly,
@@ -1339,6 +1816,11 @@ def main() -> None:
     if launches_int8["reuse_matmul_int8"] <= 0:
         fail("reuse_matmul_int8 was not launched on the int8 split path")
 
+    # ------------------------------- 8. measured decode and the tuning loop
+    phase("8. measured decode on correlated traffic and the tuning loop")
+    launches_measured = measured_decode_phase(cfg, rcfg, dev, graph_rows,
+                                              max_err)
+
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
                      "wkv6_decode": launches_rwkv,
@@ -1348,7 +1830,9 @@ def main() -> None:
         launches = path_launches.get(kn, launches_default)[kn]
         kernels.append({"name": kn, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
-                        "max_abs_err": max_err[kn], **r})
+                        "max_abs_err": max_err[kn], **r,
+                        "launches_measured_decode": {
+                            run: c[kn] for run, c in launches_measured.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))

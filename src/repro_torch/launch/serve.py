@@ -6,7 +6,8 @@
 Prefills each request into its slot lane, runs the shared decode step with
 the reuse engine threaded through every linear site, prints one
 `SensorReport rid=...` line per retired request and the per-site summary at
-the end. `--device` defaults to `cuda`, where the engine runs the Hopper
+the end (and with `--sensor-jsonl PATH` appends the final report's rows to
+PATH, the trace `python -m repro_torch.tune.fit` reads). `--device` defaults to `cuda`, where the engine runs the Hopper
 kernels; on a machine without a card that default fails loudly instead of
 falling back to the CPU. `--device cpu` runs the plain PyTorch versions.
 
@@ -55,6 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--reuse", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sensor-jsonl", default=None,
+                    help="append the final SensorReport rows to this JSONL "
+                    "file")
     ap.add_argument("--tuned-policy", default=None,
                     help="tuned-table JSON (the reference's repro.tune.fit "
                     "output format): per-site tunables, exec paths, budgets")
@@ -76,7 +80,7 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
     `step` is the CompiledStep, whose buffers hold the final state and
     cache. `after_step(step_idx, step)` runs after each decode step, after
     the policy refresh."""
-    for flag in ("tuned_policy", "refresh_every"):
+    for flag in ("sensor_jsonl", "tuned_policy", "refresh_every"):
         if getattr(args, flag) and not args.reuse:
             raise ValueError(f"--{flag.replace('_', '-')} requires --reuse")
     if args.device == "cuda":
@@ -201,6 +205,9 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
     if engine is not None:
         report = engine.sensor_report(rcache)
         print("\n".join(report.summary_lines()))
+        if args.sensor_jsonl:
+            report.write_jsonl(args.sensor_jsonl)
+            print(f"sensor report appended to {args.sensor_jsonl}")
     if len(done) != args.requests:
         raise RuntimeError(f"served {len(done)} of {args.requests} requests")
     return {"done": done, "stats": batcher.stats, "report": report,

@@ -3,13 +3,16 @@
 ``build_report(engine, cache)`` copies each site's counters to the host once
 and reduces them per (site, layer), per site (layers summed) and for the
 whole model; ``slot_telemetry`` reads one serving slot's hit-rate lanes at
-request retirement. Same rows, fields and summary lines as
-`repro.sensor.aggregate` (its JSONL emission waits for a later slice).
+request retirement. ``SensorReport.write_jsonl`` appends one JSON object per
+row — the serving emission format the tuning loop reads
+(`repro_torch.tune.trace`). Same rows, fields, summary lines and JSONL rows
+as `repro.sensor.aggregate`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any
 
 import numpy as np
@@ -17,6 +20,12 @@ import torch
 
 from repro_torch.core.policy import mode_name
 from repro_torch.core.reuse_cache import resolve_exec_path
+
+# Version stamped on every emitted JSONL row (the reference's; the trace
+# loaders of both packages refuse rows they don't understand). v6 rows carry
+# schema_version, site geometry, grid_steps, exec_path, overflow_fallbacks,
+# per-layer modes with budget_occupancy, and sentinel_trips.
+SENSOR_SCHEMA_VERSION = 6
 
 
 @dataclasses.dataclass
@@ -88,6 +97,19 @@ class SiteSensor:
         active = [r for r, s in zip(self.slot_hit_rates, self.slot_steps) if s > 0]
         return float(np.mean(active)) if active else 0.0
 
+    def to_dict(self) -> dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d.update(
+            total_tiles=self.total_tiles,
+            tile_skip_rate=self.tile_skip_rate,
+            total_macs=self.total_macs,
+            mac_skip_rate=self.mac_skip_rate,
+            weight_byte_skip_rate=self.weight_byte_skip_rate,
+            grid_step_skip_rate=self.grid_step_skip_rate,
+            hit_rate=self.hit_rate,
+        )
+        return d
+
 
 @dataclasses.dataclass
 class SensorReport:
@@ -116,6 +138,23 @@ class SensorReport:
                 f"suppressed={s.suppressed_flips} ovf={s.overflow_fallbacks}"
             )
         return lines
+
+    def to_dicts(self) -> list[dict[str, Any]]:
+        """The model row, then the site rows, then the layer rows, each with
+        its kind and the schema version, stamped with the correlation ids
+        when any are set (`repro_torch.obs.events`)."""
+        from repro_torch.obs.events import stamp
+
+        ver = {"schema_version": SENSOR_SCHEMA_VERSION}
+        rows = [dict(self.model, kind="model", **ver)]
+        rows += [dict(s.to_dict(), kind="site", **ver) for s in self.per_site]
+        rows += [dict(s.to_dict(), kind="layer", **ver) for s in self.per_layer]
+        return [stamp(row) for row in rows]
+
+    def write_jsonl(self, path: str, *, mode: str = "a") -> None:
+        with open(path, mode) as f:
+            for row in self.to_dicts():
+                f.write(json.dumps(row) + "\n")
 
 
 def _host(t) -> np.ndarray:

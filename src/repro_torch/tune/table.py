@@ -1,13 +1,20 @@
-"""Tuned-table loading: versioned JSON -> {site: SiteTunables}.
+"""Tuned-table serialization: {site: SiteTunables} ⇄ versioned JSON.
 
-Reads the document `repro.tune.table.save_table` writes (`--tuned-policy` on
-launch/serve.py): schema version, kind, free-form meta, one entry per site.
+The table file is the contract between the offline fitter and the serving
+processes that consume it (`--tuned-policy` on launch/serve.py, `policy=` of
+the measured-decode runner): a flat JSON document, one entry per site, plus
+a schema version and free-form provenance metadata. `save_table` writes the
+file `repro.tune.table.save_table` writes, byte for byte, for equal
+tunables; `load_table` reads either package's. Unknown sites in the table
+are harmless — `ReusePolicy.resolve` only consults entries for sites the
+engine registers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Any
 
 from repro_torch.core.policy import ReusePolicy, SiteTunables
 
@@ -17,6 +24,23 @@ TUNED_TABLE_KIND = "reuse_tuned_table"
 
 class TableSchemaError(ValueError):
     pass
+
+
+def save_table(
+    path: str,
+    tunables: dict[str, SiteTunables],
+    *,
+    meta: dict[str, Any] | None = None,
+) -> None:
+    doc = {
+        "schema_version": TUNED_TABLE_SCHEMA_VERSION,
+        "kind": TUNED_TABLE_KIND,
+        "meta": meta or {},
+        "sites": {name: t.to_dict() for name, t in sorted(tunables.items())},
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=2, sort_keys=True)
+        f.write("\n")
 
 
 def load_table(path: str) -> dict[str, SiteTunables]:

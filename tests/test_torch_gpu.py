@@ -30,8 +30,16 @@ from repro_torch.kernels.reuse_matmul_ragged import (
 from repro_torch.kernels.wkv6_decode import wkv6_decode, wkv6_decode_torch
 from repro_torch.launch import serve as tserve_cli
 from repro_torch.models import init_params
+from repro_torch.sensor.runner import run_measured_decode
 from repro_torch.serve.compiled_step import CompiledStep
 from repro_torch.serve.serve_step import build_reuse_engine, init_serve_state
+from repro_torch.tune import (
+    FitConfig,
+    fit_trace,
+    load_trace,
+    load_tuned_policy,
+    save_table,
+)
 
 # f32 GEMMs as tests/test_kernels.py: the same products summed in another order
 RTOL, ATOL = 1e-5, 1e-4
@@ -589,3 +597,131 @@ def test_failed_capture_raises_on_card(card, monkeypatch):
         step.decode(torch.ones((2, 1), dtype=torch.int32, device=card))
     torch.cuda.synchronize()
     assert step.captures == 1 and step.decode_key() not in step.variants
+
+
+# ------------------------------- measured decode, the sweep and the tuning loop
+
+def _measured(card, arch, graphs, policy=None, steps=6):
+    """A reduced bf16 model's measured decode on the correlated stream: the
+    report rows, launch counts, final reuse cache and decode state, and the
+    run."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="bfloat16")
+    backend.reset_launches()
+    md = run_measured_decode(arch, steps=steps, batch=2, correlation=0.95,
+                             device=card, cfg=cfg, policy=policy,
+                             graphs=graphs)
+    torch.cuda.synchronize()
+    return (md.report.to_dicts(), backend.launch_counts(),
+            _tensor_leaves(md.cache) + _tensor_leaves(md.step.state), md)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b"])
+def test_measured_decode_graphs_match_eager_on_card(card, arch):
+    """The runner through CUDA graphs is bitwise its eager run: JSONL rows,
+    launch counts, the final reuse cache and decode state; one decode
+    variant is captured and replayed for the rest of the stream."""
+    rows_e, counts_e, tensors_e, _ = _measured(card, arch, graphs=False)
+    rows_g, counts_g, tensors_g, md = _measured(card, arch, graphs=True)
+    assert rows_e == rows_g and counts_e == counts_g
+    assert all(torch.equal(a, b) for a, b in zip(tensors_e, tensors_g))
+    assert counts_g["delta_quant"] > 0 and counts_g["reuse_matmul_output"] > 0
+    assert md.step.graphs and md.step.captures == 1
+    if arch == "qwen3-32b":  # layer 0's attn_qkv sees the anchor again
+        assert md.report.per_layer[0].skipped_tiles > 0
+    backend.reset_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skip", [0.0, 0.25, 0.5, 0.75, 0.9])
+@pytest.mark.parametrize("dataflow", ["output", "input"])
+def test_sweep_kernels_match_plain_on_card(card, skip, dataflow):
+    """The skip sweep's calls: the masked kernel and the ragged kernel (its
+    live counts within `ReusePolicy.ragged_budget`) against their plain
+    versions at each swept skip, bf16, M = 8."""
+    gen = torch.Generator(device=card).manual_seed(int(skip * 100))
+    m, k, n = 8, 2048, 512
+    gk = k // 256
+    mask = input_mask(skip, 1, gk, gen, card)
+    em = mask.repeat_interleave(8, 0).repeat_interleave(256, 1)
+    delta = (torch.randn((m, k), generator=gen, device=card) * em).to(BF16)
+    w = (torch.randn((k, n), generator=gen, device=card) / 45).to(BF16)
+    prev = torch.randn((m, n), generator=gen, device=card)
+    idx, counts = compact_rows(mask)
+    budget = ReusePolicy.ragged_budget(gk, skip)
+    assert int(ops.budget_overflow(counts, gk=gk, max_active_k=budget)) == 0
+    want = reuse_matmul_torch(delta, w, prev, mask, block_m=8, block_k=256)
+    got = reuse_matmul(delta, w, prev, mask, block_m=8, block_n=128,
+                       block_k=256, dataflow=dataflow)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    plain = reuse_matmul_ragged_torch(delta, w, prev, counts, idx, block_m=8,
+                                      block_n=128, block_k=256)
+    got = reuse_matmul_ragged(delta, w, prev, counts, idx, block_m=8,
+                              block_n=128, block_k=256)
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_k", [64, 128, 256, 512])
+def test_fitted_block_k_choices_on_card(card, block_k):
+    """Every block_k the fitter may pick (`BLOCK_K_CHOICES`) at a serve
+    width: delta_quant bitwise, the masked and ragged kernels within the
+    bf16 GEMM tolerance."""
+    gen = torch.Generator(device=card).manual_seed(block_k)
+    m, k, n = 8, 5120, 1024
+    x = torch.randn((m, k), generator=gen, device=card).to(BF16)
+    prev_q = torch.randint(-127, 128, (m, k), generator=gen,
+                           device=card).to(torch.int8)
+    scale = torch.tensor(0.05, device=card)
+    got = delta_quant(x, prev_q, scale, block_m=8, block_k=block_k)
+    want = delta_quant_torch(x, prev_q, scale, block_m=8, block_k=block_k)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    mask = input_mask(0.5, 1, k // block_k, gen, card)
+    em = mask.repeat_interleave(8, 0).repeat_interleave(block_k, 1)
+    delta = (torch.randn((m, k), generator=gen, device=card) * em).to(BF16)
+    w = (torch.randn((k, n), generator=gen, device=card) / 70).to(BF16)
+    prev = torch.randn((m, n), generator=gen, device=card)
+    want = reuse_matmul_torch(delta, w, prev, mask, block_m=8,
+                              block_k=block_k)
+    for dataflow in ("output", "input"):
+        got = reuse_matmul(delta, w, prev, mask, block_m=8, block_n=128,
+                           block_k=block_k, dataflow=dataflow)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    idx, counts = compact_rows(mask)
+    got = reuse_matmul_ragged(delta, w, prev, counts, idx, block_m=8,
+                              block_n=128, block_k=block_k)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_fitted_ragged_table_captures_and_replays_on_card(card, tmp_path):
+    """Record → fit → exploit on the card: a table fitted for the kernel
+    tier with a gate of 0 promotes sites to ragged; the exploit run's decode
+    key carries the promoted specs, is captured once and replayed for the
+    rest of the stream, launches the ragged kernel, and is bitwise its
+    eager run."""
+    *_, record = _measured(card, "qwen3-32b", graphs=True)
+    trace = str(tmp_path / "trace.jsonl")
+    record.report.write_jsonl(trace)
+    tunables = fit_trace(load_trace(trace),
+                         FitConfig(pallas_target=True, ragged_min_skip=0.0))
+    promoted = [n for n, t in tunables.items() if t.exec_path == "ragged"]
+    assert promoted
+    table = str(tmp_path / "tuned.json")
+    save_table(table, tunables)
+    rows_e, counts_e, tensors_e, _ = _measured(
+        card, "qwen3-32b", graphs=False, policy=load_tuned_policy(table))
+    rows_g, counts_g, tensors_g, md = _measured(
+        card, "qwen3-32b", graphs=True, policy=load_tuned_policy(table))
+    assert rows_e == rows_g and counts_e == counts_g
+    assert all(torch.equal(a, b) for a, b in zip(tensors_e, tensors_g))
+    assert counts_g["reuse_matmul_ragged"] > 0
+    (key,) = [k for k in md.step.variants if k[0] == "decode"]
+    specs = dict(key[1])
+    assert all(specs[n].exec_path == "ragged" for n in promoted)
+    assert md.step.captures == 1 and md.steps > md.step.captures
+    assert {r["site"]: r["exec_path"] for r in rows_g
+            if r["kind"] == "site"}.items() >= {n: "ragged"
+                                                for n in promoted}.items()
+    backend.reset_launches()
