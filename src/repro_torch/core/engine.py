@@ -12,7 +12,13 @@
 * `refresh_modes(cache)` / `refresh_exec_paths(cache)` are the host passes
   between steps, fed by ONE device→host transfer (`ctrl_snapshot`); mode
   flips are writes to the ctrl lane and its mirror, exec-path flips are
-  spec changes and are returned.
+  spec changes and are returned;
+* `layer_modes` / `site_mode` / `mode_summary` read the mode mirror, and
+  `set_budget` re-points a compacted site's budget (the control plane's
+  write paths, `repro_torch.control`).
+
+Every write goes into the existing tensors (`copy_`, indexed assignment):
+a captured CUDA graph reads the tensors it was captured on.
 
 Unsharded only: the reference's model-axis sharding, its ICI accounting and
 the guard plane's sentinel lanes come with later slices.
@@ -90,6 +96,9 @@ class ReuseEngine:
     exec_cooldown: dict[str, int] = dataclasses.field(default_factory=dict)
     last_mode_events: list[dict] = dataclasses.field(default_factory=list)
     last_snapshot: dict[str, Any] | None = None
+    # the reference's per-site model-axis shard counts; stays empty until
+    # sharded serving is ported, so callers take their unsharded paths
+    shards: dict[str, int] = dataclasses.field(default_factory=dict)
 
     def register(
         self,
@@ -165,6 +174,29 @@ class ReuseEngine:
         mode = spec.mode if spec.mode in ("reuse", "basic") else None
         return reuse_linear(x, w, b, cache_entry, spec, mode=mode,
                             impl=self.impl)
+
+    # ------------------------------------------------ ctrl-block interrogation
+    # The mode helpers read the host mirror: the control plane asks for every
+    # site on every interval, and a read of the device lane is one sync each.
+
+    @staticmethod
+    def entry_mode_ids(entry: dict[str, Any]) -> np.ndarray:
+        """A site's per-layer mode ids as a 1-d host array ([1] unstacked)."""
+        return np.atleast_1d(np.asarray(entry["mode_host"]))
+
+    def layer_modes(self, cache: dict[str, Any], name: str) -> list[str]:
+        return [mode_name(m) for m in self.entry_mode_ids(cache[name])]
+
+    def site_mode(self, cache: dict[str, Any], name: str) -> str:
+        """One site's kernelMode summary: "reuse"/"basic" when uniform over
+        layers, "mixed" when a stack settled distinct per-layer modes."""
+        ids = self.entry_mode_ids(cache[name])
+        if np.all(ids == ids[0]):
+            return mode_name(ids[0])
+        return "mixed"
+
+    def mode_summary(self, cache: dict[str, Any]) -> dict[str, str]:
+        return {name: self.site_mode(cache, name) for name in self.sites}
 
     # ------------------------------------------------------- kernelMode writes
 
@@ -250,6 +282,26 @@ class ReuseEngine:
         mw = torch.tensor([t.min_work_flops for t in ts], dtype=torch.float32)
         ctrl["sim_threshold"].copy_(thr.reshape(ctrl["sim_threshold"].shape))
         ctrl["min_work"].copy_(mw.reshape(ctrl["min_work"].shape))
+
+    def set_budget(self, name: str, budget: int) -> bool:
+        """Re-point a compacted site's k-extent budget (the online budget
+        adapter's write path), keeping the policy table in sync so the next
+        exec-path refresh or retune does not revert it. Site-granular, as
+        in the reference. Returns True when the spec changed. The ragged
+        kernel walks the live counts, so a new budget changes the decode key
+        and the accounting (`ops.ragged_grid_steps`, `ops.budget_overflow`),
+        not the device work."""
+        spec = self.sites[name]
+        if spec.exec_path not in ("ragged", "compact"):
+            return False
+        gk = -(-spec.in_features // spec.block_k)
+        budget = clamp_budget(int(budget), gk)
+        if budget == spec.max_active_k:
+            return False
+        self.sites[name] = dataclasses.replace(spec, max_active_k=budget)
+        self.policy.site_tunables[name] = dataclasses.replace(
+            self.policy.resolve(name), max_active_k=budget)
+        return True
 
     # -------------------------------------------------- host-side policy pass
 

@@ -46,6 +46,14 @@ def layer_key(site: str, layer: int) -> str:
     return f"{site}@{layer}"
 
 
+def split_layer_key(key: str) -> tuple[str, int | None]:
+    """Inverse of :func:`layer_key`: ("site", layer) or ("site", None)."""
+    site, sep, layer = key.rpartition("@")
+    if sep and layer.isdigit():
+        return site, int(layer)
+    return key, None
+
+
 @dataclasses.dataclass(frozen=True)
 class SiteTunables:
     """Per-site policy knobs; `block_k=None` keeps the registration default."""
@@ -100,6 +108,29 @@ class ReusePolicy:
             hysteresis_margin=self.hysteresis_margin,
             hysteresis_steps=self.hysteresis_steps,
         )
+
+    def decide_mode(
+        self,
+        spec: ReuseSiteSpec,
+        sim_ema: float,
+        *,
+        current_mode: str | None = None,
+    ) -> str:
+        """kernelMode of one site from its site row. With `current_mode` the
+        comparison is hysteretic: the signal must cross the threshold by
+        `hysteresis_margin` before the decision leaves the current mode."""
+        if spec.mode in ("reuse", "basic"):
+            return spec.mode
+        t = self.resolve(spec.name)
+        work = 2.0 * spec.in_features * spec.out_features
+        if work < t.min_work_flops:
+            return "basic"
+        threshold = t.sim_threshold
+        if current_mode == "reuse":
+            threshold -= t.hysteresis_margin
+        elif current_mode == "basic":
+            threshold += t.hysteresis_margin
+        return "reuse" if sim_ema >= threshold else "basic"
 
     def decide_modes(
         self,

@@ -39,15 +39,24 @@ class ReuseStats(NamedTuple):
     skip_fraction: torch.Tensor  # fraction of weight tiles skipped this call
 
 
+def basic_product(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xq @ w with an f32 result, the reference's basic-mode product
+    (preferred_element_type=f32), which sits outside any reuse kernel. On
+    the card a bf16 pair is one bf16 product with an f32 output, so the
+    weight is never widened; elsewhere (the CPU twin, f32 models) both
+    operands are taken to f32."""
+    if xq.is_cuda and xq.dtype == w.dtype == torch.bfloat16:
+        return torch.mm(xq, w, out_dtype=torch.float32)
+    return xq.float() @ w.float()
+
+
 def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float):
     """ReuseOFF: the plain quantized GEMM, with the cache refreshed."""
     m, k = xm.shape
     n = w.shape[-1]
     cur_q = quantize_int8(xm, cache["scale"])
     xq = dequantize_int8(cur_q, cache["scale"], dtype=xm.dtype)
-    # the basic-mode GEMM sits outside any reuse kernel; the product keeps
-    # the reference's f32 result (preferred_element_type=f32)
-    out = xq.float() @ w.float()
+    out = basic_product(xq, w)
     matches = row_code_matches(cur_q, cache["prev_q"])
     cache["prev_q"].copy_(cur_q)
     cache["prev_out"].copy_(out)

@@ -11,6 +11,15 @@ PATH, the trace `python -m repro_torch.tune.fit` reads). `--device` defaults to 
 kernels; on a machine without a card that default fails loudly instead of
 falling back to the CPU. `--device cpu` runs the plain PyTorch versions.
 
+`--control-every N` runs the online control plane (`repro_torch.control`)
+every N decode steps: live per-site retuning, budget adaptation from the
+measured overflow fallbacks, and the learned per-session admission
+predictor, which places requests (`--control-journal PATH` appends every
+decision to PATH; `python -m repro_torch.control.replay PATH` re-drives it).
+`--affinity` without the controller places requests by a synthetic
+prediction. The guard plane that the reference attaches to the controller
+is not ported yet: the controller runs without it.
+
 The steps go through `serve/compiled_step.CompiledStep`: on the card each
 prefill shape and each decode operating point (spec and mode signature) is
 captured once as a CUDA graph over static buffers and replayed after;
@@ -32,9 +41,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.policy import ReusePolicy
 from repro_torch.core.reuse_cache import cache_bytes
 from repro_torch.kernels import backend
 from repro_torch.models import init_params
+from repro_torch.obs import events
 from repro_torch.sensor.aggregate import slot_telemetry
 from repro_torch.serve.compiled_step import CompiledStep, summary_line
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, reset_slot
@@ -64,7 +75,19 @@ def build_parser() -> argparse.ArgumentParser:
                     "output format): per-site tunables, exec paths, budgets")
     ap.add_argument("--refresh-every", type=int, default=0,
                     help="re-run the host-side mode/exec-path policy every N "
-                    "decode steps (0 = keep registration-time modes)")
+                    "decode steps (0 = keep registration-time modes); "
+                    "superseded by --control-every")
+    ap.add_argument("--affinity", action="store_true",
+                    help="place requests on slots by predicted stream "
+                    "similarity instead of first-free")
+    ap.add_argument("--control-every", type=int, default=0,
+                    help="run the online control plane every N decode steps: "
+                    "live per-site retuning, overflow-driven budget "
+                    "adaptation and learned per-session admission; it runs "
+                    "the mode refresh itself")
+    ap.add_argument("--control-journal", default=None,
+                    help="append the controller's decision journal (JSONL) "
+                    "to this path for audit/replay")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs; cuda runs the Hopper kernels")
     ap.add_argument("--eager", action="store_true",
@@ -76,13 +99,22 @@ def build_parser() -> argparse.ArgumentParser:
 def run(cfg: ModelConfig, args: argparse.Namespace, *,
         after_step: Callable | None = None) -> dict:
     """Serve `args.requests` random-prompt requests on `cfg`. Returns
-    {"done", "stats", "report", "engine", "rcache", "step", "seconds"}:
-    `step` is the CompiledStep, whose buffers hold the final state and
-    cache. `after_step(step_idx, step)` runs after each decode step, after
-    the policy refresh."""
-    for flag in ("sensor_jsonl", "tuned_policy", "refresh_every"):
+    {"done", "stats", "report", "engine", "rcache", "step", "seconds",
+    "controller"}: `step` is the CompiledStep, whose buffers hold the final
+    state and cache; `controller` is the control plane's Controller (None
+    without `--control-every`). `after_step(step_idx, step)` runs after each
+    decode step, after the policy refresh or the control interval."""
+    # the reference's argument errors, with its messages
+    for flag in ("sensor_jsonl", "tuned_policy", "refresh_every", "affinity",
+                 "control_every", "control_journal"):
         if getattr(args, flag) and not args.reuse:
             raise ValueError(f"--{flag.replace('_', '-')} requires --reuse")
+    if args.control_journal and not args.control_every:
+        raise ValueError("--control-journal requires --control-every")
+    if args.control_every and args.refresh_every:
+        print("--control-every supersedes --refresh-every "
+              "(the controller runs the mode refresh itself)")
+        args.refresh_every = 0
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -120,6 +152,41 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
             print(f"  site {name}: {spec.in_features}x{spec.out_features} "
                   f"dataflow={spec.dataflow} exec={spec.exec_path}{budget} "
                   f"block_k={spec.block_k}")
+        if args.tuned_policy:
+            # tuned-vs-default delta: each site probed at full similarity
+            # (the min-work admission decision), and the knobs that moved
+            # off the global constants
+            default = ReusePolicy()
+            for name, spec in engine.sites.items():
+                t = engine.policy.resolve(name)
+                d_mode = default.decide_mode(spec, 1.0)
+                t_mode = engine.policy.decide_mode(spec, 1.0)
+                if (d_mode != t_mode
+                        or abs(t.sim_threshold - default.sim_threshold) > 1e-9
+                        or t.block_k is not None or t.exec_path is not None):
+                    budget = (f"@{spec.max_active_k}"
+                              if spec.max_active_k is not None else "")
+                    print(f"  tuned delta {name}: mode@sim=1 {d_mode}->"
+                          f"{t_mode} thr={t.sim_threshold:.3f} "
+                          f"block_k={spec.block_k} "
+                          f"exec={spec.exec_path}{budget}")
+
+    # Learned admission and the online control plane: one shared journal;
+    # the predictor learns per-session similarity from retirement telemetry
+    predictor = controller = None
+    if args.control_every > 0:
+        from repro_torch.control import (
+            AdmissionPredictor,
+            ControlConfig,
+            Controller,
+            DecisionJournal,
+        )
+
+        journal = (DecisionJournal(args.control_journal)
+                   if args.control_journal else None)
+        predictor = AdmissionPredictor()
+        controller = Controller(ControlConfig(), admission=predictor,
+                                journal=journal)
 
     step = CompiledStep(params, cfg, state, batch=args.batch_slots,
                         engine=engine, rcache=rcache,
@@ -144,23 +211,49 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    telemetry_fn = on_retire = on_step = None
+    # Lane similarity for --affinity without the controller: the hit rate
+    # of the last stream that retired from the lane, snapshotted before the
+    # lane is reset (with the controller, predictor.lane_character is it)
+    lane_sim: dict[int, float] = {}
+    telemetry_fn = on_retire = on_step = slot_sim_fn = None
     if engine is not None:
         def telemetry_fn(slot):
             return slot_telemetry(engine, rcache, slot)
 
         def on_retire(req):
             t = req.telemetry
+            if predictor is None:
+                lane_sim[req.slot] = t["hit_rate"]
+            else:
+                # learn BEFORE the reset clears the slot binding
+                predictor.observe_retirement(req)
             print(f"SensorReport rid={req.rid} slot={t['slot']} "
                   f"steps={t['steps']} hit_rate={t['hit_rate']:.3f} "
                   f"sites={t['n_sites']}")
-            reset_slot(rcache, req.slot)
+            reset_slot(rcache, req.slot, admission=predictor)
+
+        if args.affinity:
+            def slot_sim_fn(slot):
+                return lane_sim.get(slot, 0.0)
+
+    predict_sim_fn = on_place = None
+    if controller is not None:
+        predict_sim_fn = predictor.predict
+        slot_sim_fn = predictor.slot_affinity
+        on_place = predictor.on_placed
 
     refreshing = engine is not None and args.refresh_every > 0
-    if refreshing or after_step is not None:
+    if refreshing or controller is not None or after_step is not None:
         def on_step(step_idx):
-            # mode and exec-path flips change the decode key: the next step
-            # captures a new variant, or replays the one of a known key
+            # spec changes and mode flips change the decode key: the next
+            # step captures a new variant, or replays the one of a known key
+            if controller is not None and step_idx % args.control_every == 0:
+                # the window id joins this interval's journal rows with the
+                # records emitted while it was open
+                with events.context(window=step_idx):
+                    rep = controller.step(engine, rcache, step=step_idx)
+                if rep.decisions:
+                    print("\n".join(rep.summary_lines()))
             if refreshing and step_idx % args.refresh_every == 0:
                 changed = engine.refresh_modes(rcache)
                 if engine.last_mode_events:
@@ -183,7 +276,10 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         max_steps=args.requests * args.max_new + 8,
         telemetry_fn=telemetry_fn,
         on_retire=on_retire,
+        slot_sim_fn=slot_sim_fn,
         on_step=on_step,
+        predict_sim_fn=predict_sim_fn,
+        on_place=on_place,
     )
     for i in range(args.requests):
         batcher.submit(Request(
@@ -191,6 +287,12 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
             prompt=rng.integers(0, cfg.vocab, size=(args.prompt_len,),
                                 dtype=np.int32),
             max_new_tokens=args.max_new,
+            # without the controller, a synthetic prediction: traffic
+            # alternates sticky-looking and one-shot-looking streams
+            predicted_sim=(0.8 if i % 2 == 0 else 0.2)
+            if (args.affinity and controller is None) else None,
+            # two session classes for the learned predictor
+            session=f"sess-{i % 2}" if controller is not None else None,
         ))
     t0 = time.perf_counter()
     done = batcher.run()
@@ -208,10 +310,18 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         if args.sensor_jsonl:
             report.write_jsonl(args.sensor_jsonl)
             print(f"sensor report appended to {args.sensor_jsonl}")
+    if controller is not None:
+        n_dec = sum(len(r.decisions) for r in controller.reports)
+        print(f"control plane: {len(controller.reports)} intervals, "
+              f"{n_dec} decisions, admission {predictor.stats()}")
+        if controller.journal is not None:
+            print(f"decision journal: {controller.journal.rows_written} rows "
+                  f"-> {controller.journal.path}")
     if len(done) != args.requests:
         raise RuntimeError(f"served {len(done)} of {args.requests} requests")
     return {"done": done, "stats": batcher.stats, "report": report,
-            "engine": engine, "rcache": rcache, "step": step, "seconds": dt}
+            "engine": engine, "rcache": rcache, "step": step, "seconds": dt,
+            "controller": controller}
 
 
 def main(argv=None) -> None:

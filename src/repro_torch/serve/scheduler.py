@@ -6,6 +6,11 @@ their token limit. The reuse caches are slot-aligned, so a recycled slot's
 reuse lane is reset (`reset_slot`): a fresh stream must not delta against the
 previous occupant, and the engine's cold start (reuse == quantized dense on
 the first step) makes that safe.
+
+Placement is first-free, or, with a lane-similarity hook and a prediction
+for the request (its own `predicted_sim`, else the batcher's
+`predict_sim_fn`, the learned admission predictor of `repro_torch.control`),
+the free slot whose lane history is closest to the prediction.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.obs import events
+
 
 @dataclasses.dataclass
 class Request:
@@ -23,6 +30,14 @@ class Request:
     prompt: np.ndarray            # [S] int32
     max_new_tokens: int = 16
     eos_id: int = -1              # -1: run to max_new_tokens
+    # Predicted stream similarity in [0, 1] (a session-level prior). When
+    # set, and the batcher has a slot_sim_fn, admission places the request on
+    # the free slot whose lane history matches best. Left None, the batcher's
+    # `predict_sim_fn` (the learned admission predictor) supplies it.
+    predicted_sim: float | None = None
+    # Session identity for the learned admission predictor: requests sharing
+    # a session share a similarity estimate. None = per-request (rid) keying.
+    session: object = None
     # filled by the scheduler
     output: list = dataclasses.field(default_factory=list)
     slot: int = -1
@@ -30,10 +45,19 @@ class Request:
     telemetry: dict | None = None
 
 
-def reset_slot(reuse_cache: dict | None, slot: int) -> dict | None:
+def reset_slot(
+    reuse_cache: dict | None, slot: int, *, admission=None
+) -> dict | None:
     """Zero one slot's reuse lane across all sites, IN PLACE: prev_q,
     prev_out, the per-slot sim_ema lane and the sensor's per-slot hit-rate
-    lanes. Returns the same cache."""
+    lanes. Returns the same cache.
+
+    `admission` (an AdmissionPredictor, or anything with `.reset_slot(slot)`)
+    gets its per-slot occupant state cleared in the same pass, also when
+    there is no reuse cache: a new session must not inherit the previous
+    occupant's similarity estimate."""
+    if admission is not None:
+        admission.reset_slot(slot)
     if reuse_cache is None:
         return None
     for entry in reuse_cache.values():
@@ -57,7 +81,10 @@ class ContinuousBatcher:
         max_steps: int = 512,
         telemetry_fn: Callable | None = None,  # (slot) -> dict, at retirement
         on_retire: Callable | None = None,     # (Request) -> None
+        slot_sim_fn: Callable | None = None,   # (slot) -> lane similarity
         on_step: Callable | None = None,       # (step_idx) -> None, post-decode
+        predict_sim_fn: Callable | None = None,  # (Request) -> predicted sim
+        on_place: Callable | None = None,      # (Request) -> None, post-admit
     ):
         self.batch_slots = batch_slots
         self.prefill_fn = prefill_fn
@@ -65,26 +92,55 @@ class ContinuousBatcher:
         self.max_steps = max_steps
         self.telemetry_fn = telemetry_fn
         self.on_retire = on_retire
+        self.slot_sim_fn = slot_sim_fn
         self.on_step = on_step
+        self.predict_sim_fn = predict_sim_fn
+        self.on_place = on_place
         self.queue: deque[Request] = deque()
         self.active: dict[int, Request] = {}
         self.free_slots = list(range(batch_slots))
         self.completed: list[Request] = []
-        self.stats = {"steps": 0, "prefills": 0, "emitted_tokens": 0}
+        self.stats = {"steps": 0, "prefills": 0, "emitted_tokens": 0,
+                      "affinity_placements": 0}
         self._cur: np.ndarray | None = None
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
 
+    def _pick_slot(self, req: Request) -> int:
+        """Slot for an incoming request: first-free, or with a slot_sim_fn
+        and a prediction for the request, the free slot whose lane history
+        is closest to the prediction (similarity-alike streams on the same
+        lanes keep the per-slot sim_ema the policy reads stable)."""
+        pred = req.predicted_sim
+        if pred is None and self.predict_sim_fn is not None:
+            pred = float(self.predict_sim_fn(req))
+        if (
+            pred is None
+            or self.slot_sim_fn is None
+            or len(self.free_slots) == 1
+        ):
+            return self.free_slots.pop()
+        slot = min(
+            self.free_slots,
+            key=lambda s: abs(float(self.slot_sim_fn(s)) - pred),
+        )
+        self.free_slots.remove(slot)
+        self.stats["affinity_placements"] += 1
+        return slot
+
     def _admit(self) -> None:
         while self.queue and self.free_slots:
             req = self.queue.popleft()
-            # similarity-affinity placement comes with the control slice
-            slot = self.free_slots.pop()
+            slot = self._pick_slot(req)
             req.slot = slot
-            # The observability slice adds the reference's "prefill" span and
-            # request/session/slot event context around this call.
-            first = self.prefill_fn(req.prompt[None, :], slot)
+            if self.on_place is not None:
+                self.on_place(req)
+            # everything the prefill emits carries the request's identity.
+            # The observability slice adds the reference's "prefill" span.
+            with events.context(request=req.rid, session=req.session,
+                                slot=slot):
+                first = self.prefill_fn(req.prompt[None, :], slot)
             req.output.append(int(first))
             self.active[slot] = req
             self.stats["prefills"] += 1
@@ -93,13 +149,15 @@ class ContinuousBatcher:
         req = self.active.pop(slot)
         req.done = True
         # telemetry is snapshotted BEFORE the slot is freed (the next
-        # occupant's prefill resets its lanes)
-        if self.telemetry_fn is not None:
-            req.telemetry = self.telemetry_fn(slot)
-        self.completed.append(req)
-        self.free_slots.append(slot)
-        if self.on_retire is not None:
-            self.on_retire(req)
+        # occupant's prefill resets its lanes); retirement work is stamped
+        # with the departing request's identity
+        with events.context(request=req.rid, session=req.session, slot=slot):
+            if self.telemetry_fn is not None:
+                req.telemetry = self.telemetry_fn(slot)
+            self.completed.append(req)
+            self.free_slots.append(slot)
+            if self.on_retire is not None:
+                self.on_retire(req)
 
     def step_once(self) -> bool:
         """Admit waiting requests and run ONE shared decode step. Returns

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.control import ControlConfig, Controller
 from repro_torch.core.delta import compact_rows, delta_encode_int8
 from repro_torch.core.policy import ReusePolicy, SiteTunables
+from repro_torch.core.reuse_linear import basic_product
 from repro_torch.kernels import backend, ops
 from repro_torch.kernels.delta_quant import (
     delta_quant,
@@ -725,3 +727,108 @@ def test_fitted_ragged_table_captures_and_replays_on_card(card, tmp_path):
             if r["kind"] == "site"}.items() >= {n: "ragged"
                                                 for n in promoted}.items()
     backend.reset_launches()
+
+
+# ------------------------------------------------------ the online control plane
+
+def _controlled(card, arch, graphs, monkeypatch, n_layers=None, profile_at=0):
+    """A reduced bf16 model's measured decode on the reference's acceptance
+    stream for the control plane (batch 2, correlation 1.0, 26 steps, a
+    burst at 19-22) with the Controller every 2 steps. Returns (journal
+    rows without `ts`, greedy tokens, launch counts, tensors, the run, the
+    controller, the profiled interval's device→host copies)."""
+    from repro_torch.sensor import runner
+
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="bfloat16")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    ctl = Controller(ControlConfig(min_window_steps=2))
+    tokens, dtoh = [], {}
+    greedy = runner.greedy_sample
+    monkeypatch.setattr(runner, "greedy_sample",
+                        lambda logits: tokens.append(greedy(logits))
+                        or tokens[-1])
+
+    def on_step(i, engine, cache):
+        if i % 2:
+            return
+        if i != profile_at:
+            ctl.step(engine, cache, step=i)
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rep = ctl.step(engine, cache, step=i)
+            torch.cuda.synchronize()
+        dtoh["copies"] = sum(1 for e in prof.events()
+                             if "Memcpy DtoH" in e.name)
+        dtoh["windows"] = len(rep.window_steps)
+
+    backend.reset_launches()
+    md = runner.run_measured_decode(
+        arch, steps=26 if not profile_at else profile_at, batch=2,
+        correlation=1.0, burst=(19, 22), on_step=on_step, device=card,
+        cfg=cfg, graphs=graphs)
+    torch.cuda.synchronize()
+    rows = [{k: v for k, v in r.items() if k != "ts"}
+            for rep in ctl.reports for r in rep.to_dicts()]
+    return (rows, torch.cat(tokens).tolist(), backend.launch_counts(),
+            _tensor_leaves(md.cache) + _tensor_leaves(md.step.state), md,
+            ctl, dtoh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b"])
+def test_closed_loop_graphs_match_eager_on_card(card, arch, monkeypatch):
+    """The controlled measured decode through CUDA graphs is bitwise its
+    eager run: journal rows, tokens, launch counts, final reuse cache and
+    decode state, specs; the controller's spec changes and mode flips
+    captured new variants."""
+    rows_e, tok_e, counts_e, tensors_e, md_e, _, _ = _controlled(
+        card, arch, False, monkeypatch)
+    rows_g, tok_g, counts_g, tensors_g, md_g, ctl, _ = _controlled(
+        card, arch, True, monkeypatch)
+    assert rows_e == rows_g and tok_e == tok_g and counts_e == counts_g
+    assert all(torch.equal(a, b) for a, b in zip(tensors_e, tensors_g))
+    assert md_e.engine.sites == md_g.engine.sites
+    assert any(d.kind == "budget" for r in ctl.reports for d in r.decisions)
+    assert md_g.step.captures > 1 and counts_g["delta_quant"] > 0
+    backend.reset_launches()
+
+
+@pytest.mark.gpu
+def test_controller_interval_copies_to_host_once_per_read_on_card(
+        card, monkeypatch):
+    """One Controller.step with windows on every site: the device→host
+    copies (torch.profiler's Memcpy DtoH) do not grow with the number of
+    sites (qwen3 4, rwkv6 8) or layers (2, 4): the counters come in one
+    packed transfer, the ctrl lanes in another."""
+    seen = {}
+    for arch, n_layers in (("qwen3-32b", 2), ("qwen3-32b", 4),
+                           ("rwkv6-7b", 2)):
+        *_, md, _, dtoh = _controlled(card, arch, False, monkeypatch,
+                                      n_layers=n_layers, profile_at=4)
+        assert dtoh["windows"] == len(md.engine.sites)
+        seen[(arch, n_layers)] = dtoh["copies"]
+    assert set(seen.values()) == {2}, seen
+    backend.reset_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 5120, 1024), (8, 2048, 51200),
+                                   (16, 4096, 4096)])
+def test_basic_product_matches_widened_on_card(card, m, k, n):
+    """The basic-mode product on the card, one bf16 product with an f32
+    result, against the widened xq.float() @ w.float(): the same bf16
+    products (exact in f32) summed in another order."""
+    gen = torch.Generator(device=card).manual_seed(k)
+    xq = torch.randn((m, k), generator=gen, device=card).to(BF16)
+    w = (torch.randn((k, n), generator=gen, device=card)
+         / math.sqrt(k)).to(BF16)
+    out = basic_product(xq, w)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, xq.float() @ w.float(), rtol=1e-4,
+                               atol=1e-3)

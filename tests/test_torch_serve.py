@@ -152,6 +152,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the control plane is covered too
+    assert {f.name for f in files if f.parent.name == "control"} >= {
+        "report.py", "admit.py", "budget.py", "retune.py", "controller.py",
+        "replay.py", "__init__.py"}
     bad = []
     for f in files:
         for mod in _imports(f):
