@@ -98,22 +98,60 @@ every phase's failure is fatal (non-zero exit, no result line):
                 counted, a budget decision citing them (printed for rwkv6);
                 prints
                 the decisions, each capture and what moved its key, replay
-                medians by span; (b) phase 4's serve with --control-every 2
+                medians by span; the compiled step's decode variants are
+                bounded (least recently used evicted past the cap): decode
+                variants built, evictions, live variants and live pools
+                against the unbounded baseline (budgets in the key, no
+                cap); an interval whose only spec move is a budget must
+                capture nothing, live pools stay under the cap times the
+                largest decode pool, and qwen3 captures in fewer steps
+                than that baseline's 10; then the guard's
+                cost: the device→host copies of one Controller.step with
+                and without the QuarantineBreaker (exactly one more with
+                it) and the host ms of ctrl_snapshot with the sentinel
+                lanes and without them; (b) phase 4's serve with --control-every 2
                 --control-journal, eager-checked then as graphs, equal
                 tokens, SensorReport lines, journal rows and control-plane
                 line, bitwise final cache; per-layer final modes; (c) the
                 basic-mode product at mlp_in's shape, one bf16 product with
                 an f32 result against the widened form, checked and timed
+  10. guard   — the guard plane (repro_torch.guard): (a) the reference's
+                chaos test at qwen3's mlp_in shape (8 stacked layers, batch
+                2, bf16 weights, integer-valued operands at fixed_scale 1.0
+                so every f32 sum is exact): poison-nan into layer 0 after
+                step 5, the Controller with the breaker every 2 steps, 14
+                steps beside the basic-mode oracle, eagerly with every
+                kernel call checked, then captured as CUDA graphs; bitwise
+                equal runs; the NaN reaches step 6, steps 7-14 finite and
+                bitwise the oracle, the journal chains quarantined ->
+                probation -> active and replays, a run without injection
+                trips nothing, the shadow check passes at that site;
+                (b) phase 4's serve with --control-every 2 and --inject
+                poison-nan into the last layer's mlp_out after step 3,
+                eager-checked then as graphs: equal tokens, journal rows
+                and final cache (bitwise), the trip at step 4 with check
+                nonfinite_out, logits non-finite at step 4 only, the
+                replay CLI OK, the serve without --inject trips nothing;
+                then poison-sim, ctrl-garbage, poison-counters and stall
+                through the graph serve cut to 2 layers, each tripping its
+                own check (sim_range, ctrl_range, conservation, a
+                stall_windows row); (c) the sentinel lanes' cost end to
+                end: the graph serves with --refresh-every 2 and with
+                --control-every 2 at 24 new tokens, the lanes in the
+                breaker's snapshot alone and forced into every snapshot,
+                in turns; the serve's ms a token over the replayed steps,
+                each with the host work after it
 
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
 pools, device busy and idle share), a JSON line of phase 8 (its runs, the
 sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
-closed loops; the controlled serve and the basic-mode product), the kernels
-JSON line (launch counts from the serve runs and the int8 path, and per
-phase 8 and phase 9 run; errors and times from phase 3) and the card's name
-and power limit; the last line is {"ok": true, "device": {...}}. The
-controlled serves' whole output goes to chiprun_out/chip_smoke/.
+closed loops; the controlled serve and the basic-mode product) and of
+phase 10, the kernels JSON line (launch counts from the serve runs and the
+int8 path, and per phase 8, 9 and 10 run; errors and times from phase 3)
+and the card's name and power limit; the last line is {"ok": true,
+"device": {...}}. The controlled and guarded serves' whole output goes to
+chiprun_out/chip_smoke/.
 Exits non-zero when no CUDA device is available, and when the repository's
 package is not beside it.
 """
@@ -397,6 +435,30 @@ class PathCheck:
                                 "serve path")
         self.wkv_strict += strict
         self._note("wkv6_decode", err)
+        return got
+
+
+class PoisonedPathCheck(PathCheck):
+    """PathCheck for a run with an injected NaN (phase 10a): a ΔW GEMM whose
+    prev_out holds the NaN must carry it to exactly the positions where its
+    plain version carries it, and every other element is held to the usual
+    tolerance."""
+
+    def reuse_matmul(self, *args, impl, dataflow, **kw):
+        if bool(torch.isfinite(args[2]).all()):
+            return super().reuse_matmul(*args, impl=impl, dataflow=dataflow,
+                                        **kw)
+        got = self.orig["reuse_matmul"](*args, impl=impl, dataflow=dataflow,
+                                        **kw)
+        want = self.orig["reuse_matmul"](*args, impl="torch",
+                                         dataflow=dataflow, **kw)
+        kname = f"reuse_matmul_{dataflow}"
+        fin = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(got), fin):
+            fail(f"poisoned path: {kname} puts non-finite values elsewhere "
+                 "than its plain version")
+        self._note(kname, close(got[fin], want[fin], GEMM_ATOL, GEMM_RTOL,
+                                f"poisoned path: {kname}"))
         return got
 
 
@@ -1055,6 +1117,10 @@ def measured_decode_phase(cfg, rcfg, dev, graph_rows, max_err) -> dict:
 CONTROL_STEPS, CONTROL_BATCH, CONTROL_BURST = 26, 2, (19, 22)
 CONTROL_SPANS = (("1-10", 1, 10), ("11-18", 11, 18), ("burst 19-22", 19, 22),
                  ("23-26", 23, 26))
+# the closed loop on a compiled step with budgets in the decode key and no
+# cap on live variants: (capture steps, MB of pools), measured on NVIDIA H100
+# 80GB HBM3 at 700.00 W (PERF.md §6)
+UNBOUNDED_BASELINE = {"qwen3-32b": (10, 6944), "rwkv6-7b": (6, 3362)}
 
 
 @contextlib.contextmanager
@@ -1162,10 +1228,12 @@ def control_pair(label, arch, cfg, params, dev, max_err, tmp) -> dict:
                 {"rcache": md.cache, "state": md.step.state}).items()}})
         if how == "timed":
             log, summ, win = got, md.step.summary(), windows
-            # capture seconds and pool bytes only: a Variant holds its graph
-            variants = [(v.seconds, v.pool_bytes)
-                        for k, v in md.step.variants.items()
-                        if k[0] == "decode"]
+            # capture seconds and pool bytes of every decode variant built,
+            # evicted ones included
+            variants = [(sec, pool) for kind, sec, pool in md.step.built
+                        if kind == "decode"]
+            prefill_pool = sum(pool for kind, _, pool in md.step.built
+                               if kind == "prefill")
             engine, cache, report = md.engine, md.cache, md.report
             # the profiled run profiles a replay near step 15 and one in the
             # burst, steps this (equal) run replayed
@@ -1255,10 +1323,34 @@ def control_pair(label, arch, cfg, params, dev, max_err, tmp) -> dict:
             cause[r["step"]]["mode flips"] += 1
     captured = [i + 1 for i, c in enumerate(log["captured"]) if c]
     print(f"{label}: {summary_line(summ)}")
+    budget_only = []
     for i, (sec, pool) in zip(captured, variants):
         why = dict(cause.get(i - 1, {})) if i > 1 else "first step"
+        if isinstance(why, dict) and why and set(why) == {"spec:budget"}:
+            budget_only.append(i)
         print(f"  capture at step {i:2d} ({why}): {sec:.3f} s, pool "
               f"{pool / 1e6:.1f} MB, step {log['ms'][i - 1]:.2f} ms")
+    budget_steps = sorted(s for s, c in cause.items()
+                          if set(c) == {"spec:budget"})
+    base_steps, base_mb = UNBOUNDED_BASELINE[arch]
+    print(f"{label}: against the unbounded baseline ({base_steps} capture "
+          f"steps, {base_mb} MB of pools): {summ['decode']} decode "
+          f"variants built in {len(captured)} capture steps, "
+          f"{summ['evictions']} evictions, {summ['live_decode']} live (cap "
+          f"{summ['decode_cap']}), live pools "
+          f"{summ['live_pool_bytes'] / 1e6:.1f} MB of "
+          f"{summ['pool_bytes'] / 1e6:.1f} MB captured; budget-only "
+          f"intervals at steps {budget_steps} captured nothing")
+    if budget_only:
+        fail(f"{label}: steps {budget_only} captured after intervals whose "
+             "only spec move was a budget")
+    top = max((pool for _, pool in variants), default=0)
+    if summ["live_pool_bytes"] > summ["decode_cap"] * top + prefill_pool:
+        fail(f"{label}: live pools {summ['live_pool_bytes']} bytes over the "
+             f"cap times the largest decode pool ({top} bytes)")
+    if arch == "qwen3-32b" and len(captured) >= base_steps:
+        fail(f"{label}: {len(captured)} capture steps, not fewer than the "
+             f"unbounded baseline's {base_steps}")
     spans = {}
     for name, a, b in CONTROL_SPANS:
         ts = [log["ms"][i - 1] for i in range(a, b + 1)
@@ -1282,6 +1374,9 @@ def control_pair(label, arch, cfg, params, dev, max_err, tmp) -> dict:
             "variants": summ["variants"], "captures": summ["captures"],
             "capture_s": summ["capture_s"],
             "pool_mb": summ["pool_bytes"] / 1e6,
+            "live_decode": summ["live_decode"], "evictions": summ["evictions"],
+            "live_pool_mb": summ["live_pool_bytes"] / 1e6,
+            "budget_only_steps": budget_steps,
             "captured_steps": captured, "span_ms": spans,
             "steps_ms": log["ms"], "profiles": prof,
             "launches": dict(want["counts"])}
@@ -1397,11 +1492,515 @@ def control_loop_phase(cfg, rcfg, dev, max_err) -> dict:
             print(f"--- {label}")
             params = init_params(mcfg, MEASURED_SEED, device=dev)
             row = control_pair(label, arch, mcfg, params, dev, max_err, tmp)
+            row["guard_cost"] = guard_cost(
+                f"{arch} {mcfg.n_layers} layers", arch, mcfg, params, dev)
             out.append(row)
             launches[label] = row["launches"]
             del params
     print(json.dumps({"control_loop": out}))
     return launches
+
+
+# phase 10: the guard plane (repro_torch.guard) on the compiled step. (a) the
+# reference's chaos test (tests/test_guard.py::test_chaos_quarantine_e2e_
+# bitwise_recovery) at qwen3's mlp_in shape: 8 stacked layers, batch 2, bf16
+# weights, integer-valued operands at fixed_scale 1.0, so every f32 sum is
+# exact and reuse equals the basic-mode oracle bitwise
+CHAOS_LAYERS, CHAOS_BATCH, CHAOS_K, CHAOS_N = 8, 2, 5120, 51200
+CHAOS_STEPS, CHAOS_INJECT = 14, 5
+# (b) the guarded serve: a NaN into the last layer's mlp_out (it feeds no KV
+# cache) after an odd decode step, so the next step reads it and the control
+# interval after that one (every 2 steps) sees it
+GUARD_INJECT_STEP, GUARD_SITE = 3, "mlp_out"
+GUARD_SCENARIOS = (("poison-sim", 3, "sim_range"),
+                   ("ctrl-garbage", 3, "ctrl_range"),
+                   ("poison-counters", 3, "conservation"),
+                   ("stall", 20, "stall_windows"))
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a float tensor, so NaNs compare equal to themselves."""
+    return t.view({torch.bfloat16: torch.int16, torch.float16: torch.int16,
+                   torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+
+def chaos_engine(mode: str, dev):
+    """The reference test's site at mlp_in's published shape: a permissive
+    policy keeps lanes in reuse (the state a poisoned prev_out persists in);
+    "auto" runs the masked output-stationary kernel, "basic" the oracle."""
+    from repro_torch.core.engine import ReuseEngine
+    from repro_torch.core.policy import ReusePolicy, SiteTunables
+
+    eng = ReuseEngine(policy=ReusePolicy(site_tunables={"mlp_in": SiteTunables(
+        sim_threshold=0.0, min_work_flops=0.0)}), impl="cuda")
+    eng.register("mlp_in", CHAOS_K, CHAOS_N, n_layers=CHAOS_LAYERS,
+                 block_m=BM, block_k=BK, mode=mode)
+    eng.sites["mlp_in"] = dataclasses.replace(eng.sites["mlp_in"],
+                                              fixed_scale=1.0)
+    return eng
+
+
+def chaos_run(dev, w, xs, *, inject: bool, graphs: bool,
+              journal: str | None = None) -> dict:
+    """The chaos run: the guarded engine and the basic-mode oracle each step
+    through a CompiledStep keyed as a decode (captured as CUDA graphs, or
+    run directly), poison-nan into layer 0 after step 5, the Controller with
+    the breaker every 2 steps (the retuner held off by min_window_steps=100).
+    Returns the outputs of both per step and the run's objects."""
+    from repro_torch.control import ControlConfig, Controller, DecisionJournal
+    from repro_torch.guard import FaultInjector, GuardConfig, QuarantineBreaker
+    from repro_torch.serve.compiled_step import CompiledStep
+
+    runs = {}
+    for role, mode in (("guarded", "auto"), ("oracle", "basic")):
+        eng = chaos_engine(mode, dev)
+        cache = eng.init_cache(CHAOS_BATCH, device=dev)
+        step = CompiledStep(
+            None, None, {"len": torch.zeros((), dtype=torch.int32,
+                                            device=dev)},
+            batch=CHAOS_BATCH, engine=eng, rcache=cache, graphs=graphs)
+
+        def fn(eng=eng, cache=cache):
+            return torch.stack([
+                eng.apply("mlp_in", xs[layer], w, None,
+                          eng.layer_view(cache, layer)["mlp_in"])[0]
+                for layer in range(CHAOS_LAYERS)])
+        runs[role] = (eng, cache, step, fn)
+    inj = FaultInjector("poison-nan", at_step=CHAOS_INJECT, layer=0) \
+        if inject else None
+    br = QuarantineBreaker(GuardConfig(quarantine_intervals=1,
+                                       probation_windows=1))
+    ctl = Controller(ControlConfig(min_window_steps=100), guard=br,
+                     journal=DecisionJournal(journal) if journal else None)
+    eng, cache = runs["guarded"][:2]
+    outs = []
+    for t in range(1, CHAOS_STEPS + 1):
+        row = []
+        for role in ("guarded", "oracle"):
+            _, _, step, fn = runs[role]
+            # keyed as CompiledStep.decode: the budget lanes synced, the
+            # decode key (spec and mode signature) picks the variant
+            row.append(step.decode_call(fn).clone())
+        outs.append(row)
+        if inj is not None:
+            inj.on_cache_update(cache, t)
+        if t % 2 == 0:
+            rep = ctl.step(eng, cache, step=t)
+            if rep.changed:
+                fail(f"chaos: the interval at step {t} changed a spec")
+    torch.cuda.synchronize()
+    return {"outs": outs, "eng": eng, "cache": cache, "step": runs[
+        "guarded"][2], "ostep": runs["oracle"][2], "br": br, "ctl": ctl,
+        "inj": inj}
+
+
+def chaos_phase(dev, max_err) -> tuple[dict, dict]:
+    """Phase 10a: the chaos run eagerly with every kernel call held against
+    its plain version, then through CUDA graphs; the graph run equal to the
+    eager one bitwise (outputs per step, journal rows, final cache); the
+    reference test's properties on both; a run without injection trips
+    nothing; the shadow check at the same site. Returns (the row of the
+    JSON line, the graph run's launch counts)."""
+    from repro_torch.control import load_journal, replay_rows
+    from repro_torch.guard import shadow_check
+    from repro_torch.kernels import backend, ops
+    from repro_torch.serve.compiled_step import summary_line
+
+    label = (f"chaos at mlp_in [{CHAOS_BATCH},{CHAOS_K}]x[{CHAOS_K},"
+             f"{CHAOS_N}] bf16, {CHAOS_LAYERS} layers")
+    gen = torch.Generator(device=dev).manual_seed(MEASURED_SEED)
+    w = torch.randint(-2, 3, (CHAOS_K, CHAOS_N), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    xs = torch.randint(-3, 4, (CHAOS_LAYERS, CHAOS_BATCH, CHAOS_K),
+                       generator=gen, device=dev).to(torch.bfloat16)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for how in ("eager", "graph"):
+            backend.reset_launches()
+            journal = os.path.join(tmp, f"{how}.jsonl")
+            with (PoisonedPathCheck(ops) if how == "eager"
+                  else contextlib.nullcontext()) as chk:
+                run = chaos_run(dev, w, xs, inject=True,
+                                graphs=how == "graph", journal=journal)
+            counts = backend.launch_counts()
+            if chk is not None:
+                if chk.checked != counts:
+                    fail(f"{label}: kernel calls checked {chk.checked} != "
+                         f"launches {counts}")
+                for kn, n in chk.checked.items():
+                    if n:
+                        max_err[kn] = max(max_err[kn], chk.max_err[kn])
+            run["rows"] = [{k: v for k, v in r.items() if k != "ts"}
+                           for r in load_journal(journal)]
+            run["counts"] = counts
+            run["tensors"] = tensor_leaves(run["cache"])
+            runs[how] = run
+    eager, graph = runs["eager"], runs["graph"]
+    for t, (a, b) in enumerate(zip(eager["outs"], graph["outs"]), start=1):
+        if not all(bitwise_equal(x, y) for x, y in zip(a, b)):
+            fail(f"{label}: step {t}: the graph run's outputs differ from "
+                 "the eager run's")
+    diff = [k for k, t in eager["tensors"].items()
+            if not bitwise_equal(t, graph["tensors"][k])]
+    if diff or eager["rows"] != graph["rows"] or \
+            eager["counts"] != graph["counts"]:
+        fail(f"{label}: the graph run differs from the eager run (cache "
+             f"{diff[:6]}, journal rows equal {eager['rows'] == graph['rows']}"
+             f", launch counts {graph['counts']} vs {eager['counts']})")
+    for name, run in runs.items():
+        outs = run["outs"]
+        if torch.isfinite(outs[CHAOS_INJECT][0].float()).all():
+            fail(f"{label}: {name}: the poisoned lane never reached step "
+                 f"{CHAOS_INJECT + 1}'s output")
+        for t in range(CHAOS_INJECT + 2, CHAOS_STEPS + 1):
+            got, want = outs[t - 1]
+            if not torch.isfinite(got.float()).all():
+                fail(f"{label}: {name}: step {t} not contained")
+            if not bitwise_equal(got, want):
+                fail(f"{label}: {name}: step {t} differs from the basic-mode "
+                     "oracle")
+    rows = graph["rows"]
+    chain = [(r["before"], r["after"]) for r in rows
+             if r.get("decision_kind") == "quarantine"
+             and r.get("field") == "state" and r.get("layer") == 0]
+    if chain != [("active", "quarantined"), ("quarantined", "probation"),
+                 ("probation", "active")]:
+        fail(f"{label}: the journal chains {chain}")
+    if not replay_rows(rows).ok:
+        fail(f"{label}: the journal does not replay")
+    eng, cache, br = graph["eng"], graph["cache"], graph["br"]
+    if br.lane_states().get(("mlp_in", 0)) != "active" or \
+            eng.layer_modes(cache, "mlp_in")[0] != "reuse" or \
+            int(cache["mlp_in"]["ctrl"]["quarantine"].max()) != 0:
+        fail(f"{label}: the lane was not re-admitted to reuse")
+    summ = graph["step"].summary()
+    print(f"{label}: eager (every kernel call checked) and CUDA-graph runs "
+          f"bitwise equal over {CHAOS_STEPS} steps, journal rows "
+          f"({len(rows)}) and the final cache; the NaN reached step "
+          f"{CHAOS_INJECT + 1}, steps {CHAOS_INJECT + 2}-{CHAOS_STEPS} finite "
+          "and bitwise the basic-mode oracle; journal chain "
+          f"{' -> '.join(['active'] + [b for _, b in chain])}, replays; "
+          f"{br.total_trips} trip(s); launches {dict(graph['counts'])}")
+    print(f"{label}: guarded step: {summary_line(summ)}")
+    counts = dict(graph["counts"])
+    del runs, eager, graph
+    clean = chaos_run(dev, w, xs, inject=False, graphs=True)
+    quarantines = [d for r in clean["ctl"].reports for d in r.decisions
+                   if d.kind == "quarantine"]
+    if clean["br"].total_trips or quarantines:
+        fail(f"{label}: the run without injection tripped "
+             f"{clean['br'].total_trips} time(s)")
+    print(f"{label}: the same run without injection: 0 trips, 0 quarantine "
+          "decisions")
+    ok, detail = shadow_check(clean["eng"], "mlp_in")
+    print(f"{label}: shadow check of the live operating point on the card: "
+          f"{detail}")
+    if not ok:
+        fail(f"{label}: shadow check: {detail}")
+    del clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"run": label, "journal_rows": len(rows), "trips": br.total_trips,
+             "chain": chain, "captures": summ["captures"],
+             "pool_mb": summ["pool_bytes"] / 1e6, "shadow": detail},
+            counts)
+
+
+@contextlib.contextmanager
+def recorded_finite():
+    """Per decode of the run inside it, whether each slot's logits are all
+    finite (kept on the card), from the logits `CompiledStep.decode`
+    returns."""
+    from repro_torch.serve.compiled_step import CompiledStep
+
+    orig = CompiledStep.decode
+    rec = []
+
+    def decode(self, tokens):
+        out = orig(self, tokens)
+        rec.append(torch.isfinite(out).flatten(1).all(1))
+        return out
+
+    CompiledStep.decode = decode
+    try:
+        yield rec
+    finally:
+        CompiledStep.decode = orig
+
+
+def guard_serve_phase(cfg, argv, drive, logdir) -> tuple[dict, dict]:
+    """Phase 10b: `serve.run` on `cfg` with `--control-every 2
+    --control-journal J --inject poison-nan` into the last layer's mlp_out,
+    eagerly with every kernel call checked, then through the graphs: equal
+    tokens, journal rows, SensorReport lines and final cache and state
+    (bitwise); the trip in the first interval after the injection, with
+    check nonfinite_out; logits non-finite at the next step for the
+    poisoned slot and finite from the step after the trip; the journal
+    replays through the CLI; the serve without --inject trips nothing. Then
+    each other cache scenario and the stall through the graph serve cut to
+    2 layers, each tripping its own check. Returns (the row of the JSON
+    line, {run: launch counts})."""
+    from repro_torch.control import load_journal
+    from repro_torch.control import replay as replay_cli
+    from repro_torch.serve.compiled_step import summary_line
+
+    logdir.mkdir(parents=True, exist_ok=True)
+    layer = cfg.n_layers - 1
+    spec = f"poison-nan:at_step={GUARD_INJECT_STEP},site={GUARD_SITE}," \
+           f"layer={layer}"
+    label = f"qwen3 guarded serve --inject {spec}"
+    trip_step = GUARD_INJECT_STEP + 1  # the first interval after it
+    served, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for how in ("eager", "graph", "clean"):
+            print(f"--- {label}: {how} serve")
+            gc.collect()
+            torch.cuda.empty_cache()
+            journal = os.path.join(tmp, f"{how}.jsonl")
+            run_argv = argv + ["--control-every", "2", "--control-journal",
+                               journal]
+            if how != "clean":
+                run_argv += ["--inject", spec]
+            if how == "eager":
+                run_argv += ["--eager"]
+            with recorded_finite() as finite:
+                res, counts, text = drive(
+                    cfg, run_argv, check=how == "eager",
+                    log_to=logdir / f"phase10b_{how}.log",
+                    checker=PoisonedPathCheck)
+            launches[f"guarded serve ({how})"] = counts
+            rows = load_journal(journal)
+            served[how] = dict(
+                outcome(res, text), counts=counts,
+                rows=[{k: v for k, v in r.items() if k != "ts"}
+                      for r in rows],
+                finite=torch.stack(finite).cpu().tolist(),
+                guard=[ln for ln in text.splitlines()
+                       if ln.startswith("guard plane:")],
+                trips=res["breaker"].total_trips,
+                summary=res["step"].summary(),
+                slot0=[(r.rid, len(r.output)) for r in res["done"]
+                       if r.slot == 0])
+            if how == "graph":
+                rc = replay_cli.main([journal])
+                if rc != 0:
+                    fail(f"{label}: `replay {journal}` returned {rc}")
+            del res
+    want, got = served["eager"], served["graph"]
+    for part in ("tokens", "reports", "modes", "rows", "counts", "finite",
+                 "guard"):
+        if got[part] != want[part]:
+            fail(f"{label}: the graph serve's {part} differ from the eager "
+                 "serve's")
+    diff = [k for k, t in want["tensors"].items()
+            if not bitwise_equal(t, got["tensors"][k])]
+    if diff:
+        fail(f"{label}: final reuse cache / decode state differ at "
+             f"{diff[:8]} ({len(diff)} tensors)")
+    trips = [r for r in got["rows"] if r.get("decision_kind") == "quarantine"
+             and r.get("field") == "state" and r["after"] == "quarantined"]
+    if [(r["step"], r["site"], r["layer"]) for r in trips] != [
+            (trip_step, GUARD_SITE, layer)] or \
+            not trips[0]["reason"].startswith("nonfinite_out:"):
+        fail(f"{label}: trips {[(r['step'], r['site'], r['layer'], r['reason']) for r in trips]}"
+             f", want one nonfinite_out at step {trip_step} on "
+             f"{GUARD_SITE}@{layer}")
+    finite = got["finite"]
+    poisoned = finite[trip_step - 1]
+    if all(poisoned) or not all(all(f) for f in finite[trip_step:]) or \
+            not all(all(f) for f in finite[:trip_step - 1]):
+        fail(f"{label}: logits finite per step and slot {finite}: want "
+             f"non-finite only at step {trip_step}")
+    clean = served["clean"]
+    qrows = [r for r in clean["rows"]
+             if r.get("decision_kind") == "quarantine"]
+    if clean["trips"] or qrows:
+        fail(f"{label}: the serve without --inject tripped "
+             f"{clean['trips']} time(s), {len(qrows)} quarantine rows")
+    slots = [i for i, ok in enumerate(poisoned) if not ok]
+    print(f"{label}: traffic: phase 4's (8 requests of 32-token random "
+          f"prompts, batch 8, {len(finite)} decode steps); slot 0 holds "
+          f"(rid, tokens) {got['slot0']}, live at the interval of step "
+          f"{trip_step}")
+    print(f"{label}: graph serve equal to the checked eager serve — tokens, "
+          f"{len(want['reports'])} SensorReport lines, {len(want['rows'])} "
+          f"journal rows, launch counts and {len(want['tensors'])} tensors of "
+          "the final reuse cache and decode state bitwise")
+    print(f"{label}: trip at step {trip_step} ({trips[0]['reason']}); logits "
+          f"non-finite at step {trip_step} for slots {slots}, finite at every "
+          f"other step; replay OK; {got['guard'][0]}")
+    print(f"{label}: {summary_line(got['summary'])}")
+    print(f"{label}: the serve without --inject: 0 trips, 0 quarantine rows; "
+          f"{clean['guard'][0]}")
+    out = {"serve": label, "trip_step": trip_step,
+           "trip_reason": trips[0]["reason"], "slots_poisoned": slots,
+           "journal_rows": len(want["rows"]),
+           "captures": got["summary"]["captures"],
+           "evictions": got["summary"]["evictions"],
+           "pool_mb": got["summary"]["pool_bytes"] / 1e6,
+           "live_pool_mb": got["summary"]["live_pool_bytes"] / 1e6,
+           "scenarios": []}
+    del served, want, got
+
+    # each other scenario once, through the graph serve cut to 2 layers
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        for scen, at, check in GUARD_SCENARIOS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            journal = os.path.join(tmp, f"{scen}.jsonl")
+            # the stall needs 8 replayed steps before it for the watchdog's
+            # median (a later --max-new wins)
+            run_argv = argv + ["--max-new", "24"] * (scen == "stall") + [
+                "--control-every", "2", "--control-journal", journal,
+                "--inject", f"{scen}:at_step={at}"]
+            print(f"--- qwen3 2 layers, graph serve --inject "
+                  f"{scen}:at_step={at}")
+            res, counts, text = drive(cfg2, run_argv, check=False,
+                                      log_to=logdir / f"phase10b_{scen}.log")
+            launches[f"--inject {scen} (2 layers)"] = counts
+            rows = load_journal(journal)
+            if check == "stall_windows":
+                hit = [r for r in rows if r.get("field") == "stall_windows"
+                       and f"step {at} took" in r["reason"]]
+            else:
+                hit = [r for r in rows if r.get("decision_kind") ==
+                       "quarantine" and r.get("field") == "state"
+                       and r["after"] == "quarantined"
+                       and r["reason"].startswith(f"{check}:")]
+            summ = res["step"].summary()
+            if not hit or not res["injector"].fired:
+                fail(f"--inject {scen}: no {check} row in the journal "
+                     f"(fired {res['injector'].fired})")
+            print(f"--inject {scen}: {check} at step {hit[0]['step']} "
+                  f"({hit[0]['reason'][:100]}); {summary_line(summ)}")
+            out["scenarios"].append({
+                "scenario": scen, "check": check, "step": hit[0]["step"],
+                "captures": summ["captures"], "evictions": summ["evictions"],
+                "pool_mb": summ["pool_bytes"] / 1e6,
+                "live_pool_mb": summ["live_pool_bytes"] / 1e6})
+            del res
+    return out, launches
+
+
+def interval_cost_phase(cfg, argv, drive, logdir) -> dict:
+    """Phase 10c: the sentinel lanes' cost end to end. The graph serves of
+    `argv` (phase 4's traffic, 24 new tokens: 23 decode steps) with
+    `--refresh-every 2` and with `--control-every 2` (the breaker on), each
+    with the lanes in the breaker's snapshot alone (the engine as it is)
+    and forced into every ctrl snapshot, in turns (as is, forced, forced,
+    as is). Prints the serve's `decode loop:` ms a token (each replayed
+    step's decode plus the host work after it) and the hooks' total ms."""
+    from repro_torch.core.engine import ReuseEngine
+
+    plain = ReuseEngine.ctrl_snapshot
+
+    def every_snapshot(self, cache, *, sentinels=False):
+        return plain(self, cache, sentinels=True)
+
+    argv = argv + ["--max-new", "24"]  # a later --max-new wins
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in (
+                ("--refresh-every 2", ["--refresh-every", "2"]),
+                ("--control-every 2", ["--control-every", "2"])):
+            rows = {"breaker only": [], "every snapshot": []}
+            for n, how in enumerate(("breaker only", "every snapshot",
+                                     "every snapshot", "breaker only")):
+                gc.collect()
+                torch.cuda.empty_cache()
+                run_argv = argv + extra
+                if label.startswith("--control"):
+                    run_argv += ["--control-journal",
+                                 os.path.join(tmp, f"{n}.jsonl")]
+                if how == "every snapshot":
+                    ReuseEngine.ctrl_snapshot = every_snapshot
+                try:
+                    res, _, _ = drive(
+                        cfg, run_argv, check=False,
+                        log_to=logdir / f"phase10c_{label[2:9]}_{n}.log")
+                finally:
+                    ReuseEngine.ctrl_snapshot = plain
+                if res["loop_ms_per_token"] is None:
+                    fail(f"interval cost {label}: no step replayed")
+                rows[how].append({"ms_a_token": res["loop_ms_per_token"],
+                                  "hooks_ms": sum(res["hook_ms"])})
+                del res
+            for how, rs in rows.items():
+                print(f"interval cost, qwen3 graph serve {label}, sentinel "
+                      f"lanes in {how}: decode loop "
+                      + ", ".join(f"{r['ms_a_token']:.4f}" for r in rs)
+                      + " ms a token; hooks "
+                      + ", ".join(f"{r['hooks_ms']:.2f}" for r in rs)
+                      + " ms in all")
+            out[label] = rows
+    return out
+
+
+def guard_cost(label, arch, cfg, params, dev) -> dict:
+    """What the guard adds to one Controller.step with a window on every
+    site: its device→host copies (torch.profiler's Memcpy DtoH), with and
+    without the breaker; and the host ms of `ctrl_snapshot` with the
+    sentinel lanes (the breaker's) and without them (a mode refresh's),
+    in turns (host clock around the call, which waits for its copy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.control import ControlConfig, Controller
+    from repro_torch.guard import QuarantineBreaker
+    from repro_torch.sensor.runner import run_measured_decode
+
+    copies, snap_ms, lane_ms = {}, [], []
+    for guarded in (False, True):
+        ctl = Controller(ControlConfig(min_window_steps=2),
+                         guard=QuarantineBreaker() if guarded else None)
+
+        def on_step(i, engine, cache, ctl=ctl, guarded=guarded):
+            if i == 2:
+                ctl.step(engine, cache, step=i)
+            elif i == 4:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    rep = ctl.step(engine, cache, step=i)
+                    torch.cuda.synchronize()
+                copies[guarded] = sum(1 for e in prof.events()
+                                      if "Memcpy DtoH" in e.name)
+                if len(rep.window_steps) != len(engine.sites):
+                    fail(f"{label}: the profiled interval has windows on "
+                         f"{len(rep.window_steps)} of {len(engine.sites)} "
+                         "sites")
+                if guarded:
+                    for _ in range(10):
+                        for sentinels, times in ((True, lane_ms),
+                                                 (False, snap_ms)):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            engine.ctrl_snapshot(cache, sentinels=sentinels)
+                            times.append((time.perf_counter() - t0) * 1e3)
+
+        run_measured_decode(arch, steps=4, batch=CONTROL_BATCH,
+                            correlation=1.0, seed=MEASURED_SEED,
+                            on_step=on_step, device=dev, params=params,
+                            cfg=cfg, graphs=False)
+    med, lanes = statistics.median(snap_ms), statistics.median(lane_ms)
+    print(f"{label}: one Controller.step with a window on every site: "
+          f"{copies[False]} device->host copies without the guard, "
+          f"{copies[True]} with the QuarantineBreaker; ctrl_snapshot median "
+          f"host time with the sentinel lanes (the breaker's) {lanes:.3f} ms "
+          "(10 calls: " + ", ".join(f"{t:.3f}" for t in lane_ms) + "), "
+          f"without them (a mode refresh's) {med:.3f} ms ("
+          + ", ".join(f"{t:.3f}" for t in snap_ms) + "), in turns")
+    if copies[True] != copies[False] + 1:
+        fail(f"{label}: the guard adds {copies[True] - copies[False]} "
+             "device->host copies, not 1 (its snapshot)")
+    return {"copies": copies[False], "copies_guarded": copies[True],
+            "ctrl_snapshot_ms": med, "ctrl_snapshot_ms_all": snap_ms,
+            "ctrl_snapshot_sentinels_ms": lanes,
+            "ctrl_snapshot_sentinels_ms_all": lane_ms}
 
 
 def main() -> None:
@@ -1938,15 +2537,17 @@ def main() -> None:
                   "--requests", "8", "--prompt-len", "32", "--cache-len",
                   "128", "--max-new", "8"]
 
-    def drive(cfg, argv, *, check=True, after_step=None, log_to=None):
+    def drive(cfg, argv, *, check=True, after_step=None, log_to=None,
+              checker=PathCheck):
         """One serve. With `check`, every kernel call is held against its
-        plain version (PathCheck) and the counts of checked calls must equal
-        the launches. With `log_to` (a path) the serve's output goes there
-        whole, and only its unindented lines are printed."""
+        plain version (`checker`, a PathCheck) and the counts of checked
+        calls must equal the launches. With `log_to` (a path) the serve's
+        output goes there whole, and only its unindented lines are
+        printed."""
         args = serve.build_parser().parse_args(argv)
         buf = io.StringIO()
         backend.reset_launches()
-        with (PathCheck(ops) if check else contextlib.nullcontext()) as chk, \
+        with (checker(ops) if check else contextlib.nullcontext()) as chk, \
                 contextlib.redirect_stdout(buf):
             res = serve.run(cfg, args, after_step=after_step)
         torch.cuda.synchronize()
@@ -2223,6 +2824,18 @@ def main() -> None:
     control_serve["basic_product_ms"] = basic_product_timing(dev, gen)
     print(json.dumps({"control_serve": control_serve}))
 
+    # ---------------------------------------------------- 10. the guard plane
+    phase("10. the guard plane (chaos at mlp_in; the guarded serve)")
+    chaos, counts = chaos_phase(dev, max_err)
+    launches_guard = {"chaos (graph run)": counts}
+    guard_serve, counts = guard_serve_phase(
+        cfg, serve_argv, drive, root / "chiprun_out" / "chip_smoke")
+    launches_guard.update(counts)
+    interval_cost = interval_cost_phase(
+        cfg, serve_argv, drive, root / "chiprun_out" / "chip_smoke")
+    print(json.dumps({"guard": {"chaos": chaos, "serve": guard_serve,
+                                "interval_cost": interval_cost}}))
+
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
                      "wkv6_decode": launches_rwkv,
@@ -2236,7 +2849,9 @@ def main() -> None:
                         "launches_measured_decode": {
                             run: c[kn] for run, c in launches_measured.items()},
                         "launches_control": {
-                            run: c[kn] for run, c in launches_control.items()}})
+                            run: c[kn] for run, c in launches_control.items()},
+                        "launches_guard": {
+                            run: c[kn] for run, c in launches_guard.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,9 @@
         [--arch qwen3-32b --reduced] [--device cpu]
 
 The port of `repro.control.replay`: it reads journals written by either
-package. Like every entry point of the port it runs on the card unless
-`--device cpu` is given, and fails loudly without one.
+package. A journal alone replays on any host, as the reference's does. With
+`--arch` the engine's cache lives on the card unless `--device cpu` is
+given, and that replay fails loudly without one.
 
 A decision journal (`--control-journal` on the serving CLI) is the complete
 causal record of a run's policy moves. Replay re-applies every decision row
@@ -223,7 +224,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the --arch engine's cache lives")
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
+    # a journal alone replays on any host; only an --arch engine needs the
+    # device its cache lives on
+    if args.arch and args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda (the default) but no CUDA device is available; "
             "pass --device cpu to replay on the CPU")

@@ -15,13 +15,25 @@
   spec changes and are returned;
 * `layer_modes` / `site_mode` / `mode_summary` read the mode mirror, and
   `set_budget` re-points a compacted site's budget (the control plane's
-  write paths, `repro_torch.control`).
+  write paths, `repro_torch.control`);
+* `ctrl_snapshot(cache, sentinels=True)` also carries the guard plane's
+  sentinel lanes (`repro_torch.guard.sentinel.sentinel_lanes`) in the same
+  one transfer, as the reference's `_ctrl_snapshot_device` does. Only the
+  breaker asks for them: eager, they are about 20 small device ops a site
+  (PERF.md §6), where the reference's ride its one jitted pass.
 
 Every write goes into the existing tensors (`copy_`, indexed assignment):
 a captured CUDA graph reads the tensors it was captured on.
 
-Unsharded only: the reference's model-axis sharding, its ICI accounting and
-the guard plane's sentinel lanes come with later slices.
+Budgets: a site's k-extent budget reaches only the ragged path's accounting
+(the kernel walks the live counts). It is read from a per-site device
+scalar, the budget lane (`budget_lanes`), which every budget move writes in
+place, so a budget move changes neither the device work nor a compiled
+step's decode key. The lanes live on the engine, not in the cache, so the
+cache's leaves stay the reference's.
+
+Unsharded only: the reference's model-axis sharding and its ICI accounting
+come with a later slice.
 """
 
 from __future__ import annotations
@@ -49,7 +61,9 @@ from repro_torch.core.reuse_cache import (
 from repro_torch.core.reuse_linear import ReuseStats, reuse_linear
 from repro_torch.kernels.ops import clamp_budget
 
-# ctrl_snapshot lanes, in the order they are packed per site
+# ctrl_snapshot lanes, in the order they are packed per site; the sentinel
+# lanes (guard/sentinel.py), when asked for, follow them, each an int32
+# count or bitmask
 _SNAP_LANES = ("sim_l", "mode_id", "sim_threshold", "min_work", "cooldown",
                "quarantine")
 _SNAP_DTYPES = {"sim_l": np.float32, "mode_id": np.int8,
@@ -99,6 +113,14 @@ class ReuseEngine:
     # the reference's per-site model-axis shard counts; stays empty until
     # sharded serving is ported, so callers take their unsharded paths
     shards: dict[str, int] = dataclasses.field(default_factory=dict)
+    # per-site int32 device scalar holding the clamped k-extent budget that
+    # the ragged accounting reads, and the value last written to each
+    budget_lanes: dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    _budget_host: dict[str, int] = dataclasses.field(default_factory=dict)
+    # where the latest `init_cache` put the cache (the guard's shadow probe
+    # runs there)
+    device: torch.device | None = None
 
     def register(
         self,
@@ -132,6 +154,8 @@ class ReuseEngine:
         return spec
 
     def init_cache(self, batch: int, *, device="cuda") -> dict[str, Any]:
+        # the device with its index, as a tensor there reports it
+        self.device = torch.empty(0, device=device).device
         cache: dict[str, Any] = {}
         for name, spec in self.sites.items():
             entry = init_site_cache(spec, batch, self.policy.resolve(name),
@@ -153,7 +177,50 @@ class ReuseEngine:
                     [t.min_work_flops for t in ts], dtype=torch.float32,
                     device=device)
             cache[name] = entry
+            lane = self.budget_lanes.get(name)
+            if lane is None or lane.device != self.device:
+                self.budget_lanes[name] = torch.zeros(
+                    (), dtype=torch.int32, device=device)
+                self._budget_host.pop(name, None)
+        self.sync_budgets()
         return cache
+
+    # ---------------------------------------------------------- budget lanes
+
+    @staticmethod
+    def clamped_budget(spec: ReuseSiteSpec) -> int:
+        """The budget the accounting reads: `max_active_k` clamped to
+        [1, gk], gk when the site has none."""
+        return clamp_budget(spec.max_active_k,
+                            -(-spec.in_features // spec.block_k))
+
+    def sync_budgets(self) -> None:
+        """Write every budget lane whose value trails its site's spec (a
+        fill_ in place; nothing is read back). `set_budget` calls it, the
+        compiled step before each decode (a graph replays without running
+        `apply`), and `budget_lane` when an eager call finds a lane stale
+        (any other spec move)."""
+        for name, lane in self.budget_lanes.items():
+            kb = self.clamped_budget(self.sites[name])
+            if self._budget_host.get(name) != kb:
+                if lane.is_cuda and torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError(
+                        f"budget lane of site {name!r} written during a CUDA "
+                        "graph capture: a replay would repeat the write")
+                lane.fill_(kb)
+                self._budget_host[name] = kb
+
+    def budget_lane(self, name: str, device: torch.device):
+        """Site `name`'s budget lane on `device` (synced), or None when the
+        engine holds none there (a cache built outside `init_cache`): the
+        accounting then reads the spec's Python int."""
+        lane = self.budget_lanes.get(name)
+        if lane is None or lane.device != device:
+            return None
+        if self._budget_host.get(name) != self.clamped_budget(
+                self.sites[name]):
+            self.sync_budgets()
+        return lane
 
     @staticmethod
     def layer_view(cache: dict[str, Any], layer: int) -> dict[str, Any]:
@@ -173,7 +240,8 @@ class ReuseEngine:
         # pinned sites keep a static branch; "auto" sites read the mirror
         mode = spec.mode if spec.mode in ("reuse", "basic") else None
         return reuse_linear(x, w, b, cache_entry, spec, mode=mode,
-                            impl=self.impl)
+                            impl=self.impl,
+                            budget=self.budget_lane(name, x.device))
 
     # ------------------------------------------------ ctrl-block interrogation
     # The mode helpers read the host mirror: the control plane asks for every
@@ -288,9 +356,10 @@ class ReuseEngine:
         adapter's write path), keeping the policy table in sync so the next
         exec-path refresh or retune does not revert it. Site-granular, as
         in the reference. Returns True when the spec changed. The ragged
-        kernel walks the live counts, so a new budget changes the decode key
-        and the accounting (`ops.ragged_grid_steps`, `ops.budget_overflow`),
-        not the device work."""
+        kernel walks the live counts, so a new budget changes only the
+        accounting (`ops.ragged_grid_steps`, `ops.budget_overflow`), which
+        reads the site's budget lane: the lane is written in place, and the
+        compiled step's decode key stays."""
         spec = self.sites[name]
         if spec.exec_path not in ("ragged", "compact"):
             return False
@@ -301,35 +370,44 @@ class ReuseEngine:
         self.sites[name] = dataclasses.replace(spec, max_active_k=budget)
         self.policy.site_tunables[name] = dataclasses.replace(
             self.policy.resolve(name), max_active_k=budget)
+        self.sync_budgets()
         return True
 
     # -------------------------------------------------- host-side policy pass
 
-    def ctrl_snapshot(self, cache: dict[str, Any]) -> dict[str, Any]:
+    def ctrl_snapshot(self, cache: dict[str, Any], *,
+                      sentinels: bool = False) -> dict[str, Any]:
         """Everything the host passes read, for ALL sites, in ONE device→host
         transfer: per-layer sim_ema means, the ctrl lanes and the sensor tile
-        sums are packed on the device into one f64 vector (every value is
-        exact in f64) and copied once."""
+        sums (with `sentinels`, also the guard's sentinel lanes) are packed
+        on the device into one f64 vector (every value is exact in f64: the
+        sentinel lanes are int32 counts and bitmasks) and copied once."""
+        from repro_torch.guard.sentinel import sentinel_lanes
+
         parts: list[torch.Tensor] = []
         layout: list[tuple[str, str, int]] = []
         for name, entry in cache.items():
             ctrl = entry.get("ctrl")
+            lanes = {}
             if ctrl is not None:
                 sim = entry["sim_ema"]
                 lanes = {
                     "sim_l": sim if sim.ndim == 0 else lane_mean(sim),
                     **{k: ctrl[k] for k in _SNAP_LANES[1:]},
                 }
-                for key in _SNAP_LANES:
-                    v = lanes[key].reshape(-1)
-                    parts.append(v.double())
-                    layout.append((name, key, v.numel()))
             sensor = entry.get("sensor")
             if sensor is not None:
                 for key, src in (("skipped", "skipped_tiles"),
                                  ("computed", "computed_tiles")):
-                    parts.append(sensor[src].sum().double().reshape(1))
-                    layout.append((name, key, 0))
+                    lanes[key] = sensor[src].sum()
+            if sentinels and ctrl is not None:
+                for key, v in sentinel_lanes(entry).items():
+                    lanes.setdefault(key, v)  # quarantine is a ctrl lane
+            for key, v in lanes.items():
+                scalar = key in ("skipped", "computed")
+                v = v.reshape(-1)
+                parts.append(v.double())
+                layout.append((name, key, 0 if scalar else v.numel()))
         flat = torch.cat(parts).cpu().numpy() if parts else np.zeros(0)
         snap: dict[str, Any] = {name: {} for name in cache}
         pos = 0
@@ -339,7 +417,7 @@ class ReuseEngine:
                 pos += 1
             else:
                 snap[name][key] = flat[pos:pos + count].astype(
-                    _SNAP_DTYPES[key])
+                    _SNAP_DTYPES.get(key, np.int32))
                 pos += count
         self.last_snapshot = snap
         return snap

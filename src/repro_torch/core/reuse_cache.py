@@ -40,14 +40,15 @@ class ReuseSiteSpec:
     block_n: int = 128
     mode: str = "auto"          # "reuse" | "basic" | "auto" (policy decides)
     dataflow: str = "output"    # "output" | "input" stationary
-    exec_path: str = "auto"     # "kernel" | "ragged" | "auto" (→ "kernel")
+    exec_path: str = "auto"     # "kernel" | "ragged" | "dense" | "auto" (→ "kernel")
     max_active_k: int | None = None
     fixed_scale: float = 0.05
 
 
 def default_exec_path(impl: str) -> str:
     """The path an "auto" site runs on. Both port impls are kernel tiers (the
-    reference's jnp tier and its "dense" path wait for a later slice)."""
+    reference's jnp tier, whose "auto" is "dense", waits for a later slice;
+    "dense" itself runs when a spec names it)."""
     return "kernel"
 
 

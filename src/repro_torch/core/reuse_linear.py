@@ -18,7 +18,12 @@ device→host sync per site per layer. A string mode pins the branch.
 "torch" — the plain versions on any device (the reference's XLA-tier twin).
 On both, quantize → delta → tile-mask is one fused pass, and "auto" sites run
 the masked block-skip kernel; a site pinned to "ragged" runs the compacted
-walk.
+walk, and a site on "dense" (the guard's shadow oracle) the reference's
+masked product `ops.reuse_matmul_ref`, which sits outside any kernel.
+
+`budget`: the ragged accounting's k-extent budget as a device scalar (the
+engine's budget lane, written in place by budget moves, so a captured
+graph reads the live value); None reads the spec's `max_active_k`.
 """
 
 from __future__ import annotations
@@ -74,7 +79,8 @@ def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float):
     return out, stats
 
 
-def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str, ema_decay: float):
+def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
+                ema_decay: float, budget: torch.Tensor | None):
     """ReuseON: delta-encode against the previous evaluation and run the ΔW
     GEMM on the spec's execution path."""
     n = w.shape[-1]
@@ -87,7 +93,11 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str, ema_decay: float):
     gm, gk = mask.shape
     gn = -(-n // spec.block_n)
     sel = dma_issued = grid_steps = overflow = None
-    if path == "ragged":
+    kb = spec.max_active_k if budget is None else budget
+    if path == "dense":
+        out = ops.reuse_matmul_ref(delta, w, cache["prev_out"], mask,
+                                   spec.block_m, spec.block_k)
+    elif path == "ragged":
         idx, counts = ops.compact_rows(mask)
         out = ops.reuse_matmul_ragged(
             delta, w, cache["prev_out"], mask,
@@ -96,9 +106,8 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str, ema_decay: float):
         )
         dma_issued = ops.ragged_dma_tiles(counts, gn=gn)
         grid_steps = ops.ragged_grid_steps(
-            counts, gm=gm, gn=gn, gk=gk, max_active_k=spec.max_active_k)
-        overflow = ops.budget_overflow(
-            counts, gk=gk, max_active_k=spec.max_active_k)
+            counts, gm=gm, gn=gn, gk=gk, max_active_k=kb)
+        overflow = ops.budget_overflow(counts, gk=gk, max_active_k=kb)
     elif path == "kernel":
         sel = ops.skip_sel(mask)
         out = ops.reuse_matmul(
@@ -109,7 +118,7 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str, ema_decay: float):
     else:
         raise ValueError(
             f"exec_path {path!r} of site {spec.name!r} is not available in "
-            "this package (only 'kernel' and 'ragged' are)")
+            "this package (only 'kernel', 'ragged' and 'dense' are)")
     k = xm.shape[1]
     matches = row_code_matches(cur_q, cache["prev_q"])
     cache["prev_q"].copy_(cur_q)
@@ -122,7 +131,7 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str, ema_decay: float):
         occ.copy_(ema_update_mean(occ, mask.sum(dtype=torch.float32),
                                   gm * gk, ema_decay))
     if "sensor" in cache:
-        if dma_issued is None:  # kernel path: masked full-grid semantics
+        if dma_issued is None:  # kernel/dense: masked full-grid semantics
             dma_issued = ops.weight_dma_tiles(
                 mask, gn=gn, dataflow=spec.dataflow, sel=sel)
         update_on_reuse(
@@ -146,6 +155,7 @@ def reuse_linear(
     mode: str | None = "reuse",  # "reuse" | "basic" | None (= host mirror)
     impl: str = "cuda",
     ema_decay: float = 0.9,
+    budget: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict, ReuseStats]:
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -160,7 +170,7 @@ def reuse_linear(
     if mode == "basic":
         out, stats = _basic_eval(xm, w, cache, spec, ema_decay)
     elif mode == "reuse":
-        out, stats = _reuse_eval(xm, w, cache, spec, impl, ema_decay)
+        out, stats = _reuse_eval(xm, w, cache, spec, impl, ema_decay, budget)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     if b is not None:

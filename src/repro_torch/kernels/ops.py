@@ -4,6 +4,8 @@ Execution paths of the reuse-mode ΔW GEMM (`ReuseSiteSpec.exec_path`):
   "kernel" — block-skip GEMM on the full tile grid (`reuse_matmul`).
   "ragged" — compacted walk over each row's active k-blocks
              (`reuse_matmul_ragged`).
+  "dense"  — the masked product `reuse_matmul_ref` in torch ops, as the
+             reference computes it outside any kernel (the guard's oracle).
 
 Beside them: the int8 split GEMM (`reuse_matmul_int8`, exact int32, fed by
 `core.delta.delta_encode_int8`) and the RWKV6 recurrence step
@@ -18,7 +20,10 @@ The accounting functions (`clamp_budget`, `ragged_dma_tiles`,
 from the kernel module) are the reference's, ported exactly: the sensor's
 `dma_issued_tiles`, `grid_steps` and `overflow_fallbacks` come from them,
 never from a kernel. They stay on the tensor's device (`torch.where`), so no
-Python branch ever reads a CUDA tensor.
+Python branch ever reads a CUDA tensor. The ragged ones read the budget as
+an int32 device scalar clamped to [1, gk] (the engine's budget lane, or a
+Python int made into one); with kb = gk no row overflows, so one formula
+gives both of the reference's branches.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from repro_torch.kernels import reuse_matmul as _rm
 from repro_torch.kernels import reuse_matmul_int8 as _ri
 from repro_torch.kernels import reuse_matmul_ragged as _rr
 from repro_torch.kernels import wkv6_decode as _wkv
+from repro_torch.kernels.ref import reuse_matmul_ref
 from repro_torch.kernels.reuse_matmul import skip_sel, weight_dma_tiles
 
 __all__ = [
@@ -44,6 +50,7 @@ __all__ = [
     "reuse_matmul",
     "reuse_matmul_int8",
     "reuse_matmul_ragged",
+    "reuse_matmul_ref",
     "skip_sel",
     "weight_dma_tiles",
     "wkv6_decode",
@@ -201,29 +208,36 @@ def ragged_dma_tiles(counts: torch.Tensor, *, gn: int) -> torch.Tensor:
     return (torch.clamp(counts, min=1).sum() * gn).to(torch.int32)
 
 
+def _budget_scalar(max_active_k: int | torch.Tensor | None, gk: int,
+                 device: torch.device) -> torch.Tensor:
+    """The budget as the accounting reads it: an int32 device scalar clamped
+    to [1, gk]. A tensor (the engine's budget lane) is clamped when written
+    and passes through."""
+    if isinstance(max_active_k, torch.Tensor):
+        return max_active_k
+    return torch.full((), clamp_budget(max_active_k, gk), dtype=torch.int32,
+                      device=device)
+
+
 def ragged_grid_steps(
     counts: torch.Tensor, *, gm: int, gn: int, gk: int,
-    max_active_k: int | None,
+    max_active_k: int | torch.Tensor | None,
 ) -> torch.Tensor:
     """Grid steps the reference's ragged path executes (fallback-aware), f32:
     gm·gn·kb, or the full gm·gn·gk when any row overflows the budget."""
-    kb = clamp_budget(max_active_k, gk)
+    kb = _budget_scalar(max_active_k, gk, counts.device)
     full = torch.full((), float(gm * gn * gk), dtype=torch.float32,
                       device=counts.device)
-    if kb >= gk:
-        return full
     return torch.where((counts > kb).any(), full,
-                       torch.full_like(full, float(gm * gn * kb)))
+                       (kb * (gm * gn)).to(torch.float32))
 
 
 def budget_overflow(
-    counts: torch.Tensor, *, gk: int, max_active_k: int | None
+    counts: torch.Tensor, *, gk: int, max_active_k: int | torch.Tensor | None
 ) -> torch.Tensor:
     """int32 1 when an evaluation's live counts overflow the budget (the
     reference took its full-extent fallback), else 0."""
-    kb = clamp_budget(max_active_k, gk)
-    if kb >= gk:
-        return torch.zeros((), dtype=torch.int32, device=counts.device)
+    kb = _budget_scalar(max_active_k, gk, counts.device)
     return (counts > kb).any().to(torch.int32)
 
 

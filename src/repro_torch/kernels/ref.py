@@ -1,4 +1,5 @@
-"""Oracles for the reuse kernels (tests only), as `repro.kernels.ref`.
+"""Oracles for the reuse kernels, as `repro.kernels.ref`. `reuse_matmul_ref`
+is also the product of the "dense" exec path, as in the reference.
 
 The block-skip GEMM oracle applies the mask explicitly: tiles whose bit is 0
 contribute nothing. When the mask comes from the delta (its only producer on

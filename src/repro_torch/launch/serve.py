@@ -17,14 +17,31 @@ measured overflow fallbacks, and the learned per-session admission
 predictor, which places requests (`--control-journal PATH` appends every
 decision to PATH; `python -m repro_torch.control.replay PATH` re-drives it).
 `--affinity` without the controller places requests by a synthetic
-prediction. The guard plane that the reference attaches to the controller
-is not ported yet: the controller runs without it.
+prediction.
+
+Fault containment (`repro_torch.guard`): with `--control-every` the
+controller carries a QuarantineBreaker — the sentinel lanes ride the
+breaker's ctrl snapshot, tripped lanes are pinned to basic and scrubbed,
+transitions land in the decision journal as `kind="quarantine"` rows.
+`--inject <scenario[:k=v,...]>` arms a deterministic fault (see
+`repro_torch.guard.inject.SCENARIOS`: poison-nan, poison-sim, ctrl-garbage,
+poison-counters, lying-telemetry, torn-journal, corrupt-ckpt, stall) at the
+real seams, so a chaos run exercises the production wiring. Each decode step
+is timed; the straggler watchdog feeds stall events into the same breaker.
 
 The steps go through `serve/compiled_step.CompiledStep`: on the card each
 prefill shape and each decode operating point (spec and mode signature) is
 captured once as a CUDA graph over static buffers and replayed after;
 `--eager` (the counterpart of `jax.disable_jit`) and `--device cpu` run the
-same step functions directly.
+same step functions directly. A step that builds a variant (runs the step
+eagerly, then captures it) takes tens of replays' time, where the
+reference's mode flips compile nothing; a quarantine and a re-admission are
+mode flips. So the watchdog is fed only the steps that replayed or ran
+directly (`CompiledStep.last_built`): a capture read as a stall would void
+probation and move the breaker's lifecycle off the reference's. The
+`decode loop:` line prices the serve per token over the same steps: each
+step's decode plus the host work after it (a control interval, a mode
+refresh, the injector).
 
 `run(cfg, args)` is the callable entry (chip_smoke.py drives it with a config
 cut in depth); `main()` parses the flags and calls it.
@@ -93,6 +110,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eager", action="store_true",
                     help="run each step directly instead of replaying its "
                     "CUDA graph")
+    ap.add_argument("--inject", default=None, metavar="SCENARIO[:k=v,...]",
+                    help="arm a deterministic fault scenario "
+                    "(repro_torch.guard.inject.SCENARIOS) at the production "
+                    "seams — e.g. poison-nan:at_step=12,site=mlp_in — for "
+                    "chaos runs; requires --reuse")
     return ap
 
 
@@ -100,13 +122,16 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         after_step: Callable | None = None) -> dict:
     """Serve `args.requests` random-prompt requests on `cfg`. Returns
     {"done", "stats", "report", "engine", "rcache", "step", "seconds",
-    "controller"}: `step` is the CompiledStep, whose buffers hold the final
-    state and cache; `controller` is the control plane's Controller (None
-    without `--control-every`). `after_step(step_idx, step)` runs after each
-    decode step, after the policy refresh or the control interval."""
+    "controller", "breaker", "injector"}: `step` is the CompiledStep, whose
+    buffers hold the final state and cache; `controller` is the control
+    plane's Controller and `breaker` its QuarantineBreaker (None without
+    `--control-every`); `injector` the armed FaultInjector (None without
+    `--inject`). `after_step(step_idx, step)` runs after each decode step,
+    after the fault injection and the policy refresh or the control
+    interval."""
     # the reference's argument errors, with its messages
     for flag in ("sensor_jsonl", "tuned_policy", "refresh_every", "affinity",
-                 "control_every", "control_journal"):
+                 "control_every", "control_journal", "inject"):
         if getattr(args, flag) and not args.reuse:
             raise ValueError(f"--{flag.replace('_', '-')} requires --reuse")
     if args.control_journal and not args.control_every:
@@ -171,9 +196,25 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
                           f"block_k={spec.block_k} "
                           f"exec={spec.exec_path}{budget}")
 
+    # Fault plane: the armed injector (chaos runs) plus the step clock the
+    # straggler watchdog reads. Armed independently of the control plane — a
+    # poisoned run WITHOUT the breaker is the useful negative control.
+    injector = watchdog = None
+    if args.inject:
+        from repro_torch.guard import FaultInjector
+
+        injector = FaultInjector.from_spec(args.inject)
+        print(f"fault injection armed: {injector.scenario} "
+              f"{injector.params} site={injector.site} "
+              f"layer={injector.layer}")
+    if engine is not None:
+        from repro_torch.guard import StragglerWatchdog
+
+        watchdog = StragglerWatchdog()
+
     # Learned admission and the online control plane: one shared journal;
     # the predictor learns per-session similarity from retirement telemetry
-    predictor = controller = None
+    predictor = controller = breaker = None
     if args.control_every > 0:
         from repro_torch.control import (
             AdmissionPredictor,
@@ -181,12 +222,18 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
             Controller,
             DecisionJournal,
         )
+        from repro_torch.guard import QuarantineBreaker
 
         journal = (DecisionJournal(args.control_journal)
                    if args.control_journal else None)
         predictor = AdmissionPredictor()
+        # the guard plane rides the controller cadence: sentinels are read
+        # from the ctrl snapshot, containment decisions land in the same
+        # journal stream, and the breaker's probation clock ticks in control
+        # intervals
+        breaker = QuarantineBreaker()
         controller = Controller(ControlConfig(), admission=predictor,
-                                journal=journal)
+                                journal=journal, guard=breaker)
 
     step = CompiledStep(params, cfg, state, batch=args.batch_slots,
                         engine=engine, rcache=rcache,
@@ -203,12 +250,31 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         return int(greedy_sample(logits[slot:slot + 1, -1:])[0, 0])
 
     step_ms: list[float] = []
+    step_built: list[bool] = []
+    step_clock = {"step": 0}
 
     def decode_fn(tokens):
+        step_clock["step"] += 1
         t0 = time.perf_counter()
+        if injector is not None:
+            # the stall scenario lives INSIDE the timed region — exactly
+            # where a straggler host's slowness would land
+            injector.maybe_stall(step_clock["step"])
         out = greedy_sample(step.decode(np.asarray(tokens, np.int32)))
         out = out.cpu().numpy()  # waits for the step
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        dt = time.perf_counter() - t0
+        step_ms.append(dt * 1e3)
+        step_built.append(step.last_built)
+        # a step that built its variant (eager run plus capture) is no
+        # evidence of a straggler: the watchdog reads the other steps
+        if watchdog is not None and not step.last_built:
+            event = watchdog.observe(step_clock["step"], dt)
+            if event is not None:
+                print(f"straggler: step {event['step']} took "
+                      f"{event['seconds']:.3f}s vs median "
+                      f"{event['median']:.3f}s")
+                if breaker is not None:
+                    breaker.note_stall(event)
         return out
 
     # Lane similarity for --affinity without the controller: the hit rate
@@ -269,6 +335,40 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
             if after_step is not None:
                 after_step(step_idx, step)
 
+    if injector is not None:
+        # chain the injector through the production seams: cache poisoning
+        # lands post-decode (before the controller's next look), forged
+        # telemetry rides the real retirement path
+        base_on_step, base_telemetry = on_step, telemetry_fn
+
+        def on_step(step_idx):
+            n_fired = len(injector.fired)
+            injector.on_cache_update(rcache, step_idx)
+            if len(injector.fired) > n_fired:
+                print(f"inject @step {step_idx}: "
+                      f"{injector.fired[-1]['detail']}")
+            if base_on_step is not None:
+                base_on_step(step_idx)
+
+        if base_telemetry is not None:
+            def telemetry_fn(slot):
+                return injector.on_telemetry(
+                    base_telemetry(slot), step_clock["step"])
+
+    # the host work between decode steps (control interval, mode refresh,
+    # injector), timed per step beside the decode, with the tokens the step
+    # emits (its active slots; they emit after the hook)
+    hook_ms: list[float] = []
+    step_tokens: list[int] = []
+    inner_on_step = on_step
+
+    def on_step(step_idx):
+        step_tokens.append(len(batcher.active))
+        t0 = time.perf_counter()
+        if inner_on_step is not None:
+            inner_on_step(step_idx)
+        hook_ms.append((time.perf_counter() - t0) * 1e3)
+
     batcher = ContinuousBatcher(
         batch_slots=args.batch_slots,
         prefill_fn=prefill_fn,
@@ -300,9 +400,20 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
     print(f"served {len(done)}/{args.requests} requests in {dt:.2f}s; "
           f"{batcher.stats}")
     print(summary_line(step.summary()))
+    loop_ms_per_token = None
     if step_ms:
         print(f"decode step: median {float(np.median(step_ms)):.2f} ms over "
               f"{len(step_ms)} steps (host clock to the tokens on the host)")
+        replayed = [i for i, built in enumerate(step_built) if not built]
+        tokens = sum(step_tokens[i] for i in replayed)
+        if tokens:
+            hooks = [hook_ms[i] for i in replayed]
+            loop_ms_per_token = sum(step_ms[i] + hook_ms[i]
+                                    for i in replayed) / tokens
+            print(f"decode loop: {loop_ms_per_token:.3f} ms a token over the "
+                  f"{len(replayed)} steps that built no variant ({tokens} "
+                  f"tokens), each step's decode and the hooks after it "
+                  f"(hooks {sum(hooks):.2f} ms in all, max {max(hooks):.2f})")
     report = None
     if engine is not None:
         report = engine.sensor_report(rcache)
@@ -317,11 +428,32 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         if controller.journal is not None:
             print(f"decision journal: {controller.journal.rows_written} rows "
                   f"-> {controller.journal.path}")
+    if breaker is not None:
+        states = breaker.lane_states()
+        lanes = ", ".join(
+            f"{s}" + (f"@{l}" if l is not None else "") + f"={st}"
+            for (s, l), st in sorted(states.items(),
+                                     key=lambda kv: (kv[0][0], kv[0][1] or 0)))
+        print(f"guard plane: {breaker.total_trips} sentinel trips, "
+              f"{breaker.stall_windows} stall windows, "
+              f"{breaker.quarantined_lanes()} lanes quarantined"
+              + (f" [{lanes}]" if lanes else ""))
+    if injector is not None:
+        # at-rest scenarios fire at exit, against the artifacts just written
+        # (corrupt-ckpt has no target here: the serve writes no checkpoint
+        # until checkpointing is ported)
+        if args.control_journal:
+            injector.tear_journal(args.control_journal)
+        print(f"fault injection: {len(injector.fired)} fault(s) fired")
+        for ev in injector.fired:
+            print(f"  {ev['scenario']} @step {ev['step']}: {ev['detail']}")
     if len(done) != args.requests:
         raise RuntimeError(f"served {len(done)} of {args.requests} requests")
     return {"done": done, "stats": batcher.stats, "report": report,
             "engine": engine, "rcache": rcache, "step": step, "seconds": dt,
-            "controller": controller}
+            "loop_ms_per_token": loop_ms_per_token, "hook_ms": hook_ms,
+            "controller": controller, "breaker": breaker,
+            "injector": injector}
 
 
 def main(argv=None) -> None:

@@ -10,13 +10,24 @@ and advances the state's `len` in place). A variant is one captured graph
 with its own output logits, keyed as the reference keys its compiled steps:
 
   decode   (spec signature, mode signature). The spec signature is the
-           reference's `tuple(sorted(engine.sites.items()))`: exec paths,
-           budgets and tile geometry. The mode signature is the bytes of
-           every non-pinned site's `mode_host`: the port branches on that
-           host mirror (`core/reuse_linear.py`) where the reference branches
-           on the device lane, so a mode flip is a new operating point here
-           and a ctrl write there. A flip back to a known key reuses its graph.
+           reference's `tuple(sorted(engine.sites.items()))` without the
+           budgets: exec paths and tile geometry. A budget reaches only the
+           ragged accounting, which reads the engine's budget lanes (device
+           scalars written in place), so a budget move replays the graph it
+           had. The mode signature is the bytes of every non-pinned site's
+           `mode_host`: the port branches on that host mirror
+           (`core/reuse_linear.py`) where the reference branches on the
+           device lane, so a mode flip is a new operating point here and a
+           ctrl write there. A flip back to a known key reuses its graph.
   prefill  the prompt buffer's shape.
+
+Decode variants are bounded: past `max_decode_variants` live ones, the
+least recently used is evicted with its graph, its output and its pool, and
+the pool goes back to the card (`torch.cuda.empty_cache`). A key that comes
+back after its eviction is captured again. Prefill variants are few (one per
+prompt length) and are never evicted. `last_built` says whether the latest
+call built its variant (ran the step eagerly and captured it), a step that
+takes tens of replays' time: a step clock reads it to leave such steps out.
 
 The first call with a key runs the step eagerly on a side stream (the real
 step; it also loads the kernel libraries and lets cuBLAS and the kernels'
@@ -64,6 +75,14 @@ class Variant:
     pool_bytes: int = 0             # device memory the capture reserved
 
 
+# Live decode variants kept before the least recently used is evicted. A
+# quarantine and its re-admission move a lane to basic and back: the cap
+# keeps the healthy key, the quarantined one and two more alive. On the
+# controller's closed loop no evicted key came back, and the cap held
+# qwen3-32b's pools (8 layers, ~694 MB a variant) to 2.8 GB (PERF.md §6).
+MAX_DECODE_VARIANTS = 4
+
+
 class CompiledStep:
     def __init__(
         self,
@@ -76,6 +95,7 @@ class CompiledStep:
         rcache: dict | None = None,
         graphs: bool,
         log: Callable[[str], None] | None = None,
+        max_decode_variants: int = MAX_DECODE_VARIANTS,
     ):
         self.params, self.cfg = params, cfg
         self.state, self.engine, self.rcache = state, engine, rcache
@@ -87,8 +107,17 @@ class CompiledStep:
         self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
                                   device=self.device)
         self.prompts: dict[tuple, torch.Tensor] = {}
-        self.variants: dict[tuple, Variant] = {}
-        self.captures = 0
+        # live variants, least recently used first
+        self.variants: collections.OrderedDict[tuple, Variant] = (
+            collections.OrderedDict())
+        if max_decode_variants < 1:
+            raise ValueError("max_decode_variants must be at least 1")
+        self.max_decode_variants = max_decode_variants
+        self.evictions = 0
+        self.last_built = False
+        # (kind, capture seconds, pool bytes) of every variant built,
+        # evicted ones included
+        self.built: list[tuple[str, float, int]] = []
         self._side = torch.cuda.Stream(self.device) if graphs else None
 
     # ------------------------------------------------------------- the keys
@@ -96,7 +125,9 @@ class CompiledStep:
     def spec_signature(self) -> tuple:
         if self.engine is None:
             return ()
-        return tuple(sorted(self.engine.sites.items()))
+        return tuple(sorted(
+            (name, dataclasses.replace(spec, max_active_k=None))
+            for name, spec in self.engine.sites.items()))
 
     def mode_signature(self) -> tuple:
         if self.engine is None or self.rcache is None:
@@ -145,15 +176,56 @@ class CompiledStep:
         """Tokens [B, 1] (host array or tensor) through one decode step.
         Returns the logits, valid until the next call."""
         self.tokens.copy_(torch.as_tensor(tokens))
-        return self._call(self.decode_key(), self.run_decode)
+        return self.decode_call(self.run_decode)
+
+    def decode_call(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """`fn` as one decode step: the budget lanes synced, then the variant
+        of the current decode key replayed, or built on its first call. A
+        caller that steps its own function over the engine's cache (a single
+        site, say) keys it as the serve's decode is keyed."""
+        if self.engine is not None:
+            self.engine.sync_budgets()
+        return self._call(self.decode_key(), fn)
 
     def _call(self, key: tuple, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
         v = self.variants.get(key)
+        self.last_built = v is None
         if v is None:
+            if key[0] == "decode":
+                self._make_room()
             return self._build(key, fn)
+        self.variants.move_to_end(key)
         if v.graph is None:
             return fn()
         return self.replay(v, key)
+
+    @property
+    def captures(self) -> int:
+        """Variants built (captured, or run directly), evicted ones
+        included."""
+        return len(self.built)
+
+    def live_decode(self) -> int:
+        return sum(1 for k in self.variants if k[0] == "decode")
+
+    def _make_room(self) -> None:
+        """Evict least recently used decode variants until one more fits
+        under the cap; their pools go back to the card."""
+        freed = False
+        while self.live_decode() >= self.max_decode_variants:
+            key = next(k for k in self.variants if k[0] == "decode")
+            v = self.variants.pop(key)
+            if v.graph is not None:
+                v.graph.reset()
+                freed = True
+            v.graph = v.out = None
+            self.evictions += 1
+            self.log(f"compiled step: evicted the least recently used decode "
+                     f"variant (pool {v.pool_bytes / 1e6:.1f} MB; evictions: "
+                     f"{self.evictions})")
+        if freed:
+            gc.collect()
+            torch.cuda.empty_cache()
 
     def replay(self, v: Variant, key: tuple) -> torch.Tensor:
         if v.key != key:
@@ -166,9 +238,9 @@ class CompiledStep:
     def _build(self, key: tuple, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
         kind = key[0]
         if not self.graphs:
-            self.captures += 1
+            self.built.append((kind, 0.0, 0))
             self.variants[key] = Variant(key, None, None, collections.Counter())
-            self.log(f"compiled step: {kind} variant {len(self.variants)} "
+            self.log(f"compiled step: {kind} variant {self._n_built(kind)} "
                      f"runs directly on {self.device} (captures: "
                      f"{self.captures})")
             return fn()
@@ -191,22 +263,32 @@ class CompiledStep:
                                "failed") from e
         seconds = time.perf_counter() - t0
         pool = torch.cuda.memory_reserved(self.device) - before
-        self.captures += 1
+        self.built.append((kind, seconds, pool))
         self.variants[key] = Variant(key, graph, gout, rec, seconds, pool)
         self.log(f"compiled step: captured {kind} variant "
-                 f"{len(self.variants)} in {seconds:.3f} s, pool "
+                 f"{self._n_built(kind)} in {seconds:.3f} s, pool "
                  f"{pool / 1e6:.1f} MB, {sum(rec.values())} kernel launches "
                  f"(captures: {self.captures})")
         return out
 
+    def _n_built(self, kind: str) -> int:
+        return sum(1 for k, _, _ in self.built if k == kind)
+
     def summary(self) -> dict:
-        """Variants by kind, captures, capture seconds and pool bytes."""
-        kinds = collections.Counter(k[0] for k in self.variants)
-        vs = self.variants.values()
-        return {"variants": len(self.variants), "decode": kinds["decode"],
-                "prefill": kinds["prefill"], "captures": self.captures,
-                "capture_s": sum(v.seconds for v in vs),
-                "pool_bytes": sum(v.pool_bytes for v in vs),
+        """Variants built by kind, captures, capture seconds and pool bytes
+        (evicted variants included); live decode variants against the cap,
+        evictions and the pools of the live variants."""
+        return {"variants": len(self.built),
+                "decode": self._n_built("decode"),
+                "prefill": self._n_built("prefill"),
+                "captures": self.captures,
+                "capture_s": sum(sec for _, sec, _ in self.built),
+                "pool_bytes": sum(pool for _, _, pool in self.built),
+                "live_decode": self.live_decode(),
+                "decode_cap": self.max_decode_variants,
+                "evictions": self.evictions,
+                "live_pool_bytes": sum(v.pool_bytes
+                                       for v in self.variants.values()),
                 "graphs": self.graphs}
 
 
@@ -216,4 +298,6 @@ def summary_line(s: dict) -> str:
     return (f"compiled step ({how}): {s['variants']} variants ({s['decode']} "
             f"decode, {s['prefill']} prefill), {s['captures']} captures, "
             f"capture {s['capture_s']:.3f} s, pools "
-            f"{s['pool_bytes'] / 1e6:.1f} MB")
+            f"{s['pool_bytes'] / 1e6:.1f} MB; live {s['live_decode']} decode "
+            f"variants (cap {s['decode_cap']}), {s['evictions']} evictions, "
+            f"live pools {s['live_pool_bytes'] / 1e6:.1f} MB")

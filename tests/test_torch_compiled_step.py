@@ -13,7 +13,10 @@ on the card, so its logic is tested here:
   - bitwise against the plain `prefill_step` / `decode_step` across slot
     recycling and policy refreshes;
   - every state and cache tensor keeps its storage (a graph holds pointers);
-  - variants are built only for unseen keys;
+  - variants are built only for unseen keys; a budget move keeps the
+    decode key (the accounting reads the engine's budget lanes) with the
+    reference's counters; past the cap the least recently used decode
+    variant is evicted, and a recurring key is built again;
   - the step functions copy no host data to the device and read no device
     value on the host (`lift_fresh`, `_local_scalar_dense`), either of
     which would break a capture on the card;
@@ -40,7 +43,7 @@ from repro_torch.kernels import backend, ops
 from repro_torch.launch import serve as tserve_cli
 from repro_torch.models import params_from_numpy
 from repro_torch.serve import serve_step as tserve
-from repro_torch.serve.compiled_step import CompiledStep, Variant
+from repro_torch.serve.compiled_step import CompiledStep, Variant, summary_line
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, reset_slot
 from test_torch_engine import assert_caches_match
 from test_torch_serve import configs as qwen3_configs
@@ -298,6 +301,90 @@ def test_variants_are_built_only_for_unseen_keys(rng):
     key = step.decode_key()
     engine.set_mode(step.rcache, "mlp_out", "basic")
     assert step.decode_key() == key
+
+
+def test_budget_move_keeps_the_decode_key(rng):
+    """On the ragged variant, a budget-only `set_budget` between steps
+    keeps the decode key (no capture), writes the site's budget lane in
+    place, and the sensor counters stay bitwise the reference's jitted
+    decode with the same move (overflow fallbacks and grid steps read the
+    new budget)."""
+    jcfg, tcfg, jpol, tpol, jparams, tparams = models(rng, "qwen3-32b",
+                                                      "ragged")
+    prompts = rng.integers(0, jcfg.vocab, (B, PROMPT)).astype(np.int32)
+    jeng = jserve.build_reuse_engine(jcfg, impl="pallas", block_k=64,
+                                     policy=jpol)
+    jstate, jrc = jserve.init_serve_state(jcfg, B, CACHE), jeng.init_cache(B)
+    jlog, jstate = jax.jit(lambda p, t, s: jserve.prefill_step(
+        p, jcfg, t, s))(jparams, jnp.asarray(prompts), jstate)
+    step, teng = compiled(tparams, tcfg, tpol)
+    step.prefill(prompts)
+    lane = teng.budget_lanes["attn_qkv"]
+    ptr = lane.data_ptr()
+    tok = np.array(jserve.greedy_sample(jlog))
+    keys = []
+    for i in range(STEPS):
+        if i in (2, 4):
+            budget = 2 if i == 2 else 1
+            for eng in (jeng, teng):
+                assert all(eng.set_budget(s, budget) for s in
+                           ("attn_qkv", "mlp_in"))
+            assert int(lane) == budget and lane.data_ptr() == ptr
+        jlog, jstate, jrc = jax.jit(lambda p, t, s, rc: jserve.decode_step(
+            p, jcfg, t, s, engine=jeng, reuse_cache=rc))(
+                jparams, jnp.asarray(tok), jstate, jrc)
+        step.decode(tok)
+        keys.append(step.decode_key())
+        assert step.last_built == (i == 0)
+        tok = np.array(jserve.greedy_sample(jlog))
+    assert len(set(keys)) == 1 and step.captures == 2
+    assert teng.sites["attn_qkv"].max_active_k == 1
+    assert_caches_match(jrc, step.rcache)
+    assert int(step.rcache["attn_qkv"]["sensor"]["overflow_fallbacks"]
+               .sum()) > 0
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3])
+def test_decode_variants_are_bounded_least_recently_used_first(rng, cap):
+    """Decode keys A, B, C, A, C, D through a CompiledStep capped at `cap`
+    live decode variants: past the cap the least recently used one is
+    evicted (never a prefill variant), a recurring key that was evicted is
+    built again, and the summary counts what was built, what lives and
+    what was evicted."""
+    _, tcfg, _, tpol, _, tparams = models(rng, "qwen3-32b", "default")
+    engine = tserve.build_reuse_engine(tcfg, impl="cuda", block_k=64,
+                                       policy=tpol)
+    state = tserve.init_serve_state(tcfg, B, CACHE, device="cpu")
+    step = CompiledStep(tparams, tcfg, state, batch=B, engine=engine,
+                        rcache=engine.init_cache(B, device="cpu"),
+                        graphs=False, max_decode_variants=cap)
+    step.prefill(rng.integers(0, tcfg.vocab, (B, PROMPT)).astype(np.int32))
+    tok = np.zeros((B, 1), np.int32)
+    layer_mode = {"A": None, "B": 0, "C": 1, "D": (0, 1)}
+    built, live = [], []
+    for name in "ABCACD":
+        for layer in range(2):
+            engine.set_mode(step.rcache, "attn_out", "reuse", layer=layer)
+        want = layer_mode[name]
+        for layer in ([want] if isinstance(want, int) else want or ()):
+            engine.set_mode(step.rcache, "attn_out", "basic", layer=layer)
+        step.decode(tok)
+        built.append(step.last_built)
+        live.append(step.live_decode())
+        assert step.live_decode() <= cap
+        assert step.summary()["prefill"] == 1
+    # the order A B C A C D: which calls built a variant at each cap
+    want_built = {1: [True] * 6,
+                  2: [True, True, True, True, False, True],
+                  3: [True, True, True, False, False, True]}[cap]
+    assert built == want_built
+    s = step.summary()
+    assert s["decode"] == sum(built) and s["live_decode"] == min(cap, 4)
+    assert s["evictions"] == sum(built) - s["live_decode"]
+    assert s["captures"] == s["decode"] + 1 and s["decode_cap"] == cap
+    assert (f"live {s['live_decode']} decode variants (cap {cap}), "
+            f"{s['evictions']} evictions") in summary_line(s)
+    assert ("prefill", (B, PROMPT)) in step.variants
 
 
 def test_replay_under_another_key_raises(rng):

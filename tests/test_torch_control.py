@@ -624,9 +624,14 @@ def test_serve_cli_with_control_on_cpu(capsys, tmp_path, arch):
                              "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "replay OK: trajectory reproduced" in out and "engine " in out
+    # a journal alone replays on any host, as the reference's does
+    capsys.readouterr()
+    assert tctl.replay.main([str(path)]) == 0
+    assert "replay OK: trajectory reproduced" in capsys.readouterr().out
     if not torch.cuda.is_available():
+        # an --arch engine defaults to the card and fails loudly without one
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            tctl.replay.main([str(path)])
+            tctl.replay.main([str(path), "--arch", arch, "--reduced"])
 
 
 def test_serve_affinity_without_controller_places_by_prediction():

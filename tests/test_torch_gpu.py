@@ -17,6 +17,7 @@ from repro_torch.control import ControlConfig, Controller
 from repro_torch.core.delta import compact_rows, delta_encode_int8
 from repro_torch.core.policy import ReusePolicy, SiteTunables
 from repro_torch.core.reuse_linear import basic_product
+from repro_torch.guard import FaultInjector, QuarantineBreaker
 from repro_torch.kernels import backend, ops
 from repro_torch.kernels.delta_quant import (
     delta_quant,
@@ -731,19 +732,22 @@ def test_fitted_ragged_table_captures_and_replays_on_card(card, tmp_path):
 
 # ------------------------------------------------------ the online control plane
 
-def _controlled(card, arch, graphs, monkeypatch, n_layers=None, profile_at=0):
+def _controlled(card, arch, graphs, monkeypatch, n_layers=None, profile_at=0,
+                guard=False):
     """A reduced bf16 model's measured decode on the reference's acceptance
     stream for the control plane (batch 2, correlation 1.0, 26 steps, a
-    burst at 19-22) with the Controller every 2 steps. Returns (journal
-    rows without `ts`, greedy tokens, launch counts, tensors, the run, the
-    controller, the profiled interval's device→host copies)."""
+    burst at 19-22) with the Controller every 2 steps (with `guard`, a
+    QuarantineBreaker attached). Returns (journal rows without `ts`, greedy
+    tokens, launch counts, tensors, the run, the controller, the profiled
+    interval's device→host copies)."""
     from repro_torch.sensor import runner
 
     cfg = dataclasses.replace(get_config(arch).reduced(),
                               param_dtype="bfloat16")
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    ctl = Controller(ControlConfig(min_window_steps=2))
+    ctl = Controller(ControlConfig(min_window_steps=2),
+                     guard=QuarantineBreaker() if guard else None)
     tokens, dtoh = [], {}
     greedy = runner.greedy_sample
     monkeypatch.setattr(runner, "greedy_sample",
@@ -815,6 +819,101 @@ def test_controller_interval_copies_to_host_once_per_read_on_card(
         seen[(arch, n_layers)] = dtoh["copies"]
     assert set(seen.values()) == {2}, seen
     backend.reset_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,n_layers", [("qwen3-32b", 2), ("rwkv6-7b", 2)])
+def test_guarded_interval_copies_one_more_on_card(card, monkeypatch, arch,
+                                                  n_layers):
+    """With the QuarantineBreaker attached, one Controller.step copies to
+    the host exactly once more than without it (the breaker's snapshot,
+    which carries the sentinel lanes in its one packed transfer)."""
+    copies = {}
+    for guard in (False, True):
+        *_, md, _, dtoh = _controlled(card, arch, False, monkeypatch,
+                                      n_layers=n_layers, profile_at=4,
+                                      guard=guard)
+        assert dtoh["windows"] == len(md.engine.sites)
+        copies[guard] = dtoh["copies"]
+    assert copies == {False: 2, True: 3}, copies
+    backend.reset_launches()
+
+
+def _guarded_serve_steps(card, graphs):
+    """A reduced bf16 qwen3 CompiledStep with the guarded Controller every 2
+    steps and a NaN poisoned into the last layer's mlp_out after step 3:
+    logits per step, tensors, journal rows, launch counts and the step."""
+    step = _reduced_step("qwen3-32b", card, graphs)
+    ctl = Controller(ControlConfig(), guard=QuarantineBreaker())
+    inj = FaultInjector("poison-nan", at_step=3, site="mlp_out",
+                        layer=step.cfg.n_layers - 1)
+    backend.reset_launches()
+    gen = torch.Generator(device=card).manual_seed(0)
+    logits = [step.prefill(torch.randint(
+        0, step.cfg.vocab, (2, 8), generator=gen, device=card)).clone()]
+    tok = logits[0][:, -1:].argmax(-1).to(torch.int32)
+    for i in range(1, 9):
+        logits.append(step.decode(tok).clone())
+        tok = logits[-1].argmax(-1).to(torch.int32)
+        inj.on_cache_update(step.rcache, i)
+        if i % 2 == 0:
+            ctl.step(step.engine, step.rcache, step=i)
+    torch.cuda.synchronize()
+    rows = [{k: v for k, v in r.items() if k != "ts"}
+            for rep in ctl.reports for r in rep.to_dicts()]
+    return (logits, _tensor_leaves(step.state) + _tensor_leaves(step.rcache),
+            rows, backend.launch_counts(), step)
+
+
+@pytest.mark.gpu
+def test_guarded_graph_step_matches_eager_step_on_card(card):
+    """The guarded decode through CUDA graphs equals its eager run bitwise:
+    logits per step (the NaN step included), the final state and reuse
+    cache, journal rows and launch counts; the quarantine of the poisoned
+    lane captured a variant and the logits are finite after the trip."""
+    le, te, re, ce, _ = _guarded_serve_steps(card, False)
+    lg, tg, rg, cg, step = _guarded_serve_steps(card, True)
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    for a, b in zip(le, lg):
+        assert torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype]))
+    assert all(torch.equal(a, b) for a, b in zip(te, tg))
+    assert re == rg and ce == cg
+    trips = [r for r in rg if r.get("decision_kind") == "quarantine"
+             and r.get("after") == "quarantined"]
+    assert [(r["step"], r["site"]) for r in trips] == [(4, "mlp_out")]
+    assert not torch.isfinite(lg[4]).all()
+    assert all(torch.isfinite(x).all() for x in lg[5:])
+    assert step.captures >= 3
+    backend.reset_launches()
+
+
+@pytest.mark.gpu
+def test_evicted_variant_returns_its_pool_on_card(card):
+    """Past the cap of live decode variants, the least recently used one is
+    evicted and its private pool goes back to the card: the reserved
+    memory drops by at least that pool, and its key is captured again when
+    it comes back."""
+    step = _reduced_step("qwen3-32b", card, graphs=True)
+    step.max_decode_variants = 1
+    tok = torch.ones((2, 1), dtype=torch.int32, device=card)
+    step.prefill(torch.ones((2, 8), dtype=torch.int32, device=card))
+    step.decode(tok)
+    key_a = step.decode_key()
+    pool = step.variants[key_a].pool_bytes
+    assert pool > 0
+    step.engine.set_mode(step.rcache, "attn_out", "basic", layer=0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(card)
+    step._make_room()
+    after = torch.cuda.memory_reserved(card)
+    assert key_a not in step.variants and step.evictions == 1
+    assert before - after >= pool, (before, after, pool)
+    step.decode(tok)                                   # captures key B
+    step.engine.set_mode(step.rcache, "attn_out", "reuse", layer=0)
+    step.decode(tok)                                   # key A again
+    s = step.summary()
+    assert (s["decode"], s["live_decode"], s["evictions"]) == (3, 1, 2)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -52,10 +52,18 @@ def configs(variant):
             s: JTunables(exec_path="ragged", max_active_k=1) for s in SITES})
         tpol = ReusePolicy(site_tunables={
             s: SiteTunables(exec_path="ragged", max_active_k=1) for s in SITES})
+    if variant == "dense":
+        # the reference's masked product outside any kernel (the guard's
+        # shadow oracle), with its masked full-grid accounting
+        jpol = JPolicy(site_tunables={
+            s: JTunables(exec_path="dense") for s in SITES})
+        tpol = ReusePolicy(site_tunables={
+            s: SiteTunables(exec_path="dense") for s in SITES})
     return jcfg, tcfg, jpol, tpol
 
 
-@pytest.mark.parametrize("variant", ["default", "input_stationary", "ragged"])
+@pytest.mark.parametrize("variant", ["default", "input_stationary", "ragged",
+                                     "dense"])
 def test_decode_slice_matches_jax(rng, variant):
     jcfg, tcfg, jpol, tpol = configs(variant)
     assert tcfg == type(tcfg)(**dataclasses.asdict(jcfg))
@@ -100,6 +108,8 @@ def test_decode_slice_matches_jax(rng, variant):
     if variant == "ragged":
         assert sum(int(e["sensor"]["overflow_fallbacks"].sum())
                    for e in trc.values()) > 0
+    if variant == "dense":
+        assert {s.exec_path for s in teng.sites.values()} == {"dense"}
 
 
 def test_params_from_numpy_carries_bf16_exactly():
@@ -130,6 +140,51 @@ def test_serve_cli_on_cpu(capsys):
     assert "served 3/3 requests" in out
 
 
+def test_serve_inject_prints_the_reference_guard_lines(capsys, monkeypatch,
+                                                     tmp_path):
+    """`serve --inject` with the controller on reduced qwen3: the port's
+    serve and the reference's arm the same fault, trip the same lane and
+    print the same `guard plane:` and `fault injection:` lines. The fault
+    lands at step 4, just before that step's control interval looks, so it
+    trips in both; six decode steps, fewer than the watchdog's eight
+    samples, so no wall-clock verdict can enter the lines."""
+    from repro.launch import serve as jserve_cli
+
+    argv = ["--arch", "qwen3-32b", "--reduced", "--requests", "4",
+            "--batch-slots", "2", "--prompt-len", "4", "--cache-len", "24",
+            "--max-new", "4", "--reuse", "--control-every", "2",
+            "--inject", "poison-nan:at_step=4,site=mlp_out,layer=1"]
+    res = tserve_cli.run(ARCHS["qwen3-32b"].reduced(),
+                         tserve_cli.build_parser().parse_args(
+                             argv + ["--control-journal",
+                                     str(tmp_path / "t.jsonl"),
+                                     "--device", "cpu"]))
+    port = capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", ["serve", *argv, "--control-journal",
+                                     str(tmp_path / "j.jsonl")])
+    jserve_cli.main()
+    ref = capsys.readouterr().out
+
+    def guard_lines(text):
+        lines = text.splitlines()
+        keep = [ln for ln in lines if ln.startswith(
+            ("guard plane:", "fault injection", "inject @step",
+             "straggler:"))]
+        at = lines.index(next(ln for ln in lines
+                              if ln.startswith("fault injection:")))
+        return keep + [ln for ln in lines[at + 1:] if ln.startswith("  ")]
+
+    assert guard_lines(port) == guard_lines(ref)
+    assert "guard plane: 1 sentinel trips, 0 stall windows" in port
+    assert "poison-nan @step 4: prev_out[...,0,0] = NaN" in port
+    assert res["breaker"].total_trips == 1 and res["injector"].fired
+    assert res["breaker"].stall_windows == 0
+    assert res["controller"].guard is res["breaker"]
+    with pytest.raises(ValueError, match="--inject requires --reuse"):
+        tserve_cli.main(["--arch", "qwen3-32b", "--reduced", "--inject",
+                         "stall", "--device", "cpu"])
+
+
 def test_serve_default_device_fails_loudly_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
@@ -152,10 +207,13 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # the control plane is covered too
+    # the control plane and the guard plane are covered too
     assert {f.name for f in files if f.parent.name == "control"} >= {
         "report.py", "admit.py", "budget.py", "retune.py", "controller.py",
         "replay.py", "__init__.py"}
+    assert {f.name for f in files if f.parent.name == "guard"} >= {
+        "sentinel.py", "quarantine.py", "inject.py", "watchdog.py",
+        "__init__.py"}
     bad = []
     for f in files:
         for mod in _imports(f):
