@@ -141,14 +141,41 @@ every phase's failure is fatal (non-zero exit, no result line):
                 breaker's snapshot alone and forced into every snapshot,
                 in turns; the serve's ms a token over the replayed steps,
                 each with the host work after it
+  11. obs     — the observability plane (repro_torch.obs) on the compiled
+                serve: (a) phase 4's serve with --obs-dir through the
+                graphs: the latency table covers every site x {basic,
+                kernel, ragged where gk >= 2}, each path 5 timed calls, and
+                reads "compiled"; metrics.prom and metrics.jsonl parse back;
+                one serve_step span per decode step; the same probe (f32
+                weights, the reference's draws) run directly with every
+                kernel call held against its plain version, its final site
+                caches bitwise the graph probe's; per site and path the
+                host p50 and the device ms between CUDA events; mlp_in's
+                f32 kernel beside phase 3's bf16 one; (b) phase 4's serve
+                with --control-every 2 --latency-table (a's table),
+                eager-checked then graphs, equal tokens and journal rows;
+                the lanes demoted against 9b's constant pricing; (c) the
+                graph serve with --obs --profile-dir: the Chrome trace holds
+                one serve_step range per step (kernels by name printed);
+                (d) replicas.run, 2 replicas on repeat traffic, one wave
+                of 2 requests x 32 tokens each: clean, no SLO alert;
+                poison-sim at step 24 on r1, alerts naming r1 alone;
+                fleet_report.json with 2 replicas; `python -m
+                repro_torch.obs.top --fleet <out> --once` renders; each
+                replica's tokens a second, variants, evictions and pools;
+                then, as a diagnostic with no gate, the clean fleet of 4
+                requests x 16 tokens, whose second wave starts at the
+                interval of step 16: its alerts printed; and the trace of
+                (c) names each of the port's kernels as often as the run
+                launched it
 
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
 pools, device busy and idle share), a JSON line of phase 8 (its runs, the
 sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
 closed loops; the controlled serve and the basic-mode product) and of
-phase 10, the kernels JSON line (launch counts from the serve runs and the
-int8 path, and per phase 8, 9 and 10 run; errors and times from phase 3)
+phase 10, a JSON line of phase 11, the kernels JSON line (launch counts from the serve runs and the
+int8 path, and per phase 8, 9, 10 and 11 run; errors and times from phase 3)
 and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The controlled and guarded serves' whole output goes to
 chiprun_out/chip_smoke/.
@@ -169,6 +196,7 @@ import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1382,18 +1410,19 @@ def control_pair(label, arch, cfg, params, dev, max_err, tmp) -> dict:
             "launches": dict(want["counts"])}
 
 
-def control_serve_phase(cfg, argv, drive, logdir):
-    """Phase 9b: the serve of `argv` (phase 4's) with `--control-every 2
-    --control-journal`, eagerly under the per-call checks (`drive`), then
-    through the graphs. Tokens, SensorReport lines, journal rows (without
-    `ts`), the `control plane:` line, specs, launch counts and mode mirrors
-    equal, the final reuse cache and decode state bitwise. The serves'
-    whole output goes to `logdir`. Returns (the row of the JSON line, the
-    launch counts)."""
+def control_serve_phase(cfg, argv, drive, logdir, *,
+                        label="qwen3 serve --control-every 2", log="phase9b"):
+    """Phase 9b (and 11b, with `--latency-table` in `argv`): the serve of
+    `argv` (phase 4's) with `--control-every 2 --control-journal`, eagerly
+    under the per-call checks (`drive`), then through the graphs. Tokens,
+    SensorReport lines, journal rows (without `ts`), the `control plane:`
+    line, specs, launch counts and mode mirrors equal, the final reuse cache
+    and decode state bitwise. The serves' whole output goes to
+    `logdir/<log>_<how>.log`. Returns (the row of the JSON line, the launch
+    counts)."""
     from repro_torch.control import load_journal
     from repro_torch.serve.compiled_step import summary_line
 
-    label = "qwen3 serve --control-every 2"
     logdir.mkdir(parents=True, exist_ok=True)
     served = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1405,7 +1434,7 @@ def control_serve_phase(cfg, argv, drive, logdir):
             res, counts, text = drive(
                 cfg, argv + ["--control-every", "2", "--control-journal",
                              journal] + (["--eager"] if how == "eager" else []),
-                check=how == "eager", log_to=logdir / f"phase9b_{how}.log")
+                check=how == "eager", log_to=logdir / f"{log}_{how}.log")
             eng, rc = res["engine"], res["rcache"]
             served[how] = dict(
                 outcome(res, text), counts=counts, specs=dict(eng.sites),
@@ -2001,6 +2030,324 @@ def guard_cost(label, arch, cfg, params, dev) -> dict:
             "ctrl_snapshot_ms": med, "ctrl_snapshot_ms_all": snap_ms,
             "ctrl_snapshot_sentinels_ms": lanes,
             "ctrl_snapshot_sentinels_ms_all": lane_ms}
+
+
+# phase 11: the observability plane on the compiled serve. (a) phase 4's
+# serve with --obs-dir: spans, metrics and the latency table probed through
+# CUDA graphs of each path, then the probe run eagerly under the per-call
+# checks, its caches bitwise the graph probe's; (b) phase 4's serve with
+# --control-every 2 --latency-table (a's table), eager-checked then graphs;
+# (c) --profile-dir; (d) the replica harness, clean and with poison-sim on r1
+# (one wave of 2 requests on the 2 slots of each replica), and the clean
+# fleet whose second wave starts at a control interval (a diagnostic)
+FLEET_ARGV = ["--arch", "qwen3-32b", "--replicas", "2", "--requests", "2",
+              "--max-new", "32", "--control-every", "4", "--traffic",
+              "repeat"]
+FLEET_INJECT = "poison-sim:at_step=24"
+FLEET_BOUNDARY = ["--requests", "4", "--max-new", "16"]
+# the kernels of a profile by the name of their instance (the three float
+# ΔW GEMMs are instances of one tile loop, `cluster_gemm<T, List>`)
+TRACE_NAMES = {"delta_quant": "delta_quant", "reuse_matmul_output": "MaskList",
+               "reuse_matmul_input": "InputList",
+               "reuse_matmul_ragged": "RaggedList"}
+OBS_ITERS = 5  # the timed calls a path of `probe_latency_table`
+
+
+def probe_device_ms(spans) -> dict:
+    """{(site, path): median device ms} of the probe's `site_probe` spans
+    (CUDA events around each timed call)."""
+    by = collections.defaultdict(list)
+    for r in spans:
+        if r["name"] == "site_probe":
+            by[(r["site"], r["exec_path"])].append(
+                r.get("device_s", math.nan) * 1e3)
+    return {k: statistics.median(v) for k, v in by.items()}
+
+
+def obs_serve_phase(cfg, argv, drive, dev, max_err, results, logdir):
+    """Phase 11a: the graph serve of `argv` with `--obs-dir` (the table
+    probed through CUDA graphs, its call recorded: caches, skip rates,
+    launches), every file checked; then the same probe run directly under
+    the per-call checks, caches bitwise equal. Returns (the row of the
+    JSON line, {run: launch counts}, the table's path)."""
+    from repro_torch.kernels import backend, ops
+    from repro_torch.kernels.reuse_matmul import reuse_matmul
+    from repro_torch.obs import latency as lat_mod
+    from repro_torch.obs.export import load_snapshots, parse_prometheus
+
+    label = "qwen3 serve --obs-dir"
+    d = logdir / "phase11a_obs"
+    shutil.rmtree(d, ignore_errors=True)
+    orig, seen = lat_mod.probe_latency_table, {}
+
+    def recording(engine, batch, **kw):
+        kw["caches"] = seen["caches"] = {}
+        seen.update(skips=dict(kw["skip_rates"]), graphs=kw["graphs"],
+                    batch=batch)
+        torch.cuda.synchronize()
+        before, t0 = backend.launch_counts(), time.perf_counter()
+        table = orig(engine, batch, **kw)
+        torch.cuda.synchronize()
+        seen["seconds"] = time.perf_counter() - t0
+        after = backend.launch_counts()
+        seen["launches"] = {k: after[k] - before[k] for k in after}
+        return table
+
+    print(f"--- {label}: graph serve, then its probe")
+    lat_mod.probe_latency_table = recording
+    try:
+        res, counts, text = drive(cfg, argv + ["--obs-dir", str(d)],
+                                  check=False,
+                                  log_to=logdir / "phase11a_graph.log")
+    finally:
+        lat_mod.probe_latency_table = orig
+    if not seen["graphs"]:
+        fail(f"{label}: the probe ran without CUDA graphs")
+    engine, steps = res["engine"], res["stats"]["steps"]
+    table = lat_mod.load_latency_table(str(d / "latency_table.json"))
+    prov = lat_mod.table_provenance(table)
+    want = {}
+    for name, spec in engine.sites.items():
+        gk = -(-spec.in_features // spec.block_k)
+        want[name] = {"basic", "kernel"} | ({"ragged"} if gk >= 2 else set())
+        got = table.paths_for(name)
+        if set(got) != want[name] or \
+                any(st.count != OBS_ITERS for st in got.values()):
+            fail(f"{label}: table covers {name} with "
+                 f"{ {p: st.count for p, st in got.items()} }, want "
+                 f"{sorted(want[name])} x {OBS_ITERS}")
+    if prov != "compiled":
+        fail(f"{label}: table provenance {prov!r}, not 'compiled'")
+    prom = parse_prometheus((d / "metrics.prom").read_text())
+    snaps = load_snapshots(str(d / "metrics.jsonl"))
+    spans = [json.loads(ln) for ln in open(d / "spans.jsonl")]
+    n_step = sum(r["name"] == "serve_step" for r in spans)
+    n_prefill = sum(r["name"] == "prefill" for r in spans)
+    if n_step != steps or prom["span_serve_step_seconds_count"][""] != steps:
+        fail(f"{label}: {n_step} serve_step spans for {steps} decode steps")
+    if n_prefill != len(res["done"]) or not snaps:
+        fail(f"{label}: {n_prefill} prefill spans, {len(snaps)} snapshots")
+    dev_ms = probe_device_ms(spans)
+    print(f"{label}: {len(table)} table rows, provenance {prov}; "
+          f"{n_step} serve_step spans for {steps} steps, {n_prefill} "
+          f"prefill spans, metrics.prom {sum(map(len, prom.values()))} "
+          f"samples, {len(snaps)} snapshot(s); probe "
+          f"{seen['seconds']:.2f} s at skips "
+          + ", ".join(f"{s} {v:.3f}" for s, v in seen["skips"].items()))
+    print(f"{label}: probed per site and path (f32 weights, batch "
+          f"{seen['batch']}; host p50 of {OBS_ITERS} calls around a "
+          "synchronize, and the median device ms between CUDA events):")
+    rows = []
+    for r in table.rows():
+        key = (r["site"], r["exec_path"])
+        print(f"  {r['site']:9s} {r['exec_path']:7s} p50 "
+              f"{r['p50_s'] * 1e3:8.4f} ms  device {dev_ms[key]:8.4f} ms")
+        rows.append({"site": r["site"], "path": r["exec_path"],
+                     "p50_ms": r["p50_s"] * 1e3, "device_ms": dev_ms[key]})
+    serve_counts = {k: counts[k] - seen["launches"][k] for k in counts}
+    graph_caches, graph_launches = seen["caches"], seen["launches"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same probe, run directly, every kernel call held against its
+    # plain version; the caches it leaves must equal the graph probe's
+    print(f"--- {label}: the probe run directly, under the per-call checks")
+    backend.reset_launches()
+    eager_caches = {}
+    with PathCheck(ops) as chk:
+        lat_mod.probe_latency_table(engine, seen["batch"],
+                                    skip_rates=seen["skips"], device=dev,
+                                    graphs=False, caches=eager_caches)
+    torch.cuda.synchronize()
+    eager_launches = backend.launch_counts()
+    if chk.checked != eager_launches:
+        fail(f"{label}: probe kernel calls checked {chk.checked} != "
+             f"launches {eager_launches}")
+    if eager_launches != graph_launches:
+        fail(f"{label}: eager probe launches {eager_launches} != graph "
+             f"probe {graph_launches}")
+    for kn, n in chk.checked.items():
+        if n:
+            max_err[kn] = max(max_err[kn], chk.max_err[kn])
+    if eager_caches.keys() != graph_caches.keys():
+        fail(f"{label}: probed paths differ between the runs")
+    diff = [(key, leaf) for key, c in eager_caches.items()
+            for leaf, t in tensor_leaves(c).items()
+            if not bitwise_equal(t, tensor_leaves(graph_caches[key])[leaf])]
+    if diff:
+        fail(f"{label}: eager and graph probe caches differ at {diff[:6]}")
+    print(f"{label}: eager probe: every kernel call held against its plain "
+          "version (max err " + ", ".join(
+              f"{kn} {chk.max_err[kn]:.3e}"
+              for kn, n in chk.checked.items() if n)
+          + f"); launches {eager_launches} equal the graph probe's; the "
+          f"{len(eager_caches)} final site caches bitwise the graph probe's")
+
+    # the probe's weights are f32, the serve's bf16: mlp_in's kernel path
+    # beside phase 3's bf16 kernel at the same shape, and the f32 kernel
+    k, n = (engine.sites["mlp_in"].in_features,
+            engine.sites["mlp_in"].out_features)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    delta, w, prev, mask = gemm_operands(M, k, n, 0.0, torch.float32, gen,
+                                         dev)
+    f32_ms = time_ms(lambda: reuse_matmul(
+        delta, w, prev, mask, block_m=BM, block_n=BN, block_k=BK,
+        dataflow="output"))
+    bf16_ms = results["reuse_matmul_output"]["by_shape"][
+        f"mlp_in [{M},{k}]x[{k},{n}] skip 0.0"]["ms"]
+    p50 = table.stat("mlp_in", "kernel").p50_s * 1e3
+    print(f"{label}: mlp_in [{M},{k}]x[{k},{n}]: the probe's kernel path "
+          f"(f32 weights, the whole reuse_linear call) p50 {p50:.4f} ms, "
+          f"device {dev_ms[('mlp_in', 'kernel')]:.4f} ms; the f32 "
+          f"output-stationary kernel alone {f32_ms:.4f} ms; phase 3's bf16 "
+          f"kernel {bf16_ms:.4f} ms ({f32_ms / bf16_ms:.2f}x)")
+    del delta, w, prev, mask, eager_caches, graph_caches, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"rows": rows, "probe_s": seen["seconds"], "skips": seen["skips"],
+           "serve_steps": steps, "mlp_in_f32_kernel_ms": f32_ms,
+           "mlp_in_bf16_kernel_ms": bf16_ms}
+    launches = {"obs serve (graph)": serve_counts,
+                "probe (graph)": graph_launches,
+                "probe (eager, checked)": eager_launches}
+    return row, launches, d / "latency_table.json"
+
+
+def profile_phase(cfg, argv, drive, logdir) -> dict:
+    """Phase 11c: the graph serve with `--obs --profile-dir`: the Chrome
+    trace must exist, hold one `serve_step` range per decode step, and
+    name each of the port's kernels as often as the run launched it (the
+    replays' kernels included); prints what else it holds."""
+    label = "qwen3 serve --obs --profile-dir"
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"--- {label}: graph serve")
+        res, counts, text = drive(cfg, argv + ["--obs", "--profile-dir", tmp],
+                                  check=False,
+                                  log_to=logdir / "phase11c_graph.log")
+        path = pathlib.Path(tmp) / "trace.json"
+        if res["profile"] != str(path) or not path.exists():
+            fail(f"{label}: no Chrome trace at {path}")
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    steps = res["stats"]["steps"]
+    cats = collections.Counter(e.get("cat", "?") for e in events)
+    names = collections.Counter(e["name"] for e in events
+                                if e.get("cat") == "kernel")
+    n_step = sum(e.get("name") == "serve_step" and
+                 e.get("cat") == "user_annotation" for e in events)
+    n_graph = sum("GraphLaunch" in e.get("name", "") for e in events)
+    print(f"{label}: trace {size / 1e6:.1f} MB, {len(events)} events by "
+          f"category {dict(cats.most_common(8))}; {n_step} serve_step ranges "
+          f"for {steps} decode steps; {n_graph} graph-launch calls; "
+          f"{sum(names.values())} kernel events, {len(names)} names")
+    for kname, c in names.most_common(8):
+        print(f"    {c:6d}x  {kname[:100]}")
+    ours = {kn: sum(c for nm, c in names.items() if key in nm)
+            for kn, key in TRACE_NAMES.items()}
+    print(f"{label}: the port's kernels in the trace by name: {ours}; "
+          f"launched in the run: { {kn: counts[kn] for kn in ours} }")
+    if n_step != steps:
+        fail(f"{label}: {n_step} serve_step ranges in the trace for {steps} "
+             "decode steps")
+    if any(ours[kn] != counts[kn] for kn in ours):
+        fail(f"{label}: the trace names the port's kernels {ours} times, "
+             "not as often as the run launched them")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"trace_mb": size / 1e6, "events": len(events),
+            "categories": dict(cats), "serve_step_ranges": n_step,
+            "graph_launches": n_graph, "kernel_events": sum(names.values()),
+            "port_kernels": ours}
+
+
+def fleet_phase(cfg, logdir) -> tuple[dict, dict]:
+    """Phase 11d: `replicas.run` with 2 replicas on repeat traffic, clean
+    and with poison-sim armed on r1: no alert on the clean fleet, alerts
+    naming r1 alone on the injected one; the fleet report has 2 replicas;
+    `python -m repro_torch.obs.top --fleet <out> --once` renders it. Then,
+    as a diagnostic with no gate, the clean fleet whose second wave of
+    requests starts at a control interval (`FLEET_BOUNDARY`): its alerts
+    are printed. Returns (the row of the JSON line, {run: launch
+    counts})."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch import replicas
+
+    row, launches = {}, {}
+    for how, extra in (("clean", []), ("inject", ["--inject", FLEET_INJECT]),
+                       ("boundary", FLEET_BOUNDARY)):
+        label = f"fleet of 2 ({how})"
+        out = logdir / f"phase11d_{how}"
+        shutil.rmtree(out, ignore_errors=True)
+        args = replicas.build_parser().parse_args(
+            FLEET_ARGV + extra + ["--out", str(out)])
+        print(f"--- {label}: replicas.run {' '.join(FLEET_ARGV + extra)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        backend.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            res = replicas.run(cfg, args)
+        torch.cuda.synchronize()
+        launches[f"fleet ({how})"] = backend.launch_counts()
+        text = buf.getvalue()
+        (logdir / f"phase11d_{how}.log").write_text(text)
+        for ln in text.splitlines():
+            if ln.startswith(("SLO alert", "FleetReport", "  replica",
+                              "fleet", "[r0] run", "[r1] run")) or \
+                    "inject" in ln:
+                print(f"  {ln}")
+        alerts = [(a["alert_kind"], a["replica"], a["site"])
+                  for a in res["alerts"]]
+        with open(out / "fleet_report.json") as f:
+            rep = json.load(f)
+        if rep["n_replicas"] != 2:
+            fail(f"{label}: fleet report has {rep['n_replicas']} replicas")
+        if how == "clean" and alerts:
+            fail(f"{label}: alerts on the clean fleet: {alerts}")
+        if how == "boundary":
+            print(f"{label}: diagnostic, no gate: {len(alerts)} alerts "
+                  f"{alerts}")
+        if how == "inject" and (not alerts or
+                                {r for _, r, _ in alerts} != {"r1"}):
+            fail(f"{label}: alerts {alerts}, want alerts naming r1 alone")
+        reps = {}
+        for r in res["replicas"]:
+            s = r.step.summary()
+            tokens = r.batcher.stats["emitted_tokens"]
+            reps[r.name] = {
+                "tokens": tokens, "turn_s": r.turn_s,
+                "tokens_per_s": tokens / r.turn_s,
+                "variants": s["variants"], "decode_variants": s["decode"],
+                "evictions": s["evictions"],
+                "live_pool_mb": s["live_pool_bytes"] / 1e6,
+                "pool_mb": s["pool_bytes"] / 1e6,
+                "trips": r.breaker.total_trips}
+            print(f"{label}: {r.name}: {tokens} tokens in {r.turn_s:.2f} s "
+                  f"of its turns ({tokens / r.turn_s:.1f} tokens/s); "
+                  f"{s['variants']} variants built ({s['decode']} decode), "
+                  f"{s['evictions']} evictions, live pools "
+                  f"{s['live_pool_bytes'] / 1e6:.1f} MB (captured "
+                  f"{s['pool_bytes'] / 1e6:.1f} MB)")
+        top = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.top", "--fleet",
+             str(out), "--once"], capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=str(pathlib.Path(
+                __file__).resolve().parent / "src")))
+        if top.returncode != 0 or "(2 replicas)" not in top.stdout:
+            fail(f"{label}: obs.top --fleet returned {top.returncode}: "
+                 f"{top.stderr[-500:]}")
+        print(f"{label}: python -m repro_torch.obs.top --fleet {out.name} "
+              "--once:")
+        print("\n".join(f"    {ln}" for ln in top.stdout.splitlines()))
+        row[how] = {"alerts": alerts, "seconds": res["seconds"],
+                    "replicas": reps,
+                    "fleet_mac_skip": rep["fleet"]["mac_skip_rate"]}
+        del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, launches
 
 
 def main() -> None:
@@ -2836,6 +3183,33 @@ def main() -> None:
     print(json.dumps({"guard": {"chaos": chaos, "serve": guard_serve,
                                 "interval_cost": interval_cost}}))
 
+    # --------------------------------------- 11. the observability plane
+    phase("11. the observability plane (obs serve, measured pricing, "
+          "profile, fleet)")
+    logdir = root / "chiprun_out" / "chip_smoke"
+    obs, launches_obs, table_path = obs_serve_phase(
+        cfg, serve_argv, drive, dev, max_err, results, logdir)
+    label = "qwen3 serve --control-every 2 --latency-table"
+    priced, counts = control_serve_phase(
+        cfg, serve_argv + ["--latency-table", str(table_path)], drive,
+        logdir, label=label, log="phase11b")
+    launches_obs["priced serve (eager, checked)"] = counts
+    lanes = {(s, i): (m, priced["layer_modes"][s][i])
+             for s, modes in control_serve["layer_modes"].items()
+             for i, m in enumerate(modes)}
+    demoted = sorted(f"{s}@{i}" for (s, i), (a, b) in lanes.items()
+                     if a == "reuse" and b == "basic")
+    print(f"{label}: against phase 9b's constant pricing, "
+          f"{len(demoted)} of {len(lanes)} lanes demoted to basic "
+          f"{demoted or ''}; decisions {priced['decisions']} (9b: "
+          f"{control_serve['decisions']})")
+    priced["demoted_vs_9b"] = demoted
+    obs["priced_serve"] = priced
+    obs["profile"] = profile_phase(cfg, serve_argv, drive, logdir)
+    fleet, counts = fleet_phase(cfg, logdir)
+    launches_obs.update(counts)
+    print(json.dumps({"obs": obs, "fleet": fleet}))
+
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
                      "wkv6_decode": launches_rwkv,
@@ -2851,7 +3225,9 @@ def main() -> None:
                         "launches_control": {
                             run: c[kn] for run, c in launches_control.items()},
                         "launches_guard": {
-                            run: c[kn] for run, c in launches_guard.items()}})
+                            run: c[kn] for run, c in launches_guard.items()},
+                        "launches_obs": {
+                            run: c[kn] for run, c in launches_obs.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))

@@ -103,9 +103,9 @@ class ControlConfig:
     # always match the substrate the engine executes.
     fit: FitConfig = dataclasses.field(default_factory=FitConfig)
     # Measured per-(site, layer, exec_path) latency table to price retunes
-    # from (the reference's `obs_latency_table` JSON). Its loader
-    # (obs/latency.py) is not ported yet: a path raises at Controller
-    # construction; a loaded table goes in as `Controller(latency=...)`.
+    # from (an `obs_latency_table` JSON — serve --obs-dir writes one). Loaded
+    # at Controller construction and injected into the harvest model; every
+    # decision it influences carries the measured evidence in its reason.
     latency_table_path: str | None = None
 
 
@@ -134,11 +134,9 @@ class Controller:
             journal = DecisionJournal(config.journal_path)
         self.journal = journal
         if latency is None and config.latency_table_path:
-            raise NotImplementedError(
-                "latency_table_path: the measured latency table "
-                "(obs/latency.py) is not ported yet (ROADMAP Queue 1 item "
-                "8); pass a table with .stat() and .paths_for() as "
-                "`latency=`")
+            from repro_torch.obs.latency import load_latency_table
+
+            latency = load_latency_table(config.latency_table_path)
         self.latency = latency  # obs LatencyTable or None (constant pricing)
         self.reports: list[ControlReport] = []
         self._snaps: dict[str, dict] = {}

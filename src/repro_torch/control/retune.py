@@ -145,12 +145,13 @@ def window_record(
     """The window's measured operating point as a solver-ready trace record
     (counter deltas between two snapshots), or None for an empty window.
 
-    Recycled lanes are filtered best-effort: a legitimate lane delta always
-    satisfies 0 <= d_hit <= d_steps (each evaluation adds one step and a
-    [0, 1] similarity), so lanes whose accumulators went backwards OR
-    out-accumulated their step delta (reset_slot zeroed them mid-window and
-    a new occupant overran the old sums) drop out of the window's hit rate
-    rather than poisoning it with cross-session or >1 values."""
+    Recycled lanes are filtered best-effort: a legitimate lane delta
+    satisfies 0 <= d_hit <= d_steps up to the f32 accumulator's rounding
+    (each evaluation adds one step and a [0, 1] similarity), so lanes whose
+    accumulators went backwards OR out-accumulated their step delta
+    (reset_slot zeroed them mid-window and a new occupant overran the old
+    sums) drop out of the window's hit rate rather than poisoning it with
+    cross-session or >1 values (`_window_hit_rate`)."""
     d = {k: cur[k] - prev[k] for k in cur if isinstance(cur[k], float)}
     steps = int(round(d["steps"]))
     if steps <= 0:
@@ -158,6 +159,7 @@ def window_record(
     hit = _window_hit_rate(
         cur["slot_hit_sum"] - prev["slot_hit_sum"],
         cur["slot_steps"] - prev["slot_steps"],
+        cur["slot_hit_sum"],
     )
     return _record_from_deltas(
         name, spec, mode, exec_path, d, hit,
@@ -165,9 +167,24 @@ def window_record(
     )
 
 
-def _window_hit_rate(d_hit: np.ndarray, d_ss: np.ndarray) -> float:
-    active = (d_ss > 0) & (d_hit >= 0.0) & (d_hit <= d_ss)
-    return float(np.mean(d_hit[active] / d_ss[active])) if active.any() else 0.0
+def _window_hit_rate(d_hit: np.ndarray, d_ss: np.ndarray,
+                     hit_end: np.ndarray) -> float:
+    """Mean per-slot hit rate of a window from the lanes' deltas.
+
+    Each evaluation adds a similarity in [0, 1] (K·f32(1/K), which can
+    exceed 1 by an ulp's fraction) to an f32 accumulator that rounds by up
+    to half an ulp of its value, so a lane whose every evaluation matched
+    can close its window a few ulps past `d_ss`. The reference's filter
+    (`d_hit <= d_ss`) drops such a lane — at full width a lane that reused
+    everything — and with every lane dropped reads the window as hit 0, so
+    the retuner demotes the lane that reuses most. Here a lane within that
+    rounding slack (one ulp of its end value a step) counts, at rate 1;
+    lanes further past, or gone backwards (reset mid-window), drop out."""
+    slack = d_ss * np.spacing(np.maximum(hit_end, 1.0).astype(np.float32))
+    active = (d_ss > 0) & (d_hit >= 0.0) & (d_hit <= d_ss + slack)
+    if not active.any():
+        return 0.0
+    return float(np.mean(np.minimum(d_hit[active] / d_ss[active], 1.0)))
 
 
 def _record_from_deltas(
@@ -244,6 +261,7 @@ def window_layer_records(
         hit = _window_hit_rate(
             cl["slot_hit_sum"][layer] - pl["slot_hit_sum"][layer],
             cl["slot_steps"][layer] - pl["slot_steps"][layer],
+            cl["slot_hit_sum"][layer],
         )
         mode = layer_modes[layer] if layer < len(layer_modes) else "auto"
         out[layer] = _record_from_deltas(

@@ -43,6 +43,21 @@ probation and move the breaker's lifecycle off the reference's. The
 step's decode plus the host work after it (a control interval, a mode
 refresh, the injector).
 
+Observability (`repro_torch.obs`): `--obs` turns on span tracing (a
+`prefill` span per admission, a `serve_step` span per decode step) and a
+metrics registry for the run; `--obs-dir OUT` also exports `metrics.prom`
+(Prometheus textfile), `metrics.jsonl` (snapshots for `python -m
+repro_torch.obs.top`), `spans.jsonl`, and `latency_table.json` — the
+measured per-(site, exec_path) latencies, probed at the run's measured skip
+rates (on the card through CUDA graphs of each path; with `--eager`,
+directly). Feed that table back with `--latency-table` (with
+`--control-every`), or to `python -m repro_torch.tune.fit --latency-table`,
+and break-even and exec decisions are priced from measured wall-clock.
+`--profile-dir DIR` opens a `torch.profiler` window around the serve loop
+and writes its Chrome trace to `DIR/trace.json`; the spans' ranges line up
+with the device slices. `--replica-id ID` stamps every emitted row with
+`replica=ID` for the fleet aggregator (`repro_torch.obs.fleet`).
+
 `run(cfg, args)` is the callable entry (chip_smoke.py drives it with a config
 cut in depth); `main()` parses the flags and calls it.
 """
@@ -50,6 +65,7 @@ cut in depth); `main()` parses the flags and calls it.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable
 
@@ -63,6 +79,7 @@ from repro_torch.core.reuse_cache import cache_bytes
 from repro_torch.kernels import backend
 from repro_torch.models import init_params
 from repro_torch.obs import events
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sensor.aggregate import slot_telemetry
 from repro_torch.serve.compiled_step import CompiledStep, summary_line
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, reset_slot
@@ -110,6 +127,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eager", action="store_true",
                     help="run each step directly instead of replaying its "
                     "CUDA graph")
+    ap.add_argument("--obs", action="store_true",
+                    help="enable the observability plane: perf_counter spans "
+                    "around serve steps/prefills, correlation ids stamped on "
+                    "sensor/journal rows, metrics aggregation")
+    ap.add_argument("--replica-id", default=None,
+                    help="fleet replica identity: stamp every emitted row's "
+                    "trace block with replica=ID so a fleet aggregator "
+                    "(repro_torch.obs.fleet) can join this replica's "
+                    "streams; unset, emission is unchanged")
+    ap.add_argument("--obs-dir", default=None,
+                    help="export observability artifacts here (implies "
+                    "--obs): metrics.prom, metrics.jsonl, spans.jsonl, and "
+                    "latency_table.json (measured per-site/path latencies, "
+                    "probed at the run's measured skip rates)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="open a torch.profiler window around the serve "
+                    "loop, writing its Chrome trace (trace.json) here")
+    ap.add_argument("--latency-table", default=None,
+                    help="measured latency table (a previous run's "
+                    "--obs-dir/latency_table.json) for the online controller "
+                    "— break-even/exec retunes are priced from measured "
+                    "wall-clock; requires --control-every")
     ap.add_argument("--inject", default=None, metavar="SCENARIO[:k=v,...]",
                     help="arm a deterministic fault scenario "
                     "(repro_torch.guard.inject.SCENARIOS) at the production "
@@ -122,13 +161,20 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         after_step: Callable | None = None) -> dict:
     """Serve `args.requests` random-prompt requests on `cfg`. Returns
     {"done", "stats", "report", "engine", "rcache", "step", "seconds",
-    "controller", "breaker", "injector"}: `step` is the CompiledStep, whose
-    buffers hold the final state and cache; `controller` is the control
-    plane's Controller and `breaker` its QuarantineBreaker (None without
-    `--control-every`); `injector` the armed FaultInjector (None without
-    `--inject`). `after_step(step_idx, step)` runs after each decode step,
-    after the fault injection and the policy refresh or the control
-    interval."""
+    "controller", "breaker", "injector", "registry", "latency_table",
+    "profile"}: `step` is the CompiledStep, whose buffers hold the final
+    state and cache; `controller` is the control plane's Controller and
+    `breaker` its QuarantineBreaker (None without `--control-every`);
+    `injector` the armed FaultInjector (None without `--inject`);
+    `registry` the run's MetricsRegistry (None without `--obs`/`--obs-dir`),
+    `latency_table` the table `--obs-dir` probed and `profile` the trace
+    file `--profile-dir` wrote. `after_step(step_idx, step)` runs after each
+    decode step, after the fault injection and the policy refresh or the
+    control interval.
+
+    The obs plane's process state (tracing on, its span buffer, the run
+    and replica ids) lasts for the run and is put back as it was after
+    it."""
     # the reference's argument errors, with its messages
     for flag in ("sensor_jsonl", "tuned_policy", "refresh_every", "affinity",
                  "control_every", "control_journal", "inject"):
@@ -136,10 +182,41 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
             raise ValueError(f"--{flag.replace('_', '-')} requires --reuse")
     if args.control_journal and not args.control_every:
         raise ValueError("--control-journal requires --control-every")
+    if args.latency_table and not args.control_every:
+        raise ValueError("--latency-table requires --control-every")
+    was_tracing = obs_trace.is_enabled()
+    saved_ids = events.current_ids()
+    try:
+        return _run(cfg, args, after_step)
+    finally:
+        if not was_tracing:
+            obs_trace.disable()
+            obs_trace.drain_spans()
+        events.clear_ids()
+        events.set_ids(**saved_ids)
+
+
+def _run(cfg: ModelConfig, args: argparse.Namespace,
+         after_step: Callable | None) -> dict:
     if args.control_every and args.refresh_every:
         print("--control-every supersedes --refresh-every "
               "(the controller runs the mode refresh itself)")
         args.refresh_every = 0
+    obs_on = args.obs or bool(args.obs_dir)
+    registry = None
+    if obs_on:
+        from repro_torch.obs.metrics import MetricsRegistry
+
+        obs_trace.enable()
+        run_id = events.new_run_id()
+        events.set_ids(run=run_id)
+        registry = MetricsRegistry()
+        print(f"obs: tracing enabled, run={run_id}")
+    if args.replica_id:
+        # works with or without --obs: stamp() fires whenever any id is set,
+        # so even a journal/sensor-only run carries its replica identity
+        events.set_ids(replica=args.replica_id)
+        print(f"obs: replica={args.replica_id}")
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -226,6 +303,28 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
 
         journal = (DecisionJournal(args.control_journal)
                    if args.control_journal else None)
+        latency = None
+        if args.latency_table:
+            from repro_torch.obs.latency import (
+                load_latency_table,
+                table_provenance,
+            )
+
+            latency = load_latency_table(args.latency_table)
+            print(f"controller pricing from measured latencies: "
+                  f"{args.latency_table} ({len(latency)} rows)")
+            prov = table_provenance(latency)
+            if prov != "compiled":
+                print(f"WARNING: latency table {args.latency_table} carries "
+                      f"{prov} measurements — interpret-mode numbers run "
+                      "20-80x off compiled reality; re-probe with a compiled "
+                      "serve run (--obs-dir) before trusting its pricing")
+                if journal is not None:
+                    journal.note(
+                        note="latency_table_provenance",
+                        path=args.latency_table, provenance=prov,
+                        meta=latency.meta,
+                    )
         predictor = AdmissionPredictor()
         # the guard plane rides the controller cadence: sentinels are read
         # from the ctrl snapshot, containment decisions land in the same
@@ -233,7 +332,8 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         # intervals
         breaker = QuarantineBreaker()
         controller = Controller(ControlConfig(), admission=predictor,
-                                journal=journal, guard=breaker)
+                                journal=journal, latency=latency,
+                                guard=breaker)
 
     step = CompiledStep(params, cfg, state, batch=args.batch_slots,
                         engine=engine, rcache=rcache,
@@ -318,6 +418,16 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
                 # records emitted while it was open
                 with events.context(window=step_idx):
                     rep = controller.step(engine, rcache, step=step_idx)
+                if registry is not None:
+                    from repro_torch.obs.metrics import (
+                        observe_control_report,
+                        observe_guard_report,
+                    )
+
+                    observe_control_report(registry, rep)
+                    if controller.last_guard_report is not None:
+                        observe_guard_report(
+                            registry, controller.last_guard_report)
                 if rep.decisions:
                     print("\n".join(rep.summary_lines()))
             if refreshing and step_idx % args.refresh_every == 0:
@@ -394,9 +504,16 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
             # two session classes for the learned predictor
             session=f"sess-{i % 2}" if controller is not None else None,
         ))
-    t0 = time.perf_counter()
+    if args.profile_dir:
+        obs_trace.start_profile(args.profile_dir)
+    t0 = obs_trace.now()  # perf_counter: monotonic wall-clock discipline
     done = batcher.run()
-    dt = time.perf_counter() - t0
+    dt = obs_trace.now() - t0
+    profile = None
+    if args.profile_dir:
+        profile = obs_trace.stop_profile()
+        if profile:
+            print(f"device trace written to {profile}")
     print(f"served {len(done)}/{args.requests} requests in {dt:.2f}s; "
           f"{batcher.stats}")
     print(summary_line(step.summary()))
@@ -447,13 +564,48 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         print(f"fault injection: {len(injector.fired)} fault(s) fired")
         for ev in injector.fired:
             print(f"  {ev['scenario']} @step {ev['step']}: {ev['detail']}")
+    table = None
+    if args.obs_dir:
+        from repro_torch.obs.export import write_jsonl, write_prometheus
+        from repro_torch.obs.metrics import (
+            observe_sensor_report,
+            observe_spans,
+        )
+
+        os.makedirs(args.obs_dir, exist_ok=True)
+        if engine is not None:
+            # Probe measured latency per (site, exec_path), at the run's
+            # MEASURED skip rates — the table --latency-table and
+            # `repro_torch.tune.fit --latency-table` consume.
+            from repro_torch.obs.latency import probe_latency_table
+
+            skips = {s.site: s.tile_skip_rate for s in report.per_site}
+            t_probe = time.perf_counter()
+            table = probe_latency_table(
+                engine, args.batch_slots, skip_rates=skips, device=device,
+                graphs=step.graphs)
+            lat_path = os.path.join(args.obs_dir, "latency_table.json")
+            table.save(lat_path, meta={"arch": args.arch})
+            print("\n".join(table.summary_lines()))
+            print(f"measured latency table -> {lat_path} (probed in "
+                  f"{time.perf_counter() - t_probe:.2f}s)")
+            observe_sensor_report(registry, report)
+        observe_spans(registry, obs_trace.spans())
+        n = write_prometheus(
+            os.path.join(args.obs_dir, "metrics.prom"), registry)
+        write_jsonl(os.path.join(args.obs_dir, "metrics.jsonl"), registry)
+        n_spans = obs_trace.write_spans_jsonl(
+            os.path.join(args.obs_dir, "spans.jsonl"))
+        print(f"obs exports -> {args.obs_dir} (metrics.prom {n} lines, "
+              f"metrics.jsonl, spans.jsonl {n_spans} spans)")
     if len(done) != args.requests:
         raise RuntimeError(f"served {len(done)} of {args.requests} requests")
     return {"done": done, "stats": batcher.stats, "report": report,
             "engine": engine, "rcache": rcache, "step": step, "seconds": dt,
             "loop_ms_per_token": loop_ms_per_token, "hook_ms": hook_ms,
             "controller": controller, "breaker": breaker,
-            "injector": injector}
+            "injector": injector, "registry": registry,
+            "latency_table": table, "profile": profile}
 
 
 def main(argv=None) -> None:

@@ -22,6 +22,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.obs import events
+from repro_torch.obs.trace import span
 
 
 @dataclasses.dataclass
@@ -136,11 +137,14 @@ class ContinuousBatcher:
             req.slot = slot
             if self.on_place is not None:
                 self.on_place(req)
-            # everything the prefill emits carries the request's identity.
-            # The observability slice adds the reference's "prefill" span.
+            # The prefill span (and everything the prefill emits) carries the
+            # request/session identity — admission is where a slot's stream
+            # changes owner, so this is the correlation boundary.
             with events.context(request=req.rid, session=req.session,
                                 slot=slot):
-                first = self.prefill_fn(req.prompt[None, :], slot)
+                with span("prefill", slot=slot,
+                          prompt_len=int(req.prompt.shape[0])) as sp:
+                    first = sp.sync(self.prefill_fn(req.prompt[None, :], slot))
             req.output.append(int(first))
             self.active[slot] = req
             self.stats["prefills"] += 1
@@ -159,9 +163,17 @@ class ContinuousBatcher:
             if self.on_retire is not None:
                 self.on_retire(req)
 
+    @property
+    def pending(self) -> bool:
+        """Work remains: requests queued or slots actively decoding."""
+        return bool(self.active or self.queue)
+
     def step_once(self) -> bool:
-        """Admit waiting requests and run ONE shared decode step. Returns
-        False when there is nothing left to do."""
+        """Admit waiting requests and run ONE shared decode step.
+
+        Returns False when there is nothing left to do. An external loop
+        (the N-replica harness) interleaves several batchers step by step in
+        one process instead of letting each run to completion."""
         if self._cur is None:
             self._cur = np.zeros((self.batch_slots, 1), np.int32)
         self._admit()
@@ -169,8 +181,12 @@ class ContinuousBatcher:
             return False
         for slot, req in self.active.items():
             self._cur[slot, 0] = req.output[-1]
-        # The observability slice adds the reference's "serve_step" span here.
-        nxt = np.asarray(self.decode_fn(self._cur))
+        # THE serve-step measurement: host launch + device execution (sync),
+        # one span per decode step, batch-occupancy tagged. The span wraps
+        # the whole call, so a step that captures a CUDA graph syncs after
+        # its capture, never inside it.
+        with span("serve_step", active=len(self.active)) as sp:
+            nxt = np.asarray(sp.sync(self.decode_fn(self._cur)))
         self.stats["steps"] += 1
         if self.on_step is not None:
             self.on_step(self.stats["steps"])

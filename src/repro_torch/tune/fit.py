@@ -7,12 +7,14 @@ the offline front door, trace in, tuned table out:
 
     python -m repro_torch.tune.fit --trace trace.jsonl --out tuned.json \\
         [--safety-margin F] [--prior-efficiency F] [--pallas-target] \\
-        [--site-only]
+        [--site-only] [--latency-table latency_table.json]
 
 On the card pass `--pallas-target`: it fits "ragged" (the compacted-walk
 kernel the port runs) for high-skip sites, where the default fits the
 reference's jnp "compact" path, which the port's serve does not run yet.
-The reference's `--latency-table` waits for the port of `repro.obs.latency`.
+`--latency-table` (a `serve --obs-dir` run's `latency_table.json`, from
+either package) prices break-even, admission and exec pins from measured
+wall-clock instead of the energy-model constants.
 """
 
 from __future__ import annotations
@@ -129,6 +131,11 @@ def main() -> None:
                     default=FitConfig.safety_margin)
     ap.add_argument("--prior-efficiency", type=float,
                     default=FitConfig.prior_efficiency)
+    ap.add_argument("--latency-table", default=None,
+                    help="measured per-(site, layer, exec_path) latency "
+                    "table (serve --obs-dir writes one); when given, "
+                    "break-even / admission / exec pins are priced from "
+                    "measured wall-clock instead of energy-model constants")
     ap.add_argument("--pallas-target", action="store_true",
                     help="fit the compacted-walk kernel (exec_path='ragged', "
                     "the path the port runs) for high-skip sites instead of "
@@ -139,9 +146,26 @@ def main() -> None:
                     "tunables rows (per-layer ctrl-lane thresholds)")
     args = ap.parse_args()
 
+    latency = None
+    if args.latency_table:
+        from repro_torch.obs.latency import (
+            load_latency_table,
+            table_provenance,
+        )
+
+        latency = load_latency_table(args.latency_table)
+        print(f"pricing from measured latencies: {args.latency_table} "
+              f"({len(latency)} rows)")
+        prov = table_provenance(latency)
+        if prov != "compiled":
+            print(f"WARNING: latency table {args.latency_table} carries "
+                  f"{prov} measurements — interpret-mode numbers price the "
+                  "fit 20-80x off compiled reality; re-probe with a compiled "
+                  "serve run (--obs-dir) before trusting the fitted table")
     cfg = FitConfig(safety_margin=args.safety_margin,
                     prior_efficiency=args.prior_efficiency,
-                    pallas_target=args.pallas_target)
+                    pallas_target=args.pallas_target,
+                    latency=latency)
     trace = load_trace(args.trace)
     tunables = fit_trace(trace, cfg, per_layer=not args.site_only)
     print("\n".join(summary_lines(trace, tunables)))

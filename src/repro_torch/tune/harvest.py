@@ -2,7 +2,7 @@
 
 The port of `repro.tune.harvest`. The offline fitter (`repro_torch.tune.fit`,
 JSONL trace in) and an online retuner (the reference's
-`repro.control.retune`, live windowed counters in; not ported yet) must never
+`repro_torch.control.retune`, live windowed counters in) must never
 disagree on cost-model units: both feed a
 :class:`~repro_torch.tune.trace.SiteTraceRecord` describing one measured
 operating point into :func:`solve_site` and get the same
@@ -71,9 +71,9 @@ class FitConfig:
     # False fits "compact" (the reference's jnp gather, which the port does
     # not run yet: a table naming it makes the port's serve raise).
     pallas_target: bool = False
-    # Measured per-(site, layer, exec_path) wall-clock: a `LatencyTable` of
-    # the reference's `repro.obs.latency` (not ported yet), or anything with
-    # its `.stat()` and `.paths_for()`. When set, break-even hit rates,
+    # Measured per-(site, layer, exec_path) wall-clock: a
+    # `repro_torch.obs.latency.LatencyTable` (or the reference's: the JSON
+    # cross-loads). When set, break-even hit rates,
     # net-positive admission, and exec-path pins are priced from these
     # MEASURED latencies instead of the energy-model constants above.
     latency: Any = None

@@ -308,6 +308,34 @@ def test_snapshot_and_windows_match_reference():
         assert len(tl) == (3 if name == "stacked" else 0)
 
 
+def test_window_hit_rate_counts_lanes_within_f32_rounding():
+    """A lane whose every evaluation matched at K = 5120 accumulates its
+    hit sum in f32 (one FMA of K·f32(1/K) a step) and can close a 4-step
+    window an ulp past 4. The reference drops that lane — with both lanes
+    dropped its window reads hit 0 and the retuner demotes the lane that
+    reuses most — where the port counts it at rate 1. A lane reset
+    mid-window (gone backwards) or far past its steps drops out in both."""
+    from repro.control.retune import _window_hit_rate as jrate
+    from repro_torch.control.retune import _window_hit_rate as trate
+    from repro_torch.core.similarity import fma_f32
+
+    acc = torch.tensor([0.5093262, 0.123], dtype=torch.float32)
+    sums = [acc.double().numpy()]
+    for _ in range(5):
+        acc = fma_f32(torch.full((2,), 5120.0), 1.0 / 5120, acc)
+        sums.append(acc.double().numpy())
+    d_hit, d_ss = sums[5] - sums[1], np.full(2, 4.0)
+    assert (d_hit > d_ss).all()  # both lanes an ulp or more past 4 steps
+    assert jrate(d_hit, d_ss) == 0.0
+    assert trate(d_hit, d_ss, sums[5]) == 1.0
+    # one such lane beside one at half the steps: the reference reads 0.5
+    mixed = np.array([d_hit[0], 2.0])
+    assert jrate(mixed, d_ss) == 0.5 and trate(mixed, d_ss, sums[5]) == 0.75
+    # lanes out of range drop out in both: reset (negative) and overrun
+    bad = np.array([-3.0, 4.5])
+    assert jrate(bad, d_ss) == trate(bad, d_ss, sums[5]) == 0.0
+
+
 def test_snapshot_cache_is_one_transfer(monkeypatch):
     engine = ReuseEngine(impl="torch")
     for i in range(3):
@@ -580,9 +608,24 @@ def test_replay_chains_the_budget_through_a_block_k_rescale():
     assert (summary["s"]["block_k"], summary["s"]["max_active_k"]) == (64, 5)
 
 
-def test_latency_table_path_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="obs/latency.py"):
-        tctl.Controller(tctl.ControlConfig(latency_table_path="t.json"))
+def test_latency_table_path_is_refused_until_ported(tmp_path):
+    """Now that obs/latency.py is ported the path is no longer refused: the
+    port's Controller loads the table the reference's loads, and a missing
+    file raises as the reference's does."""
+    from repro_torch.obs.latency import LatencyTable
+
+    table = LatencyTable()
+    table.record("s", None, "basic", 1e-4)
+    table.record("s", None, "kernel", 5e-5)
+    table.save(str(tmp_path / "t.json"))
+    cfg = dict(latency_table_path=str(tmp_path / "t.json"))
+    port = tctl.Controller(tctl.ControlConfig(**cfg))
+    ref = jctl.Controller(jctl.ControlConfig(**cfg))
+    assert port.latency.rows() == ref.latency.rows() == table.rows()
+    for ctl in (tctl, jctl):
+        with pytest.raises(FileNotFoundError):
+            ctl.Controller(ctl.ControlConfig(
+                latency_table_path=str(tmp_path / "missing.json")))
 
 
 def test_torn_journal_tail_loads_as_marker(tmp_path):

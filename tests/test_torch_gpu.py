@@ -7,6 +7,7 @@ This file imports no JAX (the machine with the card has none):
 """
 
 import dataclasses
+import json
 import math
 
 import pytest
@@ -931,3 +932,80 @@ def test_basic_product_matches_widened_on_card(card, m, k, n):
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, xq.float() @ w.float(), rtol=1e-4,
                                atol=1e-3)
+
+
+# ------------------------------------------------- the observability plane
+
+@pytest.mark.gpu
+def test_span_sync_waits_for_the_device_on_card(card):
+    """A span's `sync` synchronizes the device of the value it was given:
+    the span covers a ~50 ms device sleep queued inside it, where the same
+    span without the sync closes before the sleep ends."""
+    from repro_torch.obs import trace
+
+    trace.enable()
+    try:
+        x = torch.ones(1, device=card)
+        for synced in (True, False):
+            with trace.span("sleep", synced=synced) as sp:
+                torch.cuda._sleep(50_000_000)  # cycles, about 25-50 ms
+                y = x + 1
+                if synced:
+                    sp.sync(y)
+            torch.cuda.synchronize()
+        rows = {r["synced"]: r["dur_s"] for r in trace.drain_spans()}
+    finally:
+        trace.disable()
+    assert rows[True] > 0.01 > rows[False]
+
+
+@pytest.mark.gpu
+def test_serve_step_span_around_a_capturing_step_on_card(card, tmp_path):
+    """The serve's spans around a decode that captures its CUDA graph (every
+    first step of a key) raise nothing: one serve_step span per decode step,
+    one prefill span per request, and the obs dir's files parse back."""
+    from repro_torch.obs.export import load_snapshots, parse_prometheus
+    from repro_torch.obs.latency import load_latency_table, table_provenance
+
+    argv = ["--arch", "qwen3-32b", "--reduced", "--requests", "3",
+            "--batch-slots", "2", "--prompt-len", "4", "--cache-len", "16",
+            "--max-new", "4", "--reuse", "--obs-dir", str(tmp_path)]
+    cfg = get_config("qwen3-32b").reduced()
+    res = tserve_cli.run(cfg, tserve_cli.build_parser().parse_args(argv))
+    assert res["step"].graphs and res["step"].summary()["captures"] >= 2
+    rows = [json.loads(ln) for ln in (tmp_path / "spans.jsonl").open()]
+    names = [r["name"] for r in rows]
+    assert names.count("serve_step") == res["stats"]["steps"]
+    assert names.count("prefill") == 3
+    parse_prometheus((tmp_path / "metrics.prom").read_text())
+    assert load_snapshots(str(tmp_path / "metrics.jsonl"))
+    table = load_latency_table(str(tmp_path / "latency_table.json"))
+    assert table_provenance(table) == "compiled"
+
+
+@pytest.mark.gpu
+def test_graph_probe_equals_eager_probe_on_card(card):
+    """The latency probe through CUDA graphs and run directly leaves
+    bitwise-equal final site caches for every (site, path), at a shape
+    where every path (basic, kernel, ragged) runs."""
+    from repro_torch.core.engine import ReuseEngine
+    from repro_torch.obs.latency import probe_latency_table
+
+    engine = ReuseEngine(impl="cuda")
+    engine.register("s", 1024, 256, block_m=8, block_k=256)
+    engine.register("t", 4096, 512, block_m=8, block_k=256)
+    assert engine.sites["t"].dataflow == "input"
+    caches = {}
+    for graphs in (True, False):
+        caches[graphs] = {}
+        table = probe_latency_table(engine, 8, skip_rates={"s": 0.5},
+                                    iters=3, warmup=2, device=card,
+                                    graphs=graphs, caches=caches[graphs])
+        assert set(table.paths_for("s")) == {"basic", "kernel", "ragged"}
+    assert caches[True].keys() == caches[False].keys()
+    for key, got in caches[True].items():
+        want = caches[False][key]
+        for leaf in ("prev_q", "prev_out", "sim_ema", "steps"):
+            assert torch.equal(got[leaf], want[leaf]), (key, leaf)
+        for name, t in got["sensor"].items():
+            assert torch.equal(t, want["sensor"][name]), (key, name)

@@ -214,6 +214,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {f.name for f in files if f.parent.name == "guard"} >= {
         "sentinel.py", "quarantine.py", "inject.py", "watchdog.py",
         "__init__.py"}
+    # and the observability plane and the replica harness
+    assert {f.name for f in files if f.parent.name == "obs"} >= {
+        "trace.py", "events.py", "metrics.py", "export.py", "latency.py",
+        "stream.py", "fleet.py", "slo.py", "top.py", "__init__.py"}
+    assert "replicas.py" in {f.name for f in files
+                             if f.parent.name == "launch"}
     bad = []
     for f in files:
         for mod in _imports(f):
