@@ -169,13 +169,47 @@ every phase's failure is fatal (non-zero exit, no result line):
                 (c) names each of the port's kernels as often as the run
                 launched it
 
+  12. moe     — the MoE family and the compact path: (a) phase 4's traffic
+                with --reuse on full-width mixtral-8x7b cut to 4 of 32
+                layers (delta_quant and output-stationary must launch),
+                eager-checked then graphs, held equal as phase 4's pair, the
+                routed experts' bytes and bound beside a replay's busy time;
+                then run_measured_decode at mixtral's operating point
+                (correlation 0.9, batch 8, 12 steps), eager-checked then
+                graphs, bitwise, skips per site; (b) the rolling window:
+                mixtral as (a), dropless, batch 1, cache_len = window =
+                4096, a 4088-token prompt and 16 decode steps without reuse,
+                eager and as graphs bitwise, the KV cache slot for slot and
+                the last logits against a windowed prefill of the same 4104
+                tokens (relative L2 error a slot within 5e-2; the rolled
+                slots must no longer hold their prompt positions; a token
+                rerouted by a bf16 gate tie is held to the tie: top-k of
+                its logits in both runs, its h moved within 5e-2); (c)
+                phase 4's traffic with --reuse on full-width
+                llama4-scout-17b-a16e cut to 2 of 48 layers (four reuse
+                sites a layer, the shared expert's among them), as (a);
+                (d) qwen3-32b (phase 4's config): run_measured_decode at
+                correlation 0.95, batch 2, 24 steps, compact pinned at
+                attn_qkv and mlp_in at a budget of ceil(gk/4),
+                eager-checked then graphs, bitwise, layer 0 attn_qkv
+                overflowing on some steps and not on others; phase 4's serve
+                with --impl jnp (auto sites run dense: no ΔW GEMM kernel);
+                the jnp tier's runner with the exec-path refresh after each
+                step, promoting to compact; and compact timed beside kernel
+                and ragged in
+                phase 8a's sweep; (e) per-(slot, expert) expert reuse at
+                mixtral width (one layer, batch 8, the reference test's
+                stream): lanes and outputs against the quantized dense
+                top-1 reference in f32, repeated slots skipping every tile
+
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
 pools, device busy and idle share), a JSON line of phase 8 (its runs, the
 sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
 closed loops; the controlled serve and the basic-mode product) and of
-phase 10, a JSON line of phase 11, the kernels JSON line (launch counts from the serve runs and the
-int8 path, and per phase 8, 9, 10 and 11 run; errors and times from phase 3)
+phase 10, a JSON line of phase 11, a JSON line of phase 12, the kernels
+JSON line (launch counts from the serve runs and the int8 path, and per
+phase 8, 9, 10, 11 and 12 run; errors and times from phase 3)
 and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The controlled and guarded serves' whole output goes to
 chiprun_out/chip_smoke/.
@@ -719,10 +753,13 @@ def skip_sweep(dev, gen, max_err) -> dict:
     from repro_torch.tune.harvest import derive_break_even_skip
 
     out = {}
+    compact_err = 0.0
     print(f"skip sweep, ms per call (CUDA-graph replay of 20 calls, weight "
           f"rotated through {ROTATE_BYTES / 1e6:.0f} MB), M = {M}, bf16; "
           "kernel = the site's masked kernel, ragged at the budget "
-          "ragged_budget(gk, skip), dense = torch.addmm:")
+          "ragged_budget(gk, skip), compact = ops.reuse_matmul_compact (the "
+          "plain product in torch ops, full K), dense = "
+          "torch.addmm:")
     for model, shapes in (("qwen3-32b", SITES), ("rwkv6-7b", RWKV_SITES)):
         rows = out[model] = []
         for site, k, n, dataflow in shapes:
@@ -766,6 +803,13 @@ def skip_sweep(dev, gen, max_err) -> dict:
                 t_r = time_ms(lambda: reuse_matmul_ragged(
                     delta, wn(), prev, counts, idx, block_m=BM, block_n=BN,
                     block_k=BK))
+                kmask = mask.amax(dim=0)
+                got = ops.reuse_matmul_compact(delta, w, prev, kmask,
+                                               block_k=BK)
+                compact_err = max(compact_err, close(
+                    got, ref, GEMM_ATOL, GEMM_RTOL, f"sweep {site} compact"))
+                t_c = time_ms(lambda: ops.reuse_matmul_compact(
+                    delta, wn(), prev, kmask, block_k=BK))
                 t_d = time_ms(lambda: torch.addmm(prev, delta, wn(),
                                                   out_dtype=torch.float32))
                 active = int(mask.sum())
@@ -774,8 +818,8 @@ def skip_sweep(dev, gen, max_err) -> dict:
                 bound = max(byts / HBM_BYTES_PER_S,
                             2 * M * n * active * BK / BF16_FLOPS) * 1e3
                 pts.append({"skip": skip, "budget": budget, "kernel_ms": t_k,
-                            "ragged_ms": t_r, "dense_ms": t_d,
-                            "bound_ms": bound})
+                            "ragged_ms": t_r, "compact_ms": t_c,
+                            "dense_ms": t_d, "bound_ms": bound})
             del nxt, wn, w
             be = derive_break_even_skip(
                 [(p["skip"], min(p["kernel_ms"], p["ragged_ms"]),
@@ -788,11 +832,14 @@ def skip_sweep(dev, gen, max_err) -> dict:
             print(f"  {model} {site:9s} [{M},{k}]x[{k},{n}] {kname}: "
                   + "; ".join(f"skip {p['skip']:.2f} kernel "
                               f"{p['kernel_ms']:.4f} ragged@{p['budget']} "
-                              f"{p['ragged_ms']:.4f} dense "
+                              f"{p['ragged_ms']:.4f} compact "
+                              f"{p['compact_ms']:.4f} dense "
                               f"{p['dense_ms']:.4f} bound {p['bound_ms']:.4f}"
                               for p in pts))
             print(f"    crossings: best reuse kernel vs dense {be:.4f}, "
                   f"ragged vs {kname} {rk:.4f} (2.0 = never)")
+    print(f"compact against the plain masked product at every shape and "
+          f"skip: max err {compact_err:.3e}")
     return out
 
 
@@ -857,7 +904,7 @@ def timed_decodes(profile_at, what: str):
 
 
 def measured_pair(label, arch, cfg, params, *, steps, batch, policy, dev,
-                  max_err):
+                  max_err, correlation=CORRELATION, **run_kw):
     """Phase 8b and 8d: `run_measured_decode` three times on one seed and
     stream: eagerly (`graphs=False`) with every kernel call held against its
     plain version (PathCheck); through the CUDA graphs of the compiled step
@@ -865,14 +912,16 @@ def measured_pair(label, arch, cfg, params, *, steps, batch, policy, dev,
     before and after); and through the graphs again with the middle decode
     profiled. Summary lines, JSONL rows, launch counts, mode mirrors and
     every tensor of the final reuse cache and decode state must be equal
-    (bitwise) in all three. `policy()` makes each run's policy. Returns (the
-    timed run's MeasuredDecode, its launch counts, its decode log with the
+    (bitwise) in all three. `policy()` makes each run's policy; `run_kw`
+    goes to the runner as it is (impl, refresh_policy). Returns (the timed
+    run's MeasuredDecode, its launch counts, its decode log with the
     profiled run's profile)."""
     from repro_torch.kernels import backend, ops
     from repro_torch.sensor.runner import run_measured_decode
 
-    kw = dict(steps=steps, batch=batch, correlation=CORRELATION,
-              seed=MEASURED_SEED, device=dev, params=params, cfg=cfg)
+    kw = dict(steps=steps, batch=batch, correlation=correlation,
+              seed=MEASURED_SEED, device=dev, params=params, cfg=cfg,
+              **run_kw)
     runs, logs = [], []
     for how in ("eager", "timed", "profiled"):
         gc.collect()
@@ -932,7 +981,8 @@ def measured_pair(label, arch, cfg, params, *, steps, batch, policy, dev,
     return timed[0], timed[1], log
 
 
-def measured_summary(label, md, counts, log, ref=None) -> dict:
+def measured_summary(label, md, counts, log, ref=None,
+                     correlation=CORRELATION) -> dict:
     """Prints a measured-decode run's per-site skips, its replay step times
     (captures and the profiled step left out), the ΔW GEMMs' device ms of
     the profiled replay beside `sensor_speedup` on the card's datasheet
@@ -943,7 +993,7 @@ def measured_summary(label, md, counts, log, ref=None) -> dict:
     rep, steps = md.report, md.steps
     m = rep.model
     print(f"{label}: {steps} decode steps at batch {md.batch}, correlation "
-          f"{CORRELATION}, seed {MEASURED_SEED}; model tile_skip "
+          f"{correlation}, seed {MEASURED_SEED}; model tile_skip "
           f"{m['tile_skip_rate']:.4f} mac_skip {m['mac_skip_rate']:.4f} "
           f"weight_byte_skip {m['weight_byte_skip_rate']:.4f} hit_rate "
           f"{m['hit_rate']:.4f}")
@@ -1487,7 +1537,7 @@ def basic_product_timing(dev, gen) -> dict:
     """The basic-mode product at mlp_in's shape ([8,5120]x[5120,51200]
     bf16): `basic_product` (one bf16 product with an f32 result) against
     the widened `xq.float() @ w.float()` it replaced, checked and timed."""
-    from repro_torch.core.reuse_linear import basic_product
+    from repro_torch.kernels.ops import f32_product as basic_product
 
     k, n = 5120, 51200
     xq = torch.randn((M, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -2350,6 +2400,476 @@ def fleet_phase(cfg, logdir) -> tuple[dict, dict]:
     return row, launches
 
 
+# phase 12: the MoE family on the compiled serve (mixtral-8x7b and
+# llama4-scout-17b-a16e at published widths, cut in depth), the sliding-window
+# rolling KV cache, per-(slot, expert) expert reuse, and the compact exec
+# path with the reference serve's jnp tier
+MOE_LAYERS = {"mixtral-8x7b": 4, "llama4-scout-17b-a16e": 2}
+MOE_CORRELATION, MOE_STEPS = 0.9, 12      # the runner's mixtral point
+WINDOW_PROMPT, WINDOW_STEPS = 4088, 16
+# 12b: a slot that holds the right position differs from the windowed
+# prefill's by bf16 roundings summed in another order (the prefill's and the
+# decode's products, attention and expert buffers differ in shape); a slot
+# that holds another position differs by the values themselves, a relative
+# L2 error near sqrt(2)
+WINDOW_RTOL = 5e-2
+# a token whose top-2 gates tie within those roundings may take another
+# expert in one run than in the other. It is excused only where the runs'
+# routing is its own logits' top-k (the router-logit gap between its k-th
+# and (k+1)-th expert is >= -WINDOW_GAP_EPS in each run: f32 softmax may
+# round two nearly equal logits to one gate), that gap in each run is no
+# larger than twice the largest move of its logits between the runs, and
+# its h (the router's input) moved by no more than WINDOW_RTOL relative:
+# bf16 roundings, not another input
+WINDOW_GAP_EPS = 1e-5
+COMPACT_STEPS, COMPACT_BATCH = 24, 2
+COMPACT_SITES = ("attn_qkv", "mlp_in")
+EXPERT_REUSE_B, EXPERT_REUSE_STEPS = 8, 8
+# 12e: codes that land within f32 rounding of an int8 boundary may round
+# the other way in the oracle; at most this share of the activation codes
+ACT_FLIP_SHARE = 1e-3
+
+
+def moe_cfg(name: str, **changes):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), n_layers=MOE_LAYERS[name],
+                               **changes)
+
+
+def expert_bytes(cfg) -> int:
+    """Bytes of the routed experts' weights a decode step reads: every
+    expert of every layer (the capacity buffer has a row for each)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return cfg.n_layers * cfg.n_experts * 3 * d * f * 2
+
+
+def moe_serve_phase(serve_pair, graph_rows) -> dict:
+    """12a and 12c: phase 4's traffic with --reuse on full-width mixtral-8x7b
+    (4 of 32 layers) and llama4-scout-17b-a16e (2 of 48): the checked eager
+    serve, then the graph serve, held equal. Returns {serve: launches}."""
+    launches = {}
+    for name, label in (("mixtral-8x7b", "mixtral serve"),
+                        ("llama4-scout-17b-a16e", "llama4 serve")):
+        cfg = moe_cfg(name)
+        argv = ["--arch", name, "--reuse", "--batch-slots", "8",
+                "--requests", "8", "--prompt-len", "32", "--cache-len",
+                "128", "--max-new", "8"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, _ = serve_pair(cfg, argv, label, pairs=3)
+        launches[f"{label} (eager, checked)"] = counts
+        for kn in ("delta_quant", "reuse_matmul_output"):
+            if counts[kn] <= 0:
+                fail(f"{kn} was not launched on the {label} path")
+        eb = expert_bytes(cfg)
+        row = graph_rows[-1]
+        print(f"{label}: the routed experts' weights a decode step reads: "
+              f"{eb / 1e9:.3f} GB ({cfg.n_layers} layers x "
+              f"{cfg.n_experts} experts), bound {eb / HBM_BYTES_PER_S * 1e3:.3f}"
+              f" ms at 3.35 TB/s; one replay busy {row['busy_graph_ms']:.2f} "
+              f"ms, replay median {row['graph_ms']:.2f} ms")
+        row["expert_bytes"] = eb
+        row["expert_bound_ms"] = eb / HBM_BYTES_PER_S * 1e3
+    return launches
+
+
+def moe_runner_phase(params, cfg, dev, max_err) -> tuple[dict, dict]:
+    """12a's runner: run_measured_decode at mixtral's operating point
+    (correlation 0.9), batch 8, eager-checked then twice as graphs."""
+    label = f"mixtral b8 measured ({MOE_CORRELATION})"
+    print(f"--- {label}")
+    md, counts, log = measured_pair(
+        label, "mixtral-8x7b", cfg, params, steps=MOE_STEPS, batch=8,
+        policy=lambda: None, dev=dev, max_err=max_err,
+        correlation=MOE_CORRELATION)
+    row = measured_summary(label, md, counts, log,
+                           correlation=MOE_CORRELATION)
+    del md
+    return row, {label: counts}
+
+
+def route_gap(logits: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
+    """[T]: the least router logit of each token's chosen experts less the
+    largest of the others (>= 0 where the choice is the logits' top-k)."""
+    inside = torch.zeros_like(logits, dtype=torch.bool).scatter_(
+        1, chosen, True)
+    return (logits.masked_fill(~inside, math.inf).amin(-1)
+            - logits.masked_fill(inside, -math.inf).amax(-1))
+
+
+def tie_readings(dec_e, pre_e, dec_h, pre_h, dec_l, pre_l, rerouted,
+                 before) -> list:
+    """12b's tie check, per layer: every token's routing is its logits'
+    top-k in both runs, and each token first rerouted at the layer has a
+    gap (route_gap) in each run no larger than twice the largest move of
+    its logits between the runs and an h that moved by at most WINDOW_RTOL
+    relative. Prints and returns the readings; fails on a token that breaks
+    one."""
+    out = []
+    for l in range(len(dec_e)):
+        g_dec, g_pre = route_gap(dec_l[l], dec_e[l]), route_gap(pre_l[l],
+                                                                pre_e[l])
+        move = (dec_l[l] - pre_l[l]).abs().amax(-1)
+        h_move = ((dec_h[l] - pre_h[l]).norm(dim=-1)
+                  / pre_h[l].norm(dim=-1).clamp(min=1e-30))
+        first = rerouted[l] & ~before[l]
+        held = ~rerouted[l] & ~before[l]
+        row = {"layer": l, "first_rerouted": int(first.sum()),
+               "min_gap": float(torch.minimum(g_dec, g_pre).min()),
+               "median_gap": float(g_pre.median()),
+               "median_h_move_held": float(h_move[held].median())}
+        if row["first_rerouted"]:
+            gap = torch.maximum(g_dec, g_pre)[first]
+            row.update(max_gap_rerouted=float(gap.max()),
+                       max_excess=float((gap - 2 * move[first]).max()),
+                       max_logit_move=float(move[first].max()),
+                       max_h_move_rerouted=float(h_move[first].max()))
+        out.append(row)
+        print(f"window ties, layer {l}: {row['first_rerouted']} tokens first "
+              f"rerouted; least route gap of any token {row['min_gap']:.3e}, "
+              f"median {row['median_gap']:.3e}; h moved median "
+              f"{row['median_h_move_held']:.3e} (held tokens)"
+              + (f"; rerouted: largest gap {row['max_gap_rerouted']:.3e}, "
+                 f"largest logit move {row['max_logit_move']:.3e}, gap less "
+                 f"twice the move at most {row['max_excess']:.3e}, h moved "
+                 f"at most {row['max_h_move_rerouted']:.3e}"
+                 if row["first_rerouted"] else ""))
+        if row["min_gap"] < -WINDOW_GAP_EPS:
+            fail(f"12b: layer {l} routed a token to experts that are not "
+                 f"its logits' top-k (gap {row['min_gap']:.3e})")
+        if row["first_rerouted"] and row["max_excess"] > WINDOW_GAP_EPS:
+            fail(f"12b: a token rerouted at layer {l} has a route gap "
+                 f"{row['max_excess']:.3e} above twice its logits' move")
+        if (row["first_rerouted"]
+                and row["max_h_move_rerouted"] > WINDOW_RTOL):
+            fail(f"12b: a token rerouted at layer {l} has an h that moved "
+                 f"by {row['max_h_move_rerouted']:.3e} > {WINDOW_RTOL}")
+    return out
+
+
+def window_phase(params, dev) -> dict:
+    """12b: full-width mixtral (as 12a) made dropless (capacity_factor 4.0),
+    batch 1, cache_len = window = 4096: a 4088-token prompt, then 16 decode
+    steps without reuse, eagerly and through the graphs (bitwise equal);
+    steps 9-16 write rolled slots. The KV cache after step 16 against a
+    windowed prefill of the same 4104 tokens into a fresh cache, slot for
+    slot, and the last logits. A token whose expert choice differs between
+    the two runs at some layer (two gates tied within the runs' bf16
+    roundings) has its K and V at the later layers computed through other
+    experts: those slots are counted, not held; layer 0 comes before any
+    expert. Each token first rerouted at a layer is held to the tie: its
+    router-logit gap in each run against its logits' move, and its h's
+    relative move against WINDOW_RTOL (see WINDOW_GAP_EPS)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.compiled_step import CompiledStep
+    from repro_torch.serve.serve_step import init_serve_state, prefill_step
+
+    cfg = moe_cfg("mixtral-8x7b", capacity_factor=4.0)
+    window, n_layers = cfg.window, cfg.n_layers
+    n_rolled = WINDOW_PROMPT + WINDOW_STEPS - window
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    prompt = torch.randint(0, cfg.vocab, (1, WINDOW_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    orig_route, routes, inputs, logits_of = moe_mod.route, [], [], []
+
+    def recording(p, cfg_, h):
+        top_e, top_g = orig_route(p, cfg_, h)
+        routes.append(top_e.sort(dim=-1).values.clone())
+        inputs.append(h.float())
+        logits_of.append(h.float() @ p["router"])
+        return top_e, top_g
+
+    runs = []
+    for graphs in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_serve_state(cfg, 1, window, device=dev)
+        step = CompiledStep(params, cfg, state, batch=1, graphs=graphs)
+        moe_mod.route = orig_route if graphs else recording
+        try:
+            t0 = time.perf_counter()
+            logits = [step.prefill(prompt).clone()]
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            first = {k: v[:, :, :n_rolled].clone()
+                     for k, v in state["blocks"].items()}
+            toks, t0 = [], time.perf_counter()
+            for _ in range(WINDOW_STEPS):
+                toks.append(logits[-1][:, -1:].argmax(-1).to(torch.int32))
+                logits.append(step.decode(toks[-1]).clone())
+            torch.cuda.synchronize()
+        finally:
+            moe_mod.route = orig_route
+        runs.append({"logits": logits, "toks": toks, "first": first,
+                     "kv": {k: v.clone() for k, v in state["blocks"].items()},
+                     "len": int(state["len"]), "prefill_s": t_pre,
+                     "decode_s": time.perf_counter() - t0,
+                     "captures": step.captures})
+        del step, state
+    eager, graph = runs
+    if not (all(torch.equal(a, b) for a, b in zip(eager["logits"],
+                                                  graph["logits"]))
+            and all(torch.equal(eager["kv"][k], graph["kv"][k])
+                    for k in ("k", "v"))):
+        fail("12b: the graph run differs from the eager run")
+    if eager["len"] != WINDOW_PROMPT + WINDOW_STEPS:
+        fail(f"12b: length {eager['len']}")
+    print(f"window: {WINDOW_PROMPT}-token prompt + {WINDOW_STEPS} decode "
+          f"steps, cache {window} slots: the graph run ({graph['captures']} "
+          "captures) bitwise the eager run (logits, K and V); prefill "
+          f"{eager['prefill_s']:.2f} s eager, {graph['prefill_s']:.2f} s "
+          f"with its capture; decode {eager['decode_s']:.2f} s eager, "
+          f"{graph['decode_s']:.2f} s as graphs")
+    # the eager run's expert choices, router inputs and logits by layer: the
+    # prompt's, then a step's
+    def by_layer(calls):
+        return [torch.cat([calls[l]] + [calls[n_layers * (1 + i) + l]
+                                        for i in range(WINDOW_STEPS)])
+                for l in range(n_layers)]
+
+    decoded, dec_h, dec_logits = (by_layer(c) for c in (routes, inputs,
+                                                         logits_of))
+    for c in (routes, inputs, logits_of):
+        c.clear()
+    full = torch.cat([prompt] + eager["toks"], dim=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = init_serve_state(cfg, 1, window, device=dev)
+    moe_mod.route = recording
+    try:
+        with torch.no_grad():
+            pre_logits, fresh = prefill_step(params, cfg, full, fresh)
+        torch.cuda.synchronize()
+    finally:
+        moe_mod.route = orig_route
+    rerouted = [(decoded[l] != routes[l]).any(-1) for l in range(n_layers)]
+    # [L, T]: the token took other experts at a layer before this one
+    before = torch.zeros((n_layers, full.shape[1]), dtype=torch.bool,
+                         device=dev)
+    for l in range(1, n_layers):
+        before[l] = before[l - 1] | rerouted[l - 1]
+    positions = torch.arange(full.shape[1] - window, full.shape[1],
+                             device=dev)
+    held = ~before[:, positions]                  # [L, slots in slot order]
+    held = held[:, torch.argsort(positions % window)]
+    res = {"rtol": WINDOW_RTOL,
+           "rerouted_by_layer": [int(r.sum()) for r in rerouted],
+           "not_held_by_layer": [int((~h).sum()) for h in held],
+           "ties": tie_readings(decoded, routes, dec_h, inputs, dec_logits,
+                                logits_of, rerouted, before)}
+    print(f"window: tokens whose expert choice differs between the decode "
+          f"run and the prefill, by layer: {res['rerouted_by_layer']} of "
+          f"{full.shape[1]}; cache slots not held (a token rerouted at an "
+          f"earlier layer), by layer: {res['not_held_by_layer']} of {window}")
+    del dec_h, dec_logits
+    inputs.clear()
+    logits_of.clear()
+    for k in ("k", "v"):
+        dec, pre = eager["kv"][k].float(), fresh["blocks"][k].float()
+        # [L, slots]: relative L2 error of each slot's heads (batch 1)
+        err = ((dec - pre).flatten(3).norm(dim=-1)
+               / pre.flatten(3).norm(dim=-1).clamp(min=1e-30))[:, 0]
+        err_held = torch.where(held, err, torch.zeros_like(err))
+        rolled = err_held[:, :n_rolled]
+        # what a slot holding another position shows: the rolled slots
+        # against the prompt's first tokens, which they held before
+        old = eager["first"][k].float()
+        wrong = ((dec[:, :, :n_rolled] - old).flatten(3).norm(dim=-1)
+                 / old.flatten(3).norm(dim=-1).clamp(min=1e-30))
+        res[k] = {"max_held": float(err_held.max()),
+                  "median": float(err.median()),
+                  "max_all": float(err.max()),
+                  "rolled_max": float(rolled.max()),
+                  "other_position_min": float(wrong.min())}
+        print(f"window {k} cache after step {WINDOW_STEPS} against the "
+              f"windowed prefill of {full.shape[1]} tokens: per-slot relative "
+              f"L2 error of the held slots max {float(err_held.max()):.3e} "
+              f"(by layer "
+              + " ".join(f"{float(e):.2e}" for e in err_held.amax(dim=1))
+              + f"), median of all {float(err.median()):.3e}, max of all "
+              f"{float(err.max()):.3e}; rolled slots 0-{n_rolled - 1} max "
+              f"{float(rolled.max()):.3e} (against the prompt positions "
+              f"they held before: min {float(wrong.min()):.3e})")
+        if float(wrong.min()) <= WINDOW_RTOL:
+            fail(f"12b: a rolled {k} slot still holds its prompt position")
+        if float(err_held.max()) > WINDOW_RTOL:
+            fail(f"12b: a {k} slot differs from the windowed prefill's by "
+                 f"{float(err_held.max()):.3e} > {WINDOW_RTOL}")
+    a, b = eager["logits"][-1].float(), pre_logits.float()
+    lerr = float((a - b).norm() / b.norm())
+    last_held = not bool(before[-1, -1] | rerouted[-1][-1])
+    res.update(logits_rel=lerr, last_token_held=last_held,
+               argmax_equal=bool(torch.equal(a.argmax(-1), b.argmax(-1))))
+    print(f"window: last decode logits against the prefill's last logits: "
+          f"relative L2 {lerr:.3e}, max |diff| {float((a - b).abs().max()):.3e}"
+          f", argmax equal {res['argmax_equal']}; the last token's experts "
+          f"{'agree at every layer' if last_held else 'differ (not held)'}")
+    if last_held and lerr > WINDOW_RTOL:
+        fail(f"12b: logits differ by {lerr:.3e} > {WINDOW_RTOL}")
+    res["prefill_s"], res["decode_s"] = eager["prefill_s"], eager["decode_s"]
+    del fresh, runs, eager, graph
+    return res
+
+
+def compact_phase(cfg, params, serve_pair, serve_argv, dev,
+                  max_err) -> tuple[dict, dict]:
+    """12d on qwen3-32b (phase 4's config): run_measured_decode at
+    correlation 0.95, batch 2, 24 steps, with a policy pinning compact at
+    attn_qkv and mlp_in at a budget of ceil(gk/4), eager-checked then as
+    graphs (bitwise); the budget must overflow on some steps and not on
+    others. Then phase 4's serve with --impl jnp (auto sites run dense),
+    and the jnp tier's runner with the exec-path refresh after each step,
+    whose promotions go to compact. Returns (the JSON row, {run:
+    launches})."""
+    from repro_torch.core.policy import ReusePolicy, SiteTunables
+
+    gk = {s: k // BK for s, k, _, _ in SITES}
+    budgets = {s: -(-gk[s] // 4) for s in COMPACT_SITES}
+    launches, out = {}, {"budgets": budgets}
+    label = "qwen3 b2 compact"
+    print(f"--- {label}: compact pinned at "
+          + ", ".join(f"{s} (gk {gk[s]}, budget {b})"
+                      for s, b in budgets.items()))
+    md, counts, log = measured_pair(
+        label, "qwen3-32b", cfg, params, steps=COMPACT_STEPS,
+        batch=COMPACT_BATCH, dev=dev, max_err=max_err,
+        policy=lambda: ReusePolicy(site_tunables={
+            s: SiteTunables(exec_path="compact", max_active_k=b)
+            for s, b in budgets.items()}))
+    out["pinned"] = measured_summary(label, md, counts, log)
+    launches[label] = counts
+    ovf = {(r.site, r.layer): r.overflow_fallbacks
+           for r in md.report.per_layer if r.site in COMPACT_SITES}
+    paths = {s.site: s.exec_path for s in md.report.per_site}
+    print(f"{label}: overflow fallbacks by layer (of {COMPACT_STEPS} steps): "
+          + "; ".join(f"{s} " + " ".join(str(ovf[(s, i)])
+                                        for i in range(cfg.n_layers))
+                      for s in COMPACT_SITES))
+    out["overflow"] = {f"{s}@{i}": v for (s, i), v in ovf.items()}
+    for s in COMPACT_SITES:
+        if paths[s] != "compact":
+            fail(f"{label}: site {s} ran {paths[s]}, not compact")
+    if not 0 < ovf[("attn_qkv", 0)] < COMPACT_STEPS:
+        fail(f"{label}: layer 0 attn_qkv overflowed on "
+             f"{ovf[('attn_qkv', 0)]} of {COMPACT_STEPS} steps: the budget "
+             "must overflow on some steps and not on others")
+    del md
+
+    label = "qwen3 serve --impl jnp"
+    counts, _ = serve_pair(cfg, serve_argv + ["--impl", "jnp"], label,
+                           pairs=2)
+    launches[f"{label} (eager, checked)"] = counts
+    if counts["delta_quant"] <= 0 or any(
+            counts[kn] for kn in ("reuse_matmul_output", "reuse_matmul_input",
+                                  "reuse_matmul_ragged")):
+        fail(f"{label}: the auto sites must run dense (delta_quant and no "
+             f"ΔW GEMM kernel): {counts}")
+    print(f"{label}: every auto site ran dense: delta_quant launched, no ΔW "
+          "GEMM kernel")
+
+    # the exec-path refresh alone after each step: the mode refresh would
+    # demote the deeper layers' lanes (their similarity is below the
+    # threshold), whose full tiles keep the site's skip under the gate
+    label = "qwen3 b2 jnp tier with the exec refresh"
+    print(f"--- {label}")
+    md, counts, log = measured_pair(
+        label, "qwen3-32b", cfg, params, steps=COMPACT_STEPS,
+        batch=COMPACT_BATCH, dev=dev, max_err=max_err, policy=lambda: None,
+        impl="jnp", on_step=lambda i, engine, rcache:
+        engine.refresh_exec_paths(rcache))
+    out["jnp_exec_refresh"] = measured_summary(label, md, counts, log)
+    launches[label] = counts
+    paths = {n: s.exec_path for n, s in md.engine.sites.items()}
+    print(f"{label}: exec paths after the run {paths}")
+    out["jnp_paths"] = paths
+    if "compact" not in paths.values():
+        fail(f"{label}: the refresh promoted no site to compact")
+    if set(paths.values()) - {"auto", "compact"}:
+        fail(f"{label}: a promotion left the jnp tier: {paths}")
+    del md
+    return out, launches
+
+
+def expert_reuse_phase(params, dev) -> dict:
+    """12e: per-(slot, expert) reuse at mixtral width, one layer (12a's
+    layer 0), batch 8, on the reference test's stream (a drifting input, so
+    routing switches, then half the slots revisiting, then every slot). The
+    wi lane, and the output from the lane's own activation codes, against
+    the quantized dense top-1 reference in f32 (widened weights), within the
+    f32 GEMM tolerance; the activation codes against the reference's; a
+    slot that repeats its expert and codes skips every tile."""
+    from repro_torch.core import expert_reuse as er
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.quant import dequantize_int8, quantize_int8
+
+    cfg = moe_cfg("mixtral-8x7b", top_k=1)
+    p = {k: (v[0] if isinstance(v, torch.Tensor) else {"scale": v["scale"][0]})
+         for k, v in params["blocks"]["moe"].items()}
+    b, d = EXPERT_REUSE_B, cfg.d_model
+    cache = er.layer_slice(er.init_expert_reuse_cache(cfg, b, device=dev), 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    x = torch.randn((b, 1, d), generator=gen, device=dev)
+    xs = []
+    for _ in range(EXPERT_REUSE_STEPS):
+        x = x + 0.3 * torch.randn((b, 1, d), generator=gen, device=dev)
+        xs.append(x)
+    half = xs[-1].clone()
+    half[: b // 2] += 0.2 * torch.randn((b // 2, 1, d), generator=gen,
+                                        device=dev)
+    xs += [half, half]
+    rows, experts, flips, worst = [], set(), 0, 0.0
+    ar = torch.arange(b, device=dev)
+    for i, x in enumerate(xs):
+        prev_top = cache["prev_q"].abs().sum(-1) > 0
+        out, cache, st = er.moe_reuse_forward(p, cfg, x, cache)
+        h = apply_norm(p["norm"], x, cfg.norm_eps).reshape(b, d)
+        logits = h.float() @ p["router"]
+        top_e = logits.argmax(-1)
+        gate = torch.softmax(logits, -1)[ar, top_e]
+        s, sa = cache["scale"], cache["act_scale"]
+        hq = dequantize_int8(quantize_int8(h, s), s)
+        hi = torch.einsum("bd,bdf->bf", hq, p["wi"][top_e].float())
+        g, u = torch.chunk(hi, 2, dim=-1)
+        act_q = quantize_int8(torch.nn.functional.silu(g) * u, sa)
+        lane_hi = cache["prev_hi"][top_e, ar]
+        lane_act = cache["prev_act_q"][top_e, ar]
+        worst = max(worst, close(lane_hi, hi, F32_ATOL, F32_RTOL,
+                                 "12e wi lane"))
+        flips += int((lane_act != act_q).sum())
+        want = torch.einsum("bf,bfd->bd", dequantize_int8(lane_act, sa),
+                            p["wo"][top_e].float()) * gate[:, None]
+        worst = max(worst, close(out.reshape(b, d), want, F32_ATOL, F32_RTOL,
+                                 "12e output"))
+        experts |= set(top_e.tolist())
+        rows.append({"step": i + 1, "sticky": float(st.sticky_fraction),
+                     "wi_skip": float(st.wi_skip),
+                     "wo_skip": float(st.wo_skip),
+                     "lanes_warm": int(prev_top[top_e, ar].sum())})
+        del hi, want
+    n_codes = len(xs) * b * cfg.d_ff
+    print("expert reuse (mixtral width, layer 0, batch 8, block_k 128): "
+          "per step sticky / wi_skip / wo_skip: "
+          + "; ".join(f"{r['step']}: {r['sticky']:.3f} {r['wi_skip']:.3f} "
+                      f"{r['wo_skip']:.3f}" for r in rows)
+          + f"; experts visited {sorted(experts)}; max |err| {worst:.3e} "
+          f"(atol {F32_ATOL} rtol {F32_RTOL}); activation codes differing "
+          f"from the reference's {flips} of {n_codes}")
+    if len(experts) < 2:
+        fail("12e: the stream never switched experts")
+    if flips > ACT_FLIP_SHARE * n_codes:
+        fail(f"12e: {flips} activation codes differ from the reference's")
+    if rows[-1]["wi_skip"] != 1.0 or rows[-1]["wo_skip"] != 1.0:
+        fail("12e: slots that repeat their expert and codes skipped "
+             f"{rows[-1]['wi_skip']} / {rows[-1]['wo_skip']} of their tiles")
+    if rows[-2]["wi_skip"] < 0.5:
+        fail("12e: the revisiting half of the slots did not skip")
+    return {"steps": rows, "max_err": worst, "act_code_flips": flips,
+            "experts": sorted(experts)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3210,6 +3730,33 @@ def main() -> None:
     launches_obs.update(counts)
     print(json.dumps({"obs": obs, "fleet": fleet}))
 
+    # ------------------------------------ 12. the MoE family and compact
+    phase("12. the MoE family (mixtral-8x7b, llama4-scout) and the compact "
+          "path")
+    from repro_torch.models import init_params
+
+    launches_moe = moe_serve_phase(serve_pair, graph_rows)
+    mcfg = moe_cfg("mixtral-8x7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mparams = init_params(mcfg, MEASURED_SEED, device=dev)
+    moe = {}
+    moe["runner"], counts = moe_runner_phase(mparams, mcfg, dev, max_err)
+    launches_moe.update(counts)
+    moe["window"] = window_phase(mparams, dev)
+    moe["expert_reuse"] = expert_reuse_phase(mparams, dev)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    qparams = init_params(cfg, MEASURED_SEED, device=dev)
+    moe["compact"], counts = compact_phase(cfg, qparams, serve_pair,
+                                           serve_argv, dev, max_err)
+    launches_moe.update(counts)
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"moe": moe}))
+
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
                      "wkv6_decode": launches_rwkv,
@@ -3227,7 +3774,9 @@ def main() -> None:
                         "launches_guard": {
                             run: c[kn] for run, c in launches_guard.items()},
                         "launches_obs": {
-                            run: c[kn] for run, c in launches_obs.items()}})
+                            run: c[kn] for run, c in launches_obs.items()},
+                        "launches_moe": {
+                            run: c[kn] for run, c in launches_moe.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))

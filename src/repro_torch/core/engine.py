@@ -25,8 +25,8 @@
 Every write goes into the existing tensors (`copy_`, indexed assignment):
 a captured CUDA graph reads the tensors it was captured on.
 
-Budgets: a site's k-extent budget reaches only the ragged path's accounting
-(the kernel walks the live counts). It is read from a per-site device
+Budgets: a site's k-extent budget reaches only the accounting of the
+ragged and compact paths (both compute every live block). It is read from a per-site device
 scalar, the budget lane (`budget_lanes`), which every budget move writes in
 place, so a budget move changes neither the device work nor a compiled
 step's decode key. The lanes live on the engine, not in the cache, so the

@@ -176,13 +176,14 @@ class ReusePolicy:
         self, spec: ReuseSiteSpec, skip_rate: float, *, impl: str = "cuda"
     ) -> str:
         """Path of one site from its measured tile-skip rate: a tuned pin
-        wins; above the break-even skip (and gk >= 2) the ragged walk."""
+        wins; above the break-even skip (and gk >= 2) the compacted tier,
+        "ragged" on the kernel tiers and "compact" on "jnp"."""
         t = self.resolve(spec.name)
         if t.exec_path is not None:
             return t.exec_path
         gk = -(-spec.in_features // spec.block_k)
         if gk >= 2 and skip_rate >= self.ragged_break_even_skip:
-            return "ragged"
+            return "ragged" if impl != "jnp" else "compact"
         return default_exec_path(impl)
 
     @staticmethod

@@ -40,16 +40,23 @@ class ReuseSiteSpec:
     block_n: int = 128
     mode: str = "auto"          # "reuse" | "basic" | "auto" (policy decides)
     dataflow: str = "output"    # "output" | "input" stationary
-    exec_path: str = "auto"     # "kernel" | "ragged" | "dense" | "auto" (→ "kernel")
+    # "kernel" | "ragged" | "compact" | "dense" | "auto" (default_exec_path)
+    exec_path: str = "auto"
     max_active_k: int | None = None
     fixed_scale: float = 0.05
 
 
 def default_exec_path(impl: str) -> str:
-    """The path an "auto" site runs on. Both port impls are kernel tiers (the
-    reference's jnp tier, whose "auto" is "dense", waits for a later slice;
-    "dense" itself runs when a spec names it)."""
-    return "kernel"
+    """The path an "auto" site runs on: the masked block-skip kernel on the
+    kernel tiers ("cuda", "torch"), the masked product on the reference's
+    serve tier "jnp"."""
+    return "kernel" if impl != "jnp" else "dense"
+
+
+def kernel_impl(impl: str) -> str:
+    """The kernel substrate (`ops.IMPLS`) an engine tier runs on: the
+    reference's serve tier "jnp" launches the Hopper kernels, as "cuda"."""
+    return "cuda" if impl == "jnp" else impl
 
 
 def resolve_exec_path(spec: ReuseSiteSpec, impl: str) -> str:

@@ -15,15 +15,20 @@ passes) instead of branching on the device lane, which would cost one
 device→host sync per site per layer. A string mode pins the branch.
 
 `impl`: "cuda" — the Hopper kernels (their plain twins for CPU tensors);
-"torch" — the plain versions on any device (the reference's XLA-tier twin).
-On both, quantize → delta → tile-mask is one fused pass, and "auto" sites run
-the masked block-skip kernel; a site pinned to "ragged" runs the compacted
-walk, and a site on "dense" (the guard's shadow oracle) the reference's
-masked product `ops.reuse_matmul_ref`, which sits outside any kernel.
+"torch" — the plain versions on any device (the reference's XLA-tier twin);
+"jnp" — the reference's serve tier: the kernels as "cuda" (`kernel_impl`),
+but an "auto" site runs "dense" and the policy promotes to "compact". On all
+three, quantize → delta → tile-mask is one fused pass. "kernel" runs the
+masked block-skip kernel, "ragged" the compacted walk, "compact" the
+reference's gather GEMM over the k-blocks any row changed (here the plain
+product, with the reference's accounting), and "dense" (also the guard's
+shadow oracle) the reference's masked product `ops.reuse_matmul_ref`; the
+last two are torch ops, as the reference's are jnp outside any kernel.
 
-`budget`: the ragged accounting's k-extent budget as a device scalar (the
-engine's budget lane, written in place by budget moves, so a captured
-graph reads the live value); None reads the spec's `max_active_k`.
+`budget`: the ragged and compact accounting's k-extent budget as a device
+scalar (the engine's budget lane, written in place by budget moves, so a
+captured graph reads the live value); None reads the spec's
+`max_active_k`.
 """
 
 from __future__ import annotations
@@ -32,7 +37,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.reuse_cache import ReuseSiteSpec, resolve_exec_path
+from repro_torch.core.reuse_cache import (
+    ReuseSiteSpec,
+    kernel_impl,
+    resolve_exec_path,
+)
 from repro_torch.core.similarity import ema_update_mean, row_code_matches
 from repro_torch.kernels import ops
 from repro_torch.quant import dequantize_int8, quantize_int8
@@ -44,24 +53,13 @@ class ReuseStats(NamedTuple):
     skip_fraction: torch.Tensor  # fraction of weight tiles skipped this call
 
 
-def basic_product(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """xq @ w with an f32 result, the reference's basic-mode product
-    (preferred_element_type=f32), which sits outside any reuse kernel. On
-    the card a bf16 pair is one bf16 product with an f32 output, so the
-    weight is never widened; elsewhere (the CPU twin, f32 models) both
-    operands are taken to f32."""
-    if xq.is_cuda and xq.dtype == w.dtype == torch.bfloat16:
-        return torch.mm(xq, w, out_dtype=torch.float32)
-    return xq.float() @ w.float()
-
-
 def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float):
     """ReuseOFF: the plain quantized GEMM, with the cache refreshed."""
     m, k = xm.shape
     n = w.shape[-1]
     cur_q = quantize_int8(xm, cache["scale"])
     xq = dequantize_int8(cur_q, cache["scale"], dtype=xm.dtype)
-    out = basic_product(xq, w)
+    out = ops.f32_product(xq, w)  # the basic-mode product
     matches = row_code_matches(cur_q, cache["prev_q"])
     cache["prev_q"].copy_(cur_q)
     cache["prev_out"].copy_(out)
@@ -84,10 +82,11 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
     """ReuseON: delta-encode against the previous evaluation and run the ΔW
     GEMM on the spec's execution path."""
     n = w.shape[-1]
+    sub = kernel_impl(impl)
     cur_q, delta, mask = ops.delta_quant_fused(
         xm, cache["prev_q"], cache["scale"],
         block_m=spec.block_m, block_k=spec.block_k, delta_dtype=w.dtype,
-        impl=impl,
+        impl=sub,
     )
     path = resolve_exec_path(spec, impl)
     gm, gk = mask.shape
@@ -102,23 +101,32 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
         out = ops.reuse_matmul_ragged(
             delta, w, cache["prev_out"], mask,
             block_m=spec.block_m, block_n=spec.block_n, block_k=spec.block_k,
-            impl=impl, compacted=(idx, counts),
+            impl=sub, compacted=(idx, counts),
         )
         dma_issued = ops.ragged_dma_tiles(counts, gn=gn)
         grid_steps = ops.ragged_grid_steps(
             counts, gm=gm, gn=gn, gk=gk, max_active_k=kb)
         overflow = ops.budget_overflow(counts, gk=gk, max_active_k=kb)
+    elif path == "compact":
+        k_mask = mask.amax(dim=0)
+        out = ops.reuse_matmul_compact(delta, w, cache["prev_out"], k_mask,
+                                       block_k=spec.block_k)
+        # the reference's gather streams each live K-block's weight panel
+        # once, shared by all rows
+        live = k_mask.sum(dtype=torch.int32)
+        dma_issued = live * gn
+        grid_steps = ops.ragged_grid_steps(
+            live.expand(gm), gm=gm, gn=gn, gk=gk, max_active_k=kb)
+        overflow = ops.budget_overflow(live, gk=gk, max_active_k=kb)
     elif path == "kernel":
         sel = ops.skip_sel(mask)
         out = ops.reuse_matmul(
             delta, w, cache["prev_out"], mask,
             block_m=spec.block_m, block_n=spec.block_n, block_k=spec.block_k,
-            dataflow=spec.dataflow, impl=impl,
+            dataflow=spec.dataflow, impl=sub,
         )
     else:
-        raise ValueError(
-            f"exec_path {path!r} of site {spec.name!r} is not available in "
-            "this package (only 'kernel', 'ragged' and 'dense' are)")
+        raise ValueError(f"unknown exec_path {path!r} of site {spec.name!r}")
     k = xm.shape[1]
     matches = row_code_matches(cur_q, cache["prev_q"])
     cache["prev_q"].copy_(cur_q)

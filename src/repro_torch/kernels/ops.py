@@ -4,6 +4,9 @@ Execution paths of the reuse-mode ΔW GEMM (`ReuseSiteSpec.exec_path`):
   "kernel" — block-skip GEMM on the full tile grid (`reuse_matmul`).
   "ragged" — compacted walk over each row's active k-blocks
              (`reuse_matmul_ragged`).
+  "compact" — the reference's gather GEMM over the k-blocks any row
+             changed (`reuse_matmul_compact`); here the plain product, in
+             torch ops as the reference's is jnp outside any kernel.
   "dense"  — the masked product `reuse_matmul_ref` in torch ops, as the
              reference computes it outside any kernel (the guard's oracle).
 
@@ -45,9 +48,11 @@ __all__ = [
     "clamp_budget",
     "compact_rows",
     "delta_quant_fused",
+    "f32_product",
     "ragged_dma_tiles",
     "ragged_grid_steps",
     "reuse_matmul",
+    "reuse_matmul_compact",
     "reuse_matmul_int8",
     "reuse_matmul_ragged",
     "reuse_matmul_ref",
@@ -200,6 +205,41 @@ def reuse_matmul_ragged(
     out = run(dp, wp, pp, counts, idx, block_m=block_m, block_n=block_n,
               block_k=block_k)
     return out[:m, :n]
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an f32 result, the reference's preferred_element_type=f32
+    product outside any kernel ([M,K]x[K,N], or batched [E,M,K]x[E,K,N]). On
+    the card a bf16 pair is one bf16 product with an f32 output, so the
+    weight is never widened; elsewhere (the CPU twin, f32 models) both
+    operands are taken to f32."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        mm = torch.bmm if a.ndim == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def reuse_matmul_compact(
+    delta: torch.Tensor,         # [M, K]
+    w: torch.Tensor,             # [K, N]
+    prev_out: torch.Tensor,      # [M, N]
+    k_block_mask: torch.Tensor,  # [ceil(K/block_k)] int32: any row changed
+    *,
+    block_k: int = 256,
+) -> torch.Tensor:
+    """The compaction path: prev_out (f32) + Δ·W.
+
+    The reference gathers the live K-blocks of Δ and W in compacted order,
+    `max_blocks` of them or, when the live count overflows that budget, the
+    full extent, a data-dependent branch. Δ is zero in every block whose
+    mask bit is 0 (the bits come from the same fused pass), so the product
+    over all of K has the same terms as either branch, in another summation
+    order, with no gather and no host branch. The budget enters only the
+    accounting (`ragged_grid_steps`, `budget_overflow`)."""
+    gk = -(-delta.shape[1] // block_k)
+    if tuple(k_block_mask.shape) != (gk,):
+        raise ValueError(f"k mask {tuple(k_block_mask.shape)} != {(gk,)}")
+    return prev_out.float() + f32_product(delta, w)
 
 
 def ragged_dma_tiles(counts: torch.Tensor, *, gn: int) -> torch.Tensor:

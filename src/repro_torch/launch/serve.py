@@ -10,6 +10,8 @@ the end (and with `--sensor-jsonl PATH` appends the final report's rows to
 PATH, the trace `python -m repro_torch.tune.fit` reads). `--device` defaults to `cuda`, where the engine runs the Hopper
 kernels; on a machine without a card that default fails loudly instead of
 falling back to the CPU. `--device cpu` runs the plain PyTorch versions.
+`--impl jnp` builds the engine on the reference serve's tier (its "auto"
+sites run the masked product "dense", the policy promotes to "compact").
 
 `--control-every N` runs the online control plane (`repro_torch.control`)
 every N decode steps: live per-site retuning, budget adaptation from the
@@ -124,6 +126,11 @@ def build_parser() -> argparse.ArgumentParser:
                     "to this path for audit/replay")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs; cuda runs the Hopper kernels")
+    ap.add_argument("--impl", choices=("auto", "jnp"), default="auto",
+                    help="the engine's tier: auto runs the Hopper kernels "
+                    "on the card (the plain versions on the CPU); jnp is "
+                    "the reference serve's tier, whose auto sites run "
+                    "dense and whose promotions go to compact")
     ap.add_argument("--eager", action="store_true",
                     help="run each step directly instead of replaying its "
                     "CUDA graph")
@@ -227,7 +234,8 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
                 f"the kernel substrate is {backend.best()!r}: the Hopper "
                 "kernels need a device of capability 9.0 or newer")
     device = torch.device(args.device)
-    impl = "cuda" if device.type == "cuda" else "torch"
+    impl = (args.impl if args.impl != "auto"
+            else "cuda" if device.type == "cuda" else "torch")
     print(f"kernel substrate: {backend.describe()} (serve impl={impl})")
 
     rng = np.random.default_rng(args.seed)

@@ -1,4 +1,4 @@
-"""Layers of the dense decoder: norms, RoPE, attention, MLP (dense path).
+"""Layers of the decoder: norms, RoPE, attention (full or sliding-window), MLP.
 
 Plain PyTorch on explicit parameter dicts laid out as the JAX package's
 pytrees ([K, N] weights, heads as [B, S, H, D]). Prefill attention is the
@@ -185,14 +185,22 @@ def attention_forward(
     cfg: ModelConfig,
     x: torch.Tensor,                     # [B, S, d]
     *,
+    layer_window: int | None = None,     # None = full; int = sliding window
     positions: torch.Tensor,             # [B, S]
     kv_cache: dict | None = None,        # {"k": [B,Sc,KV,D], "v": ...} (views)
     kv_len: torch.Tensor | None = None,  # [] valid length before this token
     reuse_ctx=None,
     site_prefix: str = "attn",
 ) -> torch.Tensor:
-    """Attention block (dense, full causal). A given `kv_cache` is updated
-    IN PLACE: prefill writes slots [0, S), decode writes one slot."""
+    """Attention block (causal; full, or a sliding window of
+    `layer_window`). A given `kv_cache` is updated IN PLACE. Prefill writes
+    slots [0, S); a windowed layer whose window fits the cache keeps it
+    rolling (token t at slot t % cache_len), so a prompt of S >= cache_len
+    leaves its last cache_len tokens there. Decode writes one slot: len %
+    cache_len on a rolling cache, else min(len, cache_len - 1). The softmax
+    over the valid slots does not depend on their order, and RoPE is applied
+    before the cache at absolute positions, so decode needs no window mask:
+    a rolling cache of `window` slots holds exactly the window."""
     b, s, _ = x.shape
     h = apply_norm(p["norm"], x, cfg.norm_eps)
     qkv = _maybe_reuse_matmul(f"{site_prefix}_qkv", h, p["wqkv"],
@@ -206,16 +214,29 @@ def attention_forward(
 
     if kv_cache is None or s > 1:
         out = blockwise_attention(
-            q, k, v, causal=cfg.causal, window=None,
+            q, k, v, causal=cfg.causal, window=layer_window,
             chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
         )
         if kv_cache is not None:
-            n = min(s, kv_cache["k"].shape[1])
-            kv_cache["k"][:, :n] = k[:, :n]
-            kv_cache["v"][:, :n] = v[:, :n]
+            cache_len = kv_cache["k"].shape[1]
+            rolling = layer_window is not None and layer_window <= cache_len
+            if rolling and s >= cache_len:
+                # positions s - cache_len .. s - 1 land at their slots t %
+                # cache_len: the tail of the prompt, rotated
+                r = s % cache_len
+                kv_cache["k"].copy_(torch.roll(k[:, s - cache_len:], r, 1))
+                kv_cache["v"].copy_(torch.roll(v[:, s - cache_len:], r, 1))
+            else:
+                n = min(s, cache_len)
+                kv_cache["k"][:, :n] = k[:, :n]
+                kv_cache["v"][:, :n] = v[:, :n]
     else:
         cache_len = kv_cache["k"].shape[1]
-        slot = torch.clamp(kv_len, max=cache_len - 1).reshape(1).long()
+        if layer_window is not None and layer_window <= cache_len:
+            slot = torch.remainder(kv_len, cache_len)
+        else:
+            slot = torch.clamp(kv_len, max=cache_len - 1)
+        slot = slot.reshape(1).long()
         kv_cache["k"].index_copy_(1, slot, k)
         kv_cache["v"].index_copy_(1, slot, v)
         out = decode_attention(q, kv_cache["k"], kv_cache["v"], kv_len + 1)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.reuse_cache import kernel_impl
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, _maybe_reuse_matmul, rms_norm
 
@@ -124,7 +125,8 @@ def rwkv6_time_mix(
     hd = cfg.ssm_head_dim
     n_h = d // hd
     tm = p["tmix"]
-    impl = reuse_ctx[0].impl if reuse_ctx is not None else "cuda"
+    impl = (kernel_impl(reuse_ctx[0].impl) if reuse_ctx is not None
+            else "cuda")
 
     x_shift = torch.cat([state["shift"][:, None], x[:, :-1]], dim=1)
     r, k, v, g, w = _rwkv_projections(p, cfg, x, x_shift, reuse_ctx, prefix)

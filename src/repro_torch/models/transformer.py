@@ -1,8 +1,10 @@
 """Model composition: parameters, decode state, forward, logits.
 
-Two families are ported: the dense decoder (qwen3-style, tied embeddings, KV
-cache) and RWKV6 (time mix + channel mix per block, an untied LM head, a
-recurrent state instead of a KV cache).
+Three families are ported: the dense decoder (qwen3-style, tied embeddings,
+KV cache), the MoE decoder (the same attention, full or sliding-window with
+a rolling KV cache, and a routed-expert block in place of the MLP; mixtral
+and llama4-scout) and RWKV6 (time mix + channel mix per block, an untied LM
+head, a recurrent state instead of a KV cache).
 
 Parameters are a plain dict laid out as the JAX package's pytree: the block
 leaves stay STACKED with a leading [L] axis (`params["blocks"]["attn"]["wqkv"]`
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Params,
@@ -33,19 +36,25 @@ from repro_torch.models.layers import (
 
 def check_family(cfg: ModelConfig) -> None:
     """The ported families: dense (full causal attention with RoPE, a swiglu
-    MLP, tied embeddings, an unquantized KV cache) and rwkv6 (attention-free,
-    untied LM head). Anything else raises."""
-    common = (cfg.n_experts or cfg.frontend != "none" or cfg.hybrid_attn_every
+    MLP, tied embeddings, an unquantized KV cache), MoE (the same attention,
+    full or sliding-window, and routed swiglu experts, with or without a
+    shared expert) and rwkv6 (attention-free, untied LM head). Anything
+    else raises."""
+    common = (cfg.frontend != "none" or cfg.hybrid_attn_every
               or cfg.kv_head_pad_to or cfg.kv_cache_quant)
-    dense = (cfg.family == "dense" and cfg.ssm_kind == "none"
-             and cfg.attn_kind == "full" and cfg.rope == "rope"
-             and cfg.mlp_kind == "swiglu" and cfg.tie_embeddings)
+    decoder = (cfg.ssm_kind == "none" and cfg.rope == "rope"
+               and cfg.mlp_kind == "swiglu" and cfg.tie_embeddings)
+    dense = (decoder and cfg.family == "dense" and not cfg.n_experts
+             and cfg.attn_kind == "full")
+    moe = (decoder and cfg.family == "moe" and cfg.n_experts > 0
+           and cfg.attn_kind in ("full", "swa"))
     rwkv6 = (cfg.family == "ssm" and cfg.ssm_kind == "rwkv6"
-             and cfg.attn_kind == "none" and not cfg.tie_embeddings)
-    if common or not (dense or rwkv6):
+             and cfg.attn_kind == "none" and not cfg.tie_embeddings
+             and not cfg.n_experts)
+    if common or not (dense or moe or rwkv6):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense qwen3-style and the rwkv6 paths are "
-            "ported")
+            f"{cfg.name}: only the dense qwen3-style, the MoE (mixtral, "
+            "llama4-scout) and the rwkv6 paths are ported")
 
 
 def _tree_map(fn, tree):
@@ -95,14 +104,14 @@ def init_params(
         attn["k_norm"] = norm(cfg.head_dim)
     embed = torch.randn((cfg.vocab, d), generator=gen, device=device,
                         dtype=torch.float32).mul_(0.01).to(dt)
-    params: Params = {
-        "embed": embed,
-        "blocks": {"attn": attn,
-                   "mlp": {"wi": dense(d, 2 * cfg.d_ff), "wo": dense(cfg.d_ff, d),
-                           "norm": norm(d)}},
-        "final_norm": final_norm,
-    }
-    return params
+    if cfg.n_experts:
+        blocks = {"attn": attn,
+                  "moe": moe_mod.init_moe(cfg, gen, layers=L, device=device)}
+    else:
+        blocks = {"attn": attn,
+                  "mlp": {"wi": dense(d, 2 * cfg.d_ff),
+                          "wo": dense(cfg.d_ff, d), "norm": norm(d)}}
+    return {"embed": embed, "blocks": blocks, "final_norm": final_norm}
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> Params:
@@ -126,14 +135,17 @@ def init_decode_state(
     cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda"
 ) -> dict:
     """The valid length (a device scalar) and the per-layer state: KV
-    caches [L, B, S, KV, D] (dense), or the rwkv state {tmix: {shift
-    [L, B, d], wkv [L, B, H, dk, dv] f32}, cmix: {shift}} (rwkv6)."""
+    caches [L, B, S, KV, D] (dense and MoE; S = min(window, cache_len) for
+    sliding-window attention, a rolling cache), or the rwkv state {tmix:
+    {shift [L, B, d], wkv [L, B, H, dk, dv] f32}, cmix: {shift}} (rwkv6)."""
     check_family(cfg)
     length = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.ssm_kind == "rwkv6":
         return {"len": length,
                 "blocks": ssm_mod.init_rwkv6_state(
                     cfg, batch, layers=cfg.n_superblocks, device=device)}
+    if cfg.attn_kind == "swa":
+        cache_len = min(cfg.window, cache_len)
     shape = (cfg.n_superblocks, batch, cache_len, cfg.kv_heads_eff, cfg.head_dim)
     return {
         "len": length,
@@ -207,6 +219,7 @@ def forward(
     else:
         positions = ar[None, :].expand(b, s)
     stats: dict[str, Any] = {}
+    window = cfg.window if cfg.attn_kind == "swa" else None
     for layer in range(cfg.n_superblocks):
         bp = _layer(params["blocks"], layer)
         kv = _layer(decode_state["blocks"], layer) if decode else None
@@ -218,10 +231,14 @@ def forward(
             x = _rwkv6_block(bp["rwkv"], cfg, x, kv, rctx)
             continue
         x = x + attention_forward(
-            bp["attn"], cfg, x, positions=positions, kv_cache=kv,
-            kv_len=decode_state["len"] if decode else None, reuse_ctx=rctx,
+            bp["attn"], cfg, x, layer_window=window, positions=positions,
+            kv_cache=kv, kv_len=decode_state["len"] if decode else None,
+            reuse_ctx=rctx,
         )
-        x = x + mlp_forward(bp["mlp"], cfg, x, reuse_ctx=rctx)
+        if cfg.n_experts:
+            x = x + moe_mod.moe_forward(bp["moe"], cfg, x, reuse_ctx=rctx)
+        else:
+            x = x + mlp_forward(bp["mlp"], cfg, x, reuse_ctx=rctx)
     new_state = None
     if decode:
         new_state = {"len": decode_state["len"] + s,

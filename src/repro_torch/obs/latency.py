@@ -11,7 +11,8 @@ is otherwise priced from cost-model constants (energy figures,
   ``site`` / ``exec_path`` tags (the probe emits them; any span source works);
 * :func:`probe_latency_table` — measures each registered site's wall-clock
   per viable execution path (the basic-mode product as the baseline, then
-  the masked walk, `kernel`, and the compacted walk, `ragged`, when gk >= 2)
+  the masked walk, `kernel`, and the compacted walk, `ragged`, when gk >= 2;
+  `dense` and `compact` on the reference serve's "jnp" tier)
   on the reference's synthetic delta stream matched to the site's MEASURED
   skip rate. On the card each path is one `reuse_linear` call captured as a
   CUDA graph over static input and cache tensors and replayed with the two
@@ -245,13 +246,11 @@ def _path_tag(device: torch.device) -> dict[str, Any]:
 
 def _viable_paths(spec, impl: str) -> list[str]:
     """Execution paths measurable for one site: the masked walk plus — when
-    the K extent compacts (gk >= 2) — the compacted walk. Both port impls
-    are kernel tiers (the reference's `_viable_paths` for a kernel impl)."""
+    the K extent compacts (gk >= 2) — the compacted tier; "dense" and
+    "compact" on the "jnp" tier, "kernel" and "ragged" on the others."""
     gk = -(-spec.in_features // spec.block_k)
-    paths = ["kernel"]
-    if gk >= 2:
-        paths.append("ragged")
-    return paths
+    paths = ["dense", "compact"] if impl == "jnp" else ["kernel", "ragged"]
+    return paths if gk >= 2 else paths[:1]
 
 
 @torch.no_grad()
@@ -343,7 +342,8 @@ def probe_latency_table(
                 else:
                     pspec = dataclasses.replace(
                         spec, exec_path=path,
-                        max_active_k=budget if path == "ragged" else None)
+                        max_active_k=(budget if path in ("ragged", "compact")
+                                      else None))
                     mode = "reuse"
                 cache = init_site_cache(pspec, batch,
                                         engine.policy.resolve(name),

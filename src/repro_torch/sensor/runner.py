@@ -38,11 +38,11 @@ from repro_torch.serve.serve_step import (
     init_serve_state,
 )
 
-# The measured operating points: (arch, stream correlation), those of the
-# reference's table for the archs the port runs (its mixtral-8x7b row waits
-# for the port's models/moe.py).
+# The measured operating points: (arch, stream correlation), the
+# reference's table.
 MEASURED_OPERATING_POINTS = [
     ("qwen3-32b", 0.95),
+    ("mixtral-8x7b", 0.9),
     ("rwkv6-7b", 0.95),
 ]
 
@@ -81,6 +81,7 @@ def run_measured_decode(
     params=None,
     cfg=None,
     graphs: bool | None = None,
+    impl: str | None = None,
 ) -> MeasuredDecode:
     """Decode `steps` tokens on a (reduced) arch and harvest sensor counters.
 
@@ -104,7 +105,10 @@ def run_measured_decode(
     (weights to use instead of `init_params(cfg, seed)`, e.g. the
     reference's through `params_from_numpy`), `cfg` (a config in place of
     `ARCHS[arch]`, e.g. one cut in depth; `reduced` is then not applied) and
-    `graphs` (CUDA graphs; default: on the card).
+    `graphs` (CUDA graphs; default: on the card) and `impl` (the engine's
+    tier; default "cuda" on the card and "torch" on the CPU; "jnp" is the
+    reference runner's own, whose "auto" sites run "dense" and whose
+    promotions go to "compact").
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -115,7 +119,8 @@ def run_measured_decode(
         cfg = ARCHS[arch]
         if reduced:
             cfg = cfg.reduced()
-    impl = "cuda" if device.type == "cuda" else "torch"
+    if impl is None:
+        impl = "cuda" if device.type == "cuda" else "torch"
     rng = np.random.default_rng(seed)
     if params is None:
         params = init_params(cfg, seed, device=device)

@@ -28,8 +28,10 @@ def build_reuse_engine(
 ) -> ReuseEngine:
     """Register the decode-time reuse sites, stacked over layers, with the
     reference's names and shapes: for a dense transformer the attention
-    projections and the MLP (four per layer); for rwkv6 the time mix's
-    r/k/v/g/o projections and the channel mix's k/v/r (eight per layer).
+    projections and the MLP (four per layer); for MoE the attention
+    projections and, where there is one, the shared expert's two linears;
+    for rwkv6 the time mix's r/k/v/g/o projections and the channel mix's
+    k/v/r (eight per layer).
     A tuned `policy` resolves each site's block_k, exec_path and budget."""
     check_family(cfg)
     eng = ReuseEngine(impl=impl, policy=policy or ReusePolicy())
@@ -49,6 +51,13 @@ def build_reuse_engine(
 
     reg("attn_qkv", d, cfg.q_dim + 2 * cfg.kv_dim)
     reg("attn_out", cfg.q_dim, d)
+    if cfg.n_experts:
+        # routed experts are not reuse sites (their token stream changes
+        # with the routing); a shared expert is
+        if cfg.shared_expert:
+            reg("moe_shared_in", d, 2 * cfg.d_ff)
+            reg("moe_shared_out", cfg.d_ff, d)
+        return eng
     reg("mlp_in", d, 2 * cfg.d_ff)  # swiglu [gate | up]
     reg("mlp_out", cfg.d_ff, d)
     return eng

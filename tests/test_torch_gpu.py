@@ -17,7 +17,6 @@ from repro_torch.configs import get_config
 from repro_torch.control import ControlConfig, Controller
 from repro_torch.core.delta import compact_rows, delta_encode_int8
 from repro_torch.core.policy import ReusePolicy, SiteTunables
-from repro_torch.core.reuse_linear import basic_product
 from repro_torch.guard import FaultInjector, QuarantineBreaker
 from repro_torch.kernels import backend, ops
 from repro_torch.kernels.delta_quant import (
@@ -424,7 +423,9 @@ def test_int8_split_matches_plain_on_card(card, m, bm, k, n, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,kernels", [
     ("qwen3-32b", ("delta_quant", "reuse_matmul_output")),
-    ("rwkv6-7b", ("delta_quant", "reuse_matmul_output", "wkv6_decode"))])
+    ("rwkv6-7b", ("delta_quant", "reuse_matmul_output", "wkv6_decode")),
+    ("mixtral-8x7b", ("delta_quant", "reuse_matmul_output")),
+    ("llama4-scout-17b-a16e", ("delta_quant", "reuse_matmul_output"))])
 def test_serve_runs_the_kernels_on_the_card(card, capsys, arch, kernels):
     backend.reset_launches()
     tserve_cli.main(["--arch", arch, "--reduced", "--requests", "2",
@@ -507,9 +508,9 @@ def _reduced_step(arch, card, graphs, variant="default"):
     cfg = dataclasses.replace(get_config(arch).reduced(),
                               param_dtype="bfloat16")
     policy = ReusePolicy()
-    if variant == "ragged":
+    if variant in ("ragged", "compact"):
         policy = ReusePolicy(site_tunables={
-            s: SiteTunables(exec_path="ragged", max_active_k=1)
+            s: SiteTunables(exec_path=variant, max_active_k=1)
             for s in ("attn_qkv", "mlp_in", "rwkv_wr", "rwkv_cmix_wk")})
     engine = build_reuse_engine(cfg, block_k=64, policy=policy)
     return CompiledStep(init_params(cfg, 0, device=card), cfg,
@@ -525,7 +526,8 @@ def _tensor_leaves(tree):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b", "mixtral-8x7b",
+                                  "llama4-scout-17b-a16e"])
 def test_graph_step_matches_eager_step_on_card(card, arch):
     """Reduced bf16 models: the same prefills and decode steps, eagerly and
     through captured graphs (with a mode flip and a flip back between
@@ -535,7 +537,7 @@ def test_graph_step_matches_eager_step_on_card(card, arch):
     for graphs in (False, True):
         backend.reset_launches()
         step = _reduced_step(arch, card, graphs)
-        site = "attn_out" if arch == "qwen3-32b" else "rwkv_wo"
+        site = "rwkv_wo" if arch == "rwkv6-7b" else "attn_out"
         gen = torch.Generator(device=card).manual_seed(0)
         logits = [step.prefill(torch.randint(
             0, step.cfg.vocab, (2, 8), generator=gen, device=card)).clone()]
@@ -561,13 +563,15 @@ def test_graph_step_matches_eager_step_on_card(card, arch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b"])
-@pytest.mark.parametrize("variant", ["default", "ragged", "basic"])
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b", "mixtral-8x7b",
+                                  "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("variant", ["default", "ragged", "compact",
+                                     "basic"])
 def test_eager_decode_step_syncs_nothing_on_card(card, arch, variant):
     """Under torch.cuda.set_sync_debug_mode("error") an eager decode step
     raises on any call that waits for the card: there must be none."""
     step = _reduced_step(arch, card, graphs=False,
-                         variant="ragged" if variant == "ragged" else
+                         variant=variant if variant != "basic" else
                          "default")
     step.prefill(torch.ones((2, 8), dtype=torch.int32, device=card))
     step.decode(torch.ones((2, 1), dtype=torch.int32, device=card))
@@ -582,6 +586,79 @@ def test_eager_decode_step_syncs_nothing_on_card(card, arch, variant):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_compact_budget_move_captures_nothing_on_card(card):
+    """A budget move on a compact site reaches its accounting through the
+    budget lane: the next decode replays the graph it had, and the replay
+    is bitwise the eager step under the same budgets."""
+    runs = []
+    for graphs in (False, True):
+        step = _reduced_step("qwen3-32b", card, graphs, variant="compact")
+        step.prefill(torch.ones((2, 8), dtype=torch.int32, device=card))
+        logits = []
+        for i in range(4):
+            if i == 2:
+                assert step.engine.set_budget("attn_qkv", 2)
+            tok = torch.full((2, 1), 3 + (i % 2), dtype=torch.int32,
+                             device=card)
+            logits.append(step.decode(tok).clone())
+        torch.cuda.synchronize()
+        runs.append((logits, _tensor_leaves(step.rcache), step.summary()))
+    (le, re, _), (lg, rg, summ) = runs
+    assert summ["decode"] == 1 and summ["captures"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(le, lg))
+    assert all(torch.equal(a, b) for a, b in zip(re, rg))
+
+
+@pytest.mark.gpu
+def test_expert_reuse_matches_dense_top1_on_card(card):
+    """Per-(slot, expert) reuse at bf16 weights on the card against the
+    quantized dense top-1 product computed with widened weights, in f32
+    before the final bf16 cast: the wi lane against the dense hi, and the
+    output from the lane's own activation codes against the dense product
+    of those codes, within the f32 GEMM tolerance (atol 1e-4, rtol 1e-5);
+    the activation codes equal the dense ones but for codes at a rounding
+    boundary (at most 1e-3 of them)."""
+    from repro_torch.core import expert_reuse as er
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.quant import dequantize_int8, quantize_int8
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(), top_k=1,
+                              param_dtype="bfloat16")
+    p = {k: (v[0] if isinstance(v, torch.Tensor) else {"scale": v["scale"][0]})
+         for k, v in init_params(cfg, 0, device=card)["blocks"]["moe"].items()}
+    b = 4
+    cache = er.layer_slice(er.init_expert_reuse_cache(cfg, b, device=card), 0)
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen, device=card)
+    ar = torch.arange(b, device=card)
+    flips = 0
+    for step in range(6):
+        x = x + 0.3 * torch.randn(x.shape, generator=gen, device=card)
+        xb = x.to(BF16)
+        out, cache, stats = er.moe_reuse_forward(p, cfg, xb, cache,
+                                                 block_k=32)
+        h = apply_norm(p["norm"], xb, cfg.norm_eps).reshape(b, -1)
+        logits = h.float() @ p["router"]
+        top_e = logits.argmax(-1)
+        gate = torch.softmax(logits, -1)[ar, top_e]
+        s, sa = cache["scale"], cache["act_scale"]
+        hq = dequantize_int8(quantize_int8(h, s), s)
+        hi = torch.einsum("bd,bdf->bf", hq, p["wi"][top_e].float())
+        torch.testing.assert_close(cache["prev_hi"][top_e, ar], hi,
+                                   rtol=1e-5, atol=1e-4)
+        g, u = torch.chunk(hi, 2, dim=-1)
+        act_q = quantize_int8(torch.nn.functional.silu(g) * u, sa)
+        lane_act = cache["prev_act_q"][top_e, ar]
+        flips += int((lane_act != act_q).sum())
+        want = torch.einsum("bf,bfd->bd", dequantize_int8(lane_act, sa),
+                            p["wo"][top_e].float()) * gate[:, None]
+        got = cache["prev_out"][top_e, ar] * gate[:, None]
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        assert torch.equal(out.reshape(b, -1), got.to(BF16))
+    assert flips <= 1e-3 * 6 * b * cfg.d_ff
 
 
 @pytest.mark.gpu
@@ -928,7 +1005,7 @@ def test_basic_product_matches_widened_on_card(card, m, k, n):
     xq = torch.randn((m, k), generator=gen, device=card).to(BF16)
     w = (torch.randn((k, n), generator=gen, device=card)
          / math.sqrt(k)).to(BF16)
-    out = basic_product(xq, w)
+    out = ops.f32_product(xq, w)
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, xq.float() @ w.float(), rtol=1e-4,
                                atol=1e-3)

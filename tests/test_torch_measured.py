@@ -119,12 +119,15 @@ def test_runner_defaults_and_table_match_reference():
     for name, p in jsig.items():
         assert tsig[name].default == p.default, name
     assert list(tsig)[:len(jsig)] == list(jsig)
-    assert set(tsig) - set(jsig) == {"device", "params", "cfg", "graphs"}
+    assert set(tsig) - set(jsig) == {"device", "params", "cfg", "graphs",
+                                     "impl"}
     assert tsig["device"].default == "cuda"
+    assert tsig["impl"].default is None
     ported = [p for p in jrunner.MEASURED_OPERATING_POINTS
               if p[0] in ARCHS]
     assert trunner.MEASURED_OPERATING_POINTS == ported
-    assert [a for a, _ in ported] == ["qwen3-32b", "rwkv6-7b"]
+    assert [a for a, _ in ported] == ["qwen3-32b", "mixtral-8x7b",
+                                      "rwkv6-7b"]
 
 
 def test_runner_cfg_and_own_weights_on_cpu():

@@ -650,30 +650,53 @@ def test_solve_site_priced_by_a_table_matches_reference(prices, pallas_target):
 
 def test_measured_compact_pin_reaches_the_port_and_names_the_path():
     """A table from the reference's jnp engines carries dense and compact
-    rows; where compact measures fastest, the controller pins it — also on
-    the port, whose fit_cfg targets ragged — and the port's serve path,
-    which does not run compact yet, raises naming it."""
+    rows; where compact measures fastest, the controller pins it. The port's
+    serve path runs the pinned compact: on the reference's serve tier (impl
+    "jnp") and the reference's weights, the run's decisions and its sensor
+    report equal the reference runner's under the same table, and every
+    pinned site reports exec path compact."""
+    from repro.control import ControlConfig as JControlConfig
+    from repro.control import Controller as JController
+    from repro.sensor import runner as jrunner
     from repro_torch.sensor.runner import run_measured_decode
 
-    lat = LatencyTable()
-    for site in ("attn_qkv", "attn_out", "mlp_in", "mlp_out"):
-        for path, s in (("basic", 100e-6), ("dense", 90e-6),
-                        ("compact", 20e-6)):
-            lat.record(site, None, path, s, tags=CARD)
-    ctl = tctl.Controller(tctl.ControlConfig(min_window_steps=2), latency=lat)
-    pinned = []
+    def table(mod):
+        lat = mod.LatencyTable()
+        for site in ("attn_qkv", "attn_out", "mlp_in", "mlp_out"):
+            for path, s in (("basic", 100e-6), ("dense", 90e-6),
+                            ("compact", 20e-6)):
+                lat.record(site, None, path, s, tags=CARD)
+        return lat
 
-    def on_step(i, engine, cache):
-        if i % 2 == 0:
-            rep = ctl.step(engine, cache, step=i)
-            pinned.extend(d for d in rep.decisions
-                          if d.field == "exec_path" and d.after == "compact")
+    runs = {}
+    for name, ctl, run, kw in (
+            ("port", tctl.Controller(tctl.ControlConfig(min_window_steps=2),
+                                     latency=table(tlatency)),
+             run_measured_decode,
+             dict(device="cpu", impl="jnp", params=params_from_numpy(
+                 jax.tree.map(np.asarray, jinit_params(
+                     JARCHS["qwen3-32b"].reduced(), jax.random.PRNGKey(0))),
+                 ARCHS["qwen3-32b"].reduced(), "cpu"))),
+            ("ref", JController(JControlConfig(min_window_steps=2),
+                                latency=table(jlatency)),
+             jrunner.run_measured_decode, {})):
+        decisions = []
 
-    with pytest.raises(ValueError, match="exec_path 'compact' .* not "
-                       "available"):
-        run_measured_decode("qwen3-32b", steps=12, batch=2, correlation=1.0,
-                            device="cpu", on_step=on_step)
+        def on_step(i, engine, cache, ctl=ctl, decisions=decisions):
+            if i % 2 == 0:
+                rep = ctl.step(engine, cache, step=i)
+                decisions.extend(d.to_dict() for d in rep.decisions)
+
+        md = run("qwen3-32b", steps=12, batch=2, correlation=1.0,
+                 on_step=on_step, **kw)
+        runs[name] = (decisions, md.report.to_dicts())
+    assert runs["port"] == runs["ref"]
+    decisions, rows = runs["port"]
+    pinned = {d["site"] for d in decisions
+              if d["field"] == "exec_path" and d["after"] == "compact"}
     assert pinned
+    assert {r["site"] for r in rows if r["kind"] == "site"
+            and r["exec_path"] == "compact"} == pinned
 
 
 # ------------------------------- one table, both packages' serve and fit CLI

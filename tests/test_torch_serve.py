@@ -220,6 +220,15 @@ def test_port_imports_no_jax_and_no_reference_package():
         "stream.py", "fleet.py", "slo.py", "top.py", "__init__.py"}
     assert "replicas.py" in {f.name for f in files
                              if f.parent.name == "launch"}
+    # and the MoE family and the quantization helpers
+    assert {f.name for f in files if f.parent.name == "models"} >= {
+        "moe.py", "layers.py", "transformer.py"}
+    assert {"expert_reuse.py", "reuse_linear.py"} <= {
+        f.name for f in files if f.parent.name == "core"}
+    assert {f.name for f in files if f.parent.name == "configs"} >= {
+        "mixtral_8x7b.py", "llama4_scout_17b_a16e.py"}
+    assert "quantize.py" in {f.name for f in files
+                             if f.parent.name == "quant"}
     bad = []
     for f in files:
         for mod in _imports(f):
