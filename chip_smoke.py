@@ -201,15 +201,34 @@ every phase's failure is fatal (non-zero exit, no result line):
                 mixtral width (one layer, batch 8, the reference test's
                 stream): lanes and outputs against the quantized dense
                 top-1 reference in f32, repeated slots skipping every tile
+  13. archetypes — the remaining decoders at published widths, each with
+                phase 4's traffic and --reuse as a pair (eager-checked,
+                then the graph serve held equal; step times in turns, one
+                profiled replay, parameter bytes against the card's
+                memory): (a) zamba2-2.7b uncut (54 Mamba2 layers, 9
+                applications of the shared attention block), then a Mamba
+                check at 2 superblocks (32-token prefill + 16 decode steps
+                against one prefill of the 48 tokens: h, conv, the shared
+                block's KV cache, last logits); (b) gemma3-12b at 12 of 48
+                layers, then its local window at 6 layers (batch 1, cache
+                2048, a 1016-token prompt + 16 steps rolling the 1024-slot
+                local caches, against a windowed prefill); (c) qwen2-72b at
+                4 of 80 (mlp_out's K = 29568 ends inside a tile: the kernel
+                gets the weight itself, and no replay kernel copies it),
+                nemotron-4-15b at 8 of 32, qwen2-vl-7b at 8 of 28 (its
+                mlp_out runs input-stationary); (d) the LM head: qwen3,
+                llama4 and gemma3 steps replayed with the earlier widened
+                head and with one bf16 product, in turns
 
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
 pools, device busy and idle share), a JSON line of phase 8 (its runs, the
 sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
 closed loops; the controlled serve and the basic-mode product) and of
-phase 10, a JSON line of phase 11, a JSON line of phase 12, the kernels
-JSON line (launch counts from the serve runs and the int8 path, and per
-phase 8, 9, 10, 11 and 12 run; errors and times from phase 3)
+phase 10, a JSON line of phase 11, a JSON line of phase 12, a JSON line
+of phase 13, the kernels JSON line (launch counts from the serve runs and
+the int8 path, and per phase 8, 9, 10, 11, 12 and 13 run; errors and times
+from phase 3)
 and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The controlled and guarded serves' whole output goes to
 chiprun_out/chip_smoke/.
@@ -2870,6 +2889,351 @@ def expert_reuse_phase(params, dev) -> dict:
             "experts": sorted(experts)}
 
 
+# phase 13: the remaining decoder archetypes on the compiled serve, at
+# published widths (zamba2 uncut; the others cut in depth to fit one card
+# with phase 4's traffic), a Mamba2 recurrence check, gemma3's rolling local
+# window, and the LM head as one bf16 product against the earlier widened
+# head
+ARCHETYPE_LAYERS = {"zamba2-2.7b": 54, "gemma3-12b": 12, "qwen2-72b": 4,
+                    "nemotron-4-15b": 8, "qwen2-vl-7b": 8}
+# 13a: prefill 32 tokens, then 16 decode steps without reuse, against one
+# prefill of the 48 tokens; at 2 superblocks (12 Mamba2 blocks, both
+# superblocks' shared-block KV caches)
+MAMBA_LAYERS, MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS = 12, 2, 32, 16
+# 13b: one superblock (5 local layers at window 1024, 1 global), batch 1,
+# cache 2048: the local caches roll at 1024 slots after the 1016-token
+# prompt's 8th decode step
+LOCAL_LAYERS, LOCAL_CACHE, LOCAL_PROMPT, LOCAL_STEPS = 6, 2048, 1016, 16
+# a slot, a layer's state or the last logits that hold the right tokens
+# differ from a prefill's by bf16 roundings in another order; one that holds
+# another position differs by the values themselves (12b's limit)
+ARCH_RTOL = 5e-2
+# 13d: the step with the earlier LM head (widened to f32 a vocabulary chunk
+# at a time) against this tree's (one bf16 product with an f32 result)
+HEAD_LAYERS = {"qwen3-32b": 8, "llama4-scout-17b-a16e": 2, "gemma3-12b": 12}
+
+
+def archetype_cfg(name: str, n_layers: int | None = None):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name),
+                               n_layers=n_layers or ARCHETYPE_LAYERS[name])
+
+
+def param_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in tensor_leaves(tree).values())
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor, dims: int) -> torch.Tensor:
+    """Relative L2 error of a against b over their last `dims` axes."""
+    a, b = a.float().flatten(-dims), b.float().flatten(-dims)
+    return (a - b).norm(dim=-1) / b.norm(dim=-1).clamp(min=1e-30)
+
+
+def weight_copy_check(step, cfg) -> dict:
+    """13c on qwen2-72b, whose mlp_out has K = 29568 = 115.5 tiles of 256:
+    one eager decode step hands every layer's mlp_out weight itself (its own
+    storage and rows) to the kernel wrapper, and in one profiled replay no
+    kernel but the GEMMs takes as long as reading that weight once at the
+    HBM rate (a copy of it takes at least twice that)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import reuse_matmul as rm
+
+    wo = step.params["blocks"]["mlp"]["wo"]
+    ptrs = {wo[l].data_ptr() for l in range(cfg.n_superblocks)}
+    seen, orig = [], rm.reuse_matmul
+
+    def recording(d, w, *a, **kw):
+        seen.append((w.data_ptr(), tuple(w.shape)))
+        return orig(d, w, *a, **kw)
+
+    rm.reuse_matmul = recording
+    try:
+        with torch.no_grad():
+            step.run_decode()
+        torch.cuda.synchronize()
+    finally:
+        rm.reuse_matmul = orig
+    tail = [s for s in seen if s[1][0] == cfg.d_ff]
+    if len(tail) != cfg.n_superblocks or any(
+            ptr not in ptrs or shape != (cfg.d_ff, cfg.d_model)
+            for ptr, shape in tail):
+        fail(f"qwen2-72b mlp_out: the kernel was not handed the weight "
+             f"itself ({tail})")
+    read_ms = cfg.d_ff * cfg.d_model * 2 / HBM_BYTES_PER_S * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step.decode(step.tokens)
+        torch.cuda.synchronize()
+    gemm = ("gemm", "nvjet", "cutlass", "xmma", "delta_quant")
+    kernels = [(e.device_time_total / 1e3, e.name) for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and not any(g in e.name.lower() for g in gemm)]
+    worst = max(kernels, default=(0.0, "none"))
+    print(f"qwen2-72b mlp_out (K 29568 = 115.5 tiles of 256): the kernel got "
+          f"each of the {len(tail)} layers' weight itself (no pad, no copy); "
+          f"in one profiled replay the longest kernel other than a GEMM "
+          f"takes {worst[0]:.4f} ms ({worst[1][:70]}), against "
+          f"{read_ms:.4f} ms to read the weight once at 3.35 TB/s")
+    if worst[0] >= read_ms:
+        fail("qwen2-72b: a kernel of the replay takes as long as a copy of "
+             "mlp_out's weight")
+    return {"weight_calls": len(tail), "longest_other_ms": worst[0],
+            "longest_other": worst[1], "weight_read_ms": read_ms}
+
+
+def archetype_serve_phase(serve_pair, graph_rows) -> tuple[dict, dict]:
+    """13a-c: phase 4's traffic with --reuse on each archetype, the checked
+    eager serve then the graph serve, held equal. Returns ({serve: its
+    readings}, {serve: launches})."""
+    from repro_torch.configs import get_config
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    out, launches = {}, {}
+    for name, label in (("zamba2-2.7b", "zamba2 serve"),
+                        ("gemma3-12b", "gemma3 serve"),
+                        ("qwen2-72b", "qwen2-72b serve"),
+                        ("nemotron-4-15b", "nemotron serve"),
+                        ("qwen2-vl-7b", "qwen2-vl serve")):
+        cfg = archetype_cfg(name)
+        argv = ["--arch", name, "--reuse", "--batch-slots", "8",
+                "--requests", "8", "--prompt-len", "32", "--cache-len",
+                "128", "--max-new", "8"]
+        info = {"layers": cfg.n_layers,
+                "of_layers": get_config(name).n_layers}
+
+        def probe(step, cfg=cfg, info=info, name=name, label=label):
+            info["param_bytes"] = param_bytes(step.params)
+            print(f"{label}: parameters {info['param_bytes'] / 1e9:.2f} GB "
+                  f"({cfg.n_layers} of {info['of_layers']} layers) of the "
+                  f"card's {card / 1e9:.1f} GB")
+            if name == "qwen2-72b":
+                info["weight_copy"] = weight_copy_check(step, cfg)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, _ = serve_pair(cfg, argv, label, pairs=3, probe=probe)
+        launches[f"{label} (eager, checked)"] = counts
+        need = ["delta_quant", "reuse_matmul_output"]
+        if name == "qwen2-vl-7b":  # mlp_out: 18944 > 4 x 3584
+            need.append("reuse_matmul_input")
+        for kn in need:
+            if counts[kn] <= 0:
+                fail(f"{kn} was not launched on the {label} path")
+        info.update(graph_rows[-1])
+        out[label] = info
+    return out, launches
+
+
+def mamba_phase(dev) -> dict:
+    """13a's Mamba check: zamba2 at full width, 2 superblocks, batch 2. A
+    32-token prefill and 16 decode steps without reuse, through the graphs,
+    against one eager prefill of the same 48 tokens: every Mamba2 block's h
+    and conv state (per block and batch lane), the shared block's K and V
+    (per slot) and the last logits, each to ARCH_RTOL relative L2."""
+    from repro_torch.models import init_params
+    from repro_torch.serve.compiled_step import CompiledStep
+    from repro_torch.serve.serve_step import init_serve_state, prefill_step
+
+    cfg = archetype_cfg("zamba2-2.7b", MAMBA_LAYERS)
+    params = init_params(cfg, MEASURED_SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    n = MAMBA_PROMPT + MAMBA_STEPS
+    toks = torch.randint(0, cfg.vocab, (MAMBA_BATCH, n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    state = init_serve_state(cfg, MAMBA_BATCH, 128, device=dev)
+    step = CompiledStep(params, cfg, state, batch=MAMBA_BATCH, graphs=True)
+    step.prefill(toks[:, :MAMBA_PROMPT])
+    for i in range(MAMBA_PROMPT, n):
+        last = step.decode(toks[:, i:i + 1]).clone()
+    torch.cuda.synchronize()
+    fresh = init_serve_state(cfg, MAMBA_BATCH, 128, device=dev)
+    with torch.no_grad():
+        pre_logits, fresh = prefill_step(params, cfg, toks, fresh)
+    dec, pre = state["blocks"], fresh["blocks"]
+    res = {"rtol": ARCH_RTOL, "layers": MAMBA_LAYERS,
+           "h": float(rel_l2(dec["mamba"]["h"], pre["mamba"]["h"], 3).max()),
+           "conv": float(rel_l2(dec["mamba"]["conv"], pre["mamba"]["conv"],
+                                2).max()),
+           "logits": float(rel_l2(last, pre_logits, 1).max())}
+    for k in ("k", "v"):
+        res[f"shared_{k}"] = float(rel_l2(dec["shared_kv"][k][:, :, :n],
+                                          pre["shared_kv"][k][:, :, :n],
+                                          2).max())
+    res["argmax_equal"] = bool(torch.equal(last.argmax(-1),
+                                           pre_logits.argmax(-1)))
+    print(f"mamba: zamba2 {MAMBA_LAYERS} layers, batch {MAMBA_BATCH}: "
+          f"{MAMBA_PROMPT}-token prefill + {MAMBA_STEPS} decode steps "
+          f"(graphs, no reuse) against one prefill of {n} tokens, max "
+          f"relative L2: h {res['h']:.3e} (per block and lane), conv "
+          f"{res['conv']:.3e}, shared K {res['shared_k']:.3e} / V "
+          f"{res['shared_v']:.3e} (per slot), last logits {res['logits']:.3e}"
+          f" (argmax equal: {res['argmax_equal']}); limit {ARCH_RTOL}")
+    for key in ("h", "conv", "shared_k", "shared_v", "logits"):
+        if not res[key] <= ARCH_RTOL:
+            fail(f"13a: Mamba {key} differs from the prefill's by "
+                 f"{res[key]:.3e} > {ARCH_RTOL}")
+    del params, step, state, fresh
+    return res
+
+
+def local_window_phase(dev) -> dict:
+    """13b's window check: gemma3 at full width, one superblock, batch 1,
+    cache 2048 (local caches of 1024 slots): a 1016-token prompt and 16
+    decode steps without reuse, through the graphs (steps 9-16 roll the
+    local caches), against one windowed prefill of the same 1032 tokens:
+    the local caches slot for slot, the global cache's first 1032 slots and
+    the last logits, to ARCH_RTOL relative L2; a rolled slot must differ
+    from the prompt position it held by more."""
+    from repro_torch.models import init_params
+    from repro_torch.serve.compiled_step import CompiledStep
+    from repro_torch.serve.serve_step import init_serve_state, prefill_step
+
+    cfg = archetype_cfg("gemma3-12b", LOCAL_LAYERS)
+    params = init_params(cfg, MEASURED_SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    prompt = torch.randint(0, cfg.vocab, (1, LOCAL_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    n, slots = LOCAL_PROMPT + LOCAL_STEPS, min(cfg.window, LOCAL_CACHE)
+    n_rolled = n - slots
+    state = init_serve_state(cfg, 1, LOCAL_CACHE, device=dev)
+    step = CompiledStep(params, cfg, state, batch=1, graphs=True)
+    t0 = time.perf_counter()
+    logits = [step.prefill(prompt).clone()]
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    local = state["blocks"]["local"]
+    first = {k: local[k][:, :, :, :n_rolled].clone() for k in ("k", "v")}
+    toks = []
+    for _ in range(LOCAL_STEPS):
+        toks.append(logits[-1][:, -1:].argmax(-1).to(torch.int32))
+        logits.append(step.decode(toks[-1]).clone())
+    torch.cuda.synchronize()
+    if int(state["len"]) != n:
+        fail(f"13b: length {int(state['len'])}")
+    full = torch.cat([prompt] + toks, dim=1)
+    fresh = init_serve_state(cfg, 1, LOCAL_CACHE, device=dev)
+    with torch.no_grad():
+        pre_logits, fresh = prefill_step(params, cfg, full, fresh)
+    res = {"rtol": ARCH_RTOL, "slots": slots, "rolled": n_rolled,
+           "prefill_s": t_pre}
+    for k in ("k", "v"):
+        dec, pre = local[k], fresh["blocks"]["local"][k]
+        err = rel_l2(dec, pre, 2)                 # [1, 5, 1, slots]
+        wrong = rel_l2(dec[:, :, :, :n_rolled], first[k], 2)
+        gerr = rel_l2(state["blocks"]["global"][k][:, :, :n],
+                      fresh["blocks"]["global"][k][:, :, :n], 2)
+        res[k] = {"local_max": float(err.max()),
+                  "local_median": float(err.median()),
+                  "rolled_max": float(err[..., :n_rolled].max()),
+                  "other_position_min": float(wrong.min()),
+                  "global_max": float(gerr.max())}
+        r = res[k]
+        print(f"local window {k}: {LOCAL_PROMPT}-token prompt + "
+              f"{LOCAL_STEPS} decode steps (graphs) against a windowed "
+              f"prefill of {n} tokens: local caches ({slots} slots) per-slot "
+              f"relative L2 max {r['local_max']:.3e}, median "
+              f"{r['local_median']:.3e}; rolled slots 0-{n_rolled - 1} max "
+              f"{r['rolled_max']:.3e} (against the prompt positions they "
+              f"held before: min {r['other_position_min']:.3e}); global "
+              f"cache's first {n} slots max {r['global_max']:.3e}")
+        if r["other_position_min"] <= ARCH_RTOL:
+            fail(f"13b: a rolled local {k} slot still holds its prompt "
+                 "position")
+        if max(r["local_max"], r["global_max"]) > ARCH_RTOL:
+            fail(f"13b: a {k} slot differs from the windowed prefill's by "
+                 f"more than {ARCH_RTOL}")
+    res["logits"] = float(rel_l2(logits[-1], pre_logits, 1).max())
+    print(f"local window: last decode logits against the prefill's: "
+          f"relative L2 {res['logits']:.3e} (limit {ARCH_RTOL}); prefill of "
+          f"{LOCAL_PROMPT} tokens with its capture {t_pre:.2f} s")
+    if res["logits"] > ARCH_RTOL:
+        fail(f"13b: last logits differ by {res['logits']:.3e}")
+    del params, step, state, fresh
+    return res
+
+
+def widened_logits(params, cfg, h, *, vocab_chunk: int = 16384):
+    """The earlier LM head: the bf16 head widened to f32 a vocabulary chunk
+    at a time, then an f32 product."""
+    from repro_torch.models.layers import apply_norm
+
+    h = apply_norm(params["final_norm"], h, cfg.norm_eps).float()
+    head = params.get("lm_head")
+    vocab = head.shape[1] if head is not None else params["embed"].shape[0]
+    out = torch.empty((*h.shape[:-1], vocab), dtype=torch.float32,
+                      device=h.device)
+    for v0 in range(0, vocab, vocab_chunk):
+        wt = (head[:, v0:v0 + vocab_chunk].float() if head is not None
+              else params["embed"][v0:v0 + vocab_chunk].float().T)
+        out[..., v0:v0 + vocab_chunk] = h @ wt
+    return out
+
+
+def head_phase(dev, pairs: int = 5) -> dict:
+    """13d: qwen3-32b (8 layers), llama4-scout (2) and gemma3-12b (12) at
+    phase 4's batch and cache: one decode step with reuse captured with the
+    earlier widened LM head and with the current product, the two graphs
+    replayed in turns on the same state (host clock around synchronize)."""
+    from repro_torch.models import init_params
+    from repro_torch.serve import serve_step as ss
+    from repro_torch.serve.compiled_step import CompiledStep
+
+    out = {}
+    for name, layers in HEAD_LAYERS.items():
+        cfg = archetype_cfg(name, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(cfg, MEASURED_SEED, device=dev)
+        engine = ss.build_reuse_engine(cfg)
+        rcache = engine.init_cache(8, device=dev)
+        state = ss.init_serve_state(cfg, 8, 128, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(15)
+        steps = {}
+        for how in ("widened", "product"):
+            steps[how] = CompiledStep(params, cfg, state, batch=8,
+                                      engine=engine, rcache=rcache,
+                                      graphs=True)
+            if how == "widened":
+                steps[how].prefill(torch.randint(
+                    0, cfg.vocab, (8, 32), generator=gen, device=dev))
+            orig = ss.output_logits
+            if how == "widened":
+                ss.output_logits = widened_logits
+            try:
+                steps[how].decode(torch.ones((8, 1), dtype=torch.int32,
+                                             device=dev))
+            finally:
+                ss.output_logits = orig
+        times = {"widened": [], "product": []}
+        for i in range(pairs):
+            for how in (("widened", "product") if i % 2 == 0
+                        else ("product", "widened")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps[how].decode(steps[how].tokens)
+                torch.cuda.synchronize()
+                times[how].append((time.perf_counter() - t0) * 1e3)
+        med = {how: statistics.median(t) for how, t in times.items()}
+        vocab_bytes = cfg.vocab * cfg.d_model * 2
+        print(f"LM head {name} ({layers} layers, head {vocab_bytes / 1e9:.2f} "
+              f"GB bf16): graph replay median with the earlier widened head "
+              f"{med['widened']:.2f} ms, with one bf16 product "
+              f"{med['product']:.2f} ms ({pairs} each in turns: "
+              + ", ".join(f"{a:.2f}/{b:.2f}" for a, b in
+                          zip(times["widened"], times["product"])) + ")")
+        out[name] = {"layers": layers, "widened_ms": med["widened"],
+                     "product_ms": med["product"], "times": times}
+        del steps, params, engine, rcache, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3200,7 +3564,7 @@ def main() -> None:
                             lib_rm.rt_reuse_matmul_output(
                                 delta.data_ptr(), wn().data_ptr(), code,
                                 prev.data_ptr(), mask.data_ptr(),
-                                out.data_ptr(), M, k, n, BM, BK, c,
+                                out.data_ptr(), M, k, k, n, BM, BK, c,
                                 backend.stream_ptr(dev)), "k split sweep"))
                         sweep.append(f"C={c}{'*' if c == pick else ''} "
                                      f"{t_c:.4f}")
@@ -3456,14 +3820,15 @@ def main() -> None:
 
     graph_rows = []
 
-    def serve_pair(cfg, argv, label, hook=None, pairs=5):
+    def serve_pair(cfg, argv, label, hook=None, pairs=5, probe=None):
         """The checked serve (`--eager`, every kernel call held against its
         plain version), then the graph serve on the same seed and traffic.
         Tokens, SensorReport lines, launch counts, mode mirrors and every
         tensor of the final reuse cache and decode state must be equal.
         Prints the graph serve's variants, captures, capture seconds and
         pools, the step time both ways and one profiled eager step and
-        replay. Returns (launch counts, the hook logs of both serves)."""
+        replay; then `probe(step)` if given, on the graph serve's step.
+        Returns (launch counts, the hook logs of both serves)."""
         hooks = [hook() if hook else (None, None) for _ in range(2)]
         print(f"--- {label}: checked serve, --eager")
         res, counts_e, text = drive(cfg, argv + ["--eager"],
@@ -3532,6 +3897,8 @@ def main() -> None:
             "idle_eager": idle_e, "idle_graph": idle_g,
             "idle_eager_profiled": 1 - busy_e / wall_e,
             "idle_graph_profiled": 1 - busy_g / wall_g})
+        if probe is not None:
+            probe(step)
         del res, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -3757,6 +4124,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(json.dumps({"moe": moe}))
 
+    # ---------------------------------- 13. the remaining archetypes
+    phase("13. the remaining decoder archetypes (zamba2, gemma3, qwen2-72b, "
+          "nemotron-4-15b, qwen2-vl-7b) and the LM head")
+    archetypes, launches_arch = archetype_serve_phase(serve_pair, graph_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    archetypes["mamba"] = mamba_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    archetypes["local_window"] = local_window_phase(dev)
+    archetypes["lm_head"] = head_phase(dev)
+    archetypes["seconds"] = time.perf_counter() - _PHASE["t0"]
+    print(json.dumps({"archetypes": archetypes}))
+
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
                      "wkv6_decode": launches_rwkv,
@@ -3776,7 +4157,9 @@ def main() -> None:
                         "launches_obs": {
                             run: c[kn] for run, c in launches_obs.items()},
                         "launches_moe": {
-                            run: c[kn] for run, c in launches_moe.items()}})
+                            run: c[kn] for run, c in launches_moe.items()},
+                        "launches_archetypes": {
+                            run: c[kn] for run, c in launches_arch.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))

@@ -73,6 +73,18 @@ class ModelConfig:
         return torch.bfloat16 if self.param_dtype == "bfloat16" else torch.float32
 
     @property
+    def d_inner(self) -> int:          # mamba2 expansion
+        return 2 * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        if self.ssm_kind == "mamba2":
+            return self.d_inner // self.ssm_head_dim
+        if self.ssm_kind == "rwkv6":
+            return self.d_model // self.ssm_head_dim
+        return 0
+
+    @property
     def superblock_layers(self) -> int:
         if self.attn_kind == "local_global" and self.local_ratio:
             return self.local_ratio + 1

@@ -16,6 +16,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                    smem_addr(smem)),
                "l"(gmem));
 }
+// As cp_async16 when `valid`; else the 16 bytes are zero-filled and nothing
+// is read (`gmem` must still be a valid address)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -29,15 +29,16 @@
 // registers, f32 157, no spills.
 #include "reuse_tile.cuh"
 
-// delta [M, K], w [K, N] (both bf16 or both f32), prev_out / out [M, N] f32,
-// counts [M / block_m] and idx [M / block_m, idx_ld] int32 (idx_ld >=
-// K / block_k). M % 8 == 0, N % 128 == 0, block_m % 8 == 0, block_k % 64
-// == 0 (checked by the wrapper); cluster in {1, 2, 4, 8}.
+// delta [M, K], w [Kw, N] (both bf16 or both f32; K − block_k < Kw ≤ K,
+// the rows past Kw read as zero), prev_out / out [M, N] f32, counts
+// [M / block_m] and idx [M / block_m, idx_ld] int32 (idx_ld >= K /
+// block_k). M % 8 == 0, K % block_k == 0, N % 128 == 0, block_m % 8 == 0,
+// block_k % 64 == 0 (checked by the wrapper); cluster in {1, 2, 4, 8}.
 extern "C" int rt_reuse_matmul_ragged(const void* delta, const void* w,
                                       int dtype, const void* prev_out,
                                       const void* counts, const void* idx,
                                       int idx_ld, void* out, int M, int K,
-                                      int N, int block_m, int block_k,
+                                      int Kw, int N, int block_m, int block_k,
                                       int cluster, void* stream) {
   reuse::RaggedList list;
   list.counts = static_cast<const int*>(counts);
@@ -47,8 +48,8 @@ extern "C" int rt_reuse_matmul_ragged(const void* delta, const void* w,
   list.block_m = block_m;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return reuse::launch<__nv_bfloat16>(delta, w, prev_out, out, M, K, N,
-                                        block_k, cluster, list, s);
-  return reuse::launch<float>(delta, w, prev_out, out, M, K, N, block_k,
+    return reuse::launch<__nv_bfloat16>(delta, w, prev_out, out, M, K, Kw,
+                                        N, block_k, cluster, list, s);
+  return reuse::launch<float>(delta, w, prev_out, out, M, K, Kw, N, block_k,
                               cluster, list, s);
 }

@@ -29,6 +29,10 @@
 //    `ldmatrix`; f32 accumulation. Each of the 4 warps owns 32 columns.
 //  * f32 operands stay IEEE f32 on the CUDA cores (never TF32): thread t
 //    owns column t of the tile and all 8 rows, `fmaf` in k order.
+//  * The K tail. Δ comes padded to whole block_k tiles (its padded columns
+//    are zero), but the weight keeps its Kw ≤ K rows: a stage row k ≥ Kw is
+//    zero-filled by its `cp.async` (source size 0) and never read, so no
+//    call pads or copies the weight.
 //  * The reduction. Each rank leaves its [8, 128] f32 partial in its own
 //    shared memory; rank r then sums rows r·8/C .. (r + 1)·8/C − 1 of the
 //    tile over ranks 0 .. C − 1 in that order, through distributed shared
@@ -182,14 +186,15 @@ struct RaggedList {
   }
 };
 
-// delta [M, K], w [K, N], prev_out / out [M, N] f32. The grid is
+// delta [M, K], w [Kw, N] (K − block_k < Kw ≤ K), prev_out / out [M, N]
+// f32. The grid is
 // (N / 128 · cluster, M / 8), launched in clusters of `cluster` CTAs along x
 // (none when cluster == 1); block_k % 64 == 0.
 template <typename T, typename List>
 __global__ void __launch_bounds__(kThreads)
 cluster_gemm(const T* __restrict__ delta, const T* __restrict__ w,
              const float* __restrict__ prev_out, float* __restrict__ out,
-             int K, int N, int block_k, int cluster, List list) {
+             int K, int Kw, int N, int block_k, int cluster, List list) {
   using C = Cfg<T>;
   extern __shared__ __align__(128) unsigned char shm[];
   int* tiles = reinterpret_cast<int*>(shm + C::kRingBytes);
@@ -232,8 +237,11 @@ cluster_gemm(const T* __restrict__ delta, const T* __restrict__ w,
     for (int q = 0; q < kSubK * kRowChunks / kThreads; ++q) {
       const int e = threadIdx.x + q * kThreads;
       const int r = e / kRowChunks, c = e % kRowChunks;
-      ptx::cp_async16(sw + swz(r, c, C::kWRow),
-                      w + (size_t)(k0 + r) * N + n0 + c * C::kVec);
+      const bool in = k0 + r < Kw;
+      ptx::cp_async16_zfill(sw + swz(r, c, C::kWRow),
+                            w + (size_t)(in ? k0 + r : 0) * N + n0 +
+                                c * C::kVec,
+                            in);
     }
     constexpr int kDChunks = C::kDRow / 16;
     if (threadIdx.x < kRows * kDChunks) {
@@ -306,8 +314,8 @@ cluster_gemm(const T* __restrict__ delta, const T* __restrict__ w,
 // when a larger list needs more), then launches in clusters of `cluster`.
 template <typename T, typename List>
 cudaError_t launch(const void* delta, const void* w, const void* prev_out,
-                   void* out, int M, int K, int N, int block_k, int cluster,
-                   const List& list, cudaStream_t stream) {
+                   void* out, int M, int K, int Kw, int N, int block_k,
+                   int cluster, const List& list, cudaStream_t stream) {
   if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
     return cudaErrorInvalidValue;
   const int smem = Cfg<T>::smem_bytes(K / block_k);
@@ -334,7 +342,7 @@ cudaError_t launch(const void* delta, const void* w, const void* prev_out,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, cluster_gemm<T, List>, static_cast<const T*>(delta),
       static_cast<const T*>(w), static_cast<const float*>(prev_out),
-      static_cast<float*>(out), K, N, block_k, cluster, list);
+      static_cast<float*>(out), K, Kw, N, block_k, cluster, list);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 

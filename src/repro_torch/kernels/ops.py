@@ -97,11 +97,13 @@ def reuse_matmul(
     dataflow: str = "output",
     impl: str = "cuda",
 ) -> torch.Tensor:
-    """Padded entry to the block-skip GEMM (masked full grid)."""
+    """Padded entry to the block-skip GEMM (masked full grid). Δ is padded
+    to whole tiles; the weight only in N (never in K: the kernels read the
+    last k tile's rows past K as zero), so no site copies its weight."""
     _check_impl(impl)
     m, n = prev_out.shape
     dp = _pad_to(delta, block_m, block_k)
-    wp = _pad_to(w, block_k, block_n)
+    wp = _pad_to(w, 1, block_n)
     pp = _pad_to(prev_out.float(), block_m, block_n)
     gm, gk = dp.shape[0] // block_m, dp.shape[1] // block_k
     if tuple(block_mask.shape) != (gm, gk):
@@ -181,7 +183,8 @@ def reuse_matmul_ragged(
     impl: str = "cuda",
     compacted: tuple[torch.Tensor, torch.Tensor] | None = None,  # (idx, counts)
 ) -> torch.Tensor:
-    """Padded entry to the ragged compacted-walk GEMM.
+    """Padded entry to the ragged compacted-walk GEMM (the weight padded in
+    N only, as `reuse_matmul`).
 
     The reference grid has the static extent `max_active_k` and falls back to
     the full extent when a row's live count overflows it; either way it adds
@@ -194,7 +197,7 @@ def reuse_matmul_ragged(
     _check_impl(impl)
     m, n = prev_out.shape
     dp = _pad_to(delta, block_m, block_k)
-    wp = _pad_to(w, block_k, block_n)
+    wp = _pad_to(w, 1, block_n)
     pp = _pad_to(prev_out.float(), block_m, block_n)
     gm, gk = dp.shape[0] // block_m, dp.shape[1] // block_k
     if tuple(block_mask.shape) != (gm, gk):

@@ -82,19 +82,29 @@ def expand_block_mask(
     return torch.repeat_interleave(em, block_k, dim=1)[:, :k].float()
 
 
+def check_k_tail(k: int, kw: int, block_k: int, what: str) -> None:
+    """The weight's rows against Δ's columns: Δ is padded to whole block_k
+    tiles and the weight keeps its own kw rows, the last tile's rows past kw
+    reading as zero (K − block_k < kw ≤ K), so no call copies the weight."""
+    if not k - block_k < kw <= k:
+        raise ValueError(f"{what}: w has {kw} rows, delta {k} columns in "
+                         f"tiles of {block_k}")
+
+
 def reuse_matmul_torch(
     delta: torch.Tensor,       # [M, K]
-    w: torch.Tensor,           # [K, N]
+    w: torch.Tensor,           # [Kw, N], Kw <= K
     prev_out: torch.Tensor,    # [M, N] f32
     block_mask: torch.Tensor,  # [gm, gk] int32
     *,
     block_m: int,
     block_k: int,
 ) -> torch.Tensor:
-    """Plain version: O_c = O_p + (Δ ⊙ mask) @ W in f32."""
+    """Plain version: O_c = O_p + (Δ ⊙ mask) @ W in f32 (Δ's columns past
+    W's rows are its zero padding)."""
     m, k = delta.shape
     d = delta.float() * expand_block_mask(block_mask, m, k, block_m, block_k)
-    return prev_out + d @ w.float()
+    return prev_out + d[:, :w.shape[0]] @ w.float()
 
 
 def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what) -> None:
@@ -110,9 +120,10 @@ def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what) -> None:
     if prev_out.dtype != torch.float32:
         raise TypeError(f"{what}: prev_out must be float32, got {prev_out.dtype}")
     m, k = delta.shape
-    if w.shape[0] != k or tuple(prev_out.shape) != (m, w.shape[1]):
+    if tuple(prev_out.shape) != (m, w.shape[1]):
         raise ValueError(f"{what}: shapes {tuple(delta.shape)} "
                          f"{tuple(w.shape)} {tuple(prev_out.shape)}")
+    check_k_tail(k, w.shape[0], block_k, what)
     for name, size, div in (("block_m", block_m, ROWS_PER_CTA),
                             ("block_n", block_n, COLS_PER_CTA),
                             ("block_k", block_k, SUB_K)):
@@ -129,7 +140,7 @@ def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what) -> None:
 
 def reuse_matmul(
     delta: torch.Tensor,       # [M, K] bf16/f32 — zero wherever codes matched
-    w: torch.Tensor,           # [K, N]
+    w: torch.Tensor,           # [Kw, N], K - block_k < Kw <= K
     prev_out: torch.Tensor,    # [M, N] f32
     block_mask: torch.Tensor,  # [gm, gk] int32
     *,
@@ -139,12 +150,14 @@ def reuse_matmul(
     dataflow: str = "output",
 ) -> torch.Tensor:
     """O_c = O_p + Δ·W, skipping weight loads and FMAs for zero tiles.
-    Operands are tile multiples; the padding entry is `ops.reuse_matmul`."""
+    Δ and prev_out are tile multiples, the weight's rows may end inside the
+    last k tile (`check_k_tail`); the padding entry is `ops.reuse_matmul`."""
     m, k = delta.shape
     n = w.shape[1]
     if m % block_m or k % block_k or n % block_n:
         raise ValueError(f"reuse_matmul: ({m}, {k}, {n}) not a multiple of "
                          f"({block_m}, {block_k}, {block_n}); pad with ops")
+    check_k_tail(k, w.shape[0], block_k, "reuse_matmul")
     gm, gk = m // block_m, k // block_k
     if tuple(block_mask.shape) != (gm, gk):
         raise ValueError(f"reuse_matmul: mask {tuple(block_mask.shape)} != "
@@ -172,16 +185,16 @@ def reuse_matmul(
         cluster = k_split(m, n, k, backend.sm_count(delta.device.index))
         rc = lib.rt_reuse_matmul_output(
             delta.data_ptr(), w.data_ptr(), code, prev_out.data_ptr(),
-            block_mask.data_ptr(), out.data_ptr(), m, k, n, block_m, block_k,
-            cluster, stream,
+            block_mask.data_ptr(), out.data_ptr(), m, k, w.shape[0], n,
+            block_m, block_k, cluster, stream,
         )
         backend.check(rc, "reuse_matmul(output)")
         backend.count_launch("reuse_matmul_output")
         return out
     rc = lib.rt_reuse_matmul_input(
         delta.data_ptr(), w.data_ptr(), code, prev_out.data_ptr(),
-        block_mask.data_ptr(), out.data_ptr(), m, k, n, block_m, block_k,
-        stream,
+        block_mask.data_ptr(), out.data_ptr(), m, k, w.shape[0], n, block_m,
+        block_k, stream,
     )
     backend.check(rc, "reuse_matmul(input)")
     backend.count_launch("reuse_matmul_input")

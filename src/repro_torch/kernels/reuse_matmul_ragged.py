@@ -15,14 +15,15 @@ add exactly each row's `counts[m]` active tiles.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.reuse_matmul import check_gemm, k_split
+from repro_torch.kernels.reuse_matmul import check_gemm, check_k_tail, k_split
 
 
 def reuse_matmul_ragged_torch(
     delta: torch.Tensor,     # [M, K] tile multiples
-    w: torch.Tensor,         # [K, N]
+    w: torch.Tensor,         # [Kw, N], K - block_k < Kw <= K
     prev_out: torch.Tensor,  # [M, N] f32
     counts: torch.Tensor,    # [gm] int32
     idx: torch.Tensor,       # [gm, kb] int32
@@ -32,11 +33,13 @@ def reuse_matmul_ragged_torch(
     block_k: int,
 ) -> torch.Tensor:
     """Plain version: gather each row's active Δ-blocks and the matching W
-    row-blocks, guard the tail with j < counts[m], contract in f32."""
+    row-blocks, guard the tail with j < counts[m], contract in f32. W's
+    rows past its last (Δ's zero padding) are zeros here."""
     m, k = delta.shape
     n = w.shape[1]
     gm, gk = m // block_m, k // block_k
     kb = idx.shape[1]
+    w = F.pad(w, (0, 0, 0, k - w.shape[0]))
     d_blk = delta.float().reshape(gm, block_m, gk, block_k).permute(0, 2, 1, 3)
     il = idx.to(torch.int64)
     d_g = torch.gather(
@@ -68,6 +71,7 @@ def reuse_matmul_ragged(
     if m % block_m or k % block_k or n % block_n:
         raise ValueError(f"reuse_matmul_ragged: ({m}, {k}, {n}) not a multiple"
                          f" of ({block_m}, {block_k}, {block_n}); pad with ops")
+    check_k_tail(k, w.shape[0], block_k, "reuse_matmul_ragged")
     gm, gk = m // block_m, k // block_k
     if tuple(counts.shape) != (gm,) or tuple(idx.shape) != (gm, gk):
         raise ValueError(f"reuse_matmul_ragged: counts {tuple(counts.shape)} "
@@ -91,7 +95,7 @@ def reuse_matmul_ragged(
     rc = backend.library("reuse_matmul_ragged").rt_reuse_matmul_ragged(
         delta.data_ptr(), w.data_ptr(), backend.DTYPE_CODE[delta.dtype],
         prev_out.data_ptr(), counts.data_ptr(), idx.data_ptr(), idx.stride(0),
-        out.data_ptr(), m, k, n, block_m, block_k,
+        out.data_ptr(), m, k, w.shape[0], n, block_m, block_k,
         k_split(m, n, k, backend.sm_count(delta.device.index)),
         backend.stream_ptr(delta.device),
     )

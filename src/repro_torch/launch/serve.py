@@ -183,6 +183,8 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
     and replica ids) lasts for the run and is put back as it was after
     it."""
     # the reference's argument errors, with its messages
+    if cfg.family == "audio":
+        raise ValueError("encoder archs have no decode path")
     for flag in ("sensor_jsonl", "tuned_policy", "refresh_every", "affinity",
                  "control_every", "control_journal", "inject"):
         if getattr(args, flag) and not args.reuse:

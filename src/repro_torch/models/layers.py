@@ -1,4 +1,5 @@
-"""Layers of the decoder: norms, RoPE, attention (full or sliding-window), MLP.
+"""Layers of the decoder: norms, RoPE and M-RoPE, attention (full or
+sliding-window), MLP (swiglu, gelu or squared ReLU).
 
 Plain PyTorch on explicit parameter dicts laid out as the JAX package's
 pytrees ([K, N] weights, heads as [B, S, H, D]). Prefill attention is the
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import f32_product
 
 Params = dict[str, Any]
 
@@ -41,15 +43,42 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., None].float() * freqs
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: [..., S, H, D] rotated by angles [..., S, D/2] (half-split)."""
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the D/2 frequency slots are cut into
+    (temporal, height, width) sections, each rotated by its own position
+    stream. positions: [3, ..., S] (for text the three streams coincide and
+    M-RoPE is RoPE). Each slot's stream is picked by slicing, so no index
+    tensor is made from host data."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover "
+                         f"{d // 2} frequency slots")
+    freqs = rope_freqs(d, theta, x.device)
+    pos = torch.cat([positions[i][..., None].expand(*positions.shape[1:], n)
+                     for i, n in enumerate(sections)], dim=-1)  # [..., S, D/2]
+    return _rotate(x, pos.float() * freqs)
+
+
+def _mrope_sections(cfg: ModelConfig):
+    half = cfg.head_dim // 2
+    t = half - 2 * (3 * half // 8)
+    return (t, 3 * half // 8, 3 * half // 8)
 
 
 # ------------------------------------------------------------------ attention
@@ -174,10 +203,12 @@ def _maybe_reuse_matmul(name, x, w, b, reuse_ctx):
             out, _, st = engine.apply(name, x, w, b, cache[name])
             stats[name] = st
             return out
-    out = torch.matmul(x, w)
-    if b is not None:
-        out = out.float() + b.float()
-    return out.to(x.dtype)
+    if b is None:
+        return torch.matmul(x, w).to(x.dtype)
+    # f32 product, then the bias, then one rounding (the reference's
+    # preferred_element_type=f32 einsum plus bias)
+    out = f32_product(x.reshape(-1, x.shape[-1]), w) + b.float()
+    return out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
 
 
 def attention_forward(
@@ -186,7 +217,7 @@ def attention_forward(
     x: torch.Tensor,                     # [B, S, d]
     *,
     layer_window: int | None = None,     # None = full; int = sliding window
-    positions: torch.Tensor,             # [B, S]
+    positions: torch.Tensor,             # [B, S] ([3, B, S] for M-RoPE)
     kv_cache: dict | None = None,        # {"k": [B,Sc,KV,D], "v": ...} (views)
     kv_len: torch.Tensor | None = None,  # [] valid length before this token
     reuse_ctx=None,
@@ -209,8 +240,12 @@ def attention_forward(
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, _mrope_sections(cfg))
+        k = apply_mrope(k, positions, cfg.rope_theta, _mrope_sections(cfg))
 
     if kv_cache is None or s > 1:
         out = blockwise_attention(
@@ -254,7 +289,16 @@ def mlp_forward(
 ) -> torch.Tensor:
     h = apply_norm(p["norm"], x, cfg.norm_eps)
     hi = _maybe_reuse_matmul(f"{site_prefix}_in", h, p["wi"], None, reuse_ctx)
-    gate, up = torch.chunk(hi, 2, dim=-1)  # swiglu: [gate | up]
-    act = F.silu(gate.float()).to(x.dtype) * up
+    if cfg.mlp_kind == "swiglu":
+        gate, up = torch.chunk(hi, 2, dim=-1)  # [gate | up]
+        act = F.silu(gate.float()).to(x.dtype) * up
+    elif cfg.mlp_kind == "gelu":
+        # jax.nn.gelu's default is the tanh approximation
+        act = F.gelu(hi.float(), approximate="tanh").to(x.dtype)
+    elif cfg.mlp_kind == "relu2":
+        r = torch.clamp(hi.float(), min=0.0)
+        act = (r * r).to(x.dtype)
+    else:
+        raise ValueError(cfg.mlp_kind)
     out = _maybe_reuse_matmul(f"{site_prefix}_out", act, p["wo"], None, reuse_ctx)
     return out.to(x.dtype)

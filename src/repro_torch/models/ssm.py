@@ -1,4 +1,5 @@
-"""RWKV6 (Finch) time mix and channel mix, as the JAX package's `models.ssm`.
+"""RWKV6 (Finch) time mix and channel mix, and the Mamba2 block, as the JAX
+package's `models.ssm`.
 
 Token shift with data-dependent (LoRA) mixing, a data-dependent per-channel
 decay w_t, the bonus u and a per-head state S ∈ R^{dk×dv}:
@@ -10,6 +11,17 @@ The recurrence over the S tokens of a call is a Python loop that runs one
 go through the kernel. The state passed in is a layer's lane of the stacked
 decode state and is updated IN PLACE: the wkv lane by the kernel, the token
 shift lanes by a copy of the last token.
+
+Mamba2 (the zamba2 hybrid's blocks): a depthwise causal conv of width 4 over
+[x | B | C], a per-head scalar decay exp(softplus(dt)·A) and the selective
+state h ∈ R^{hd×state} per head,
+
+    h_t = decay_t·h_{t-1} + (dt_t·x_t) ⊗ B_t;   y_t = h_t·C_t + D·x_t
+
+run one token at a time in the reference's step order (its chunked scan is
+a rematerialisation device for training and keeps that order), for prefill
+and decode alike. The conv state and h are written in place. Its
+projections run without reuse, as in the reference.
 """
 
 from __future__ import annotations
@@ -179,4 +191,107 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, *, layers: int | None = None,
         },
         "cmix": {"shift": torch.zeros((*lead, batch, d), dtype=cfg.dtype,
                                       device=device)},
+    }
+
+
+# ------------------------------------------------------------------- Mamba2
+
+MAMBA_CONV_K = 4
+
+
+def init_mamba2(cfg: ModelConfig, gen: torch.Generator, *, lead: tuple,
+                device) -> Params:
+    """Random parameters of Mamba2 blocks stacked over `lead` ([nsb, 6] in
+    the hybrid), made on `device` at the reference's scales:
+    normal/sqrt(fan_in) projections, conv weights normal·0.1, zero conv
+    bias, A_log and dt_bias, D one, zero norm scales."""
+    d, di, st, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    conv_ch = di + 2 * st
+
+    def normal(*shape, scale):
+        t = torch.randn((*lead, *shape), generator=gen, device=device,
+                        dtype=torch.float32)
+        return t.mul_(scale).to(cfg.dtype)
+
+    def f32(*shape, fill=0.0):
+        return torch.full((*lead, *shape), fill, dtype=torch.float32,
+                          device=device)
+
+    return {
+        "norm": {"scale": f32(d)},
+        "in_proj": normal(d, 2 * di + 2 * st + nh, scale=1.0 / math.sqrt(d)),
+        "conv_w": normal(MAMBA_CONV_K, conv_ch, scale=0.1),
+        "conv_b": f32(conv_ch),
+        "A_log": f32(nh),
+        "D": f32(nh, fill=1.0),
+        "dt_bias": f32(nh),
+        "out_norm": {"scale": f32(di)},
+        "out_proj": normal(di, d, scale=1.0 / math.sqrt(di)),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 conv_state: torch.Tensor):
+    """Depthwise causal conv of width K in x's dtype, the taps summed in
+    order. x: [B, S, C]; conv_state: [B, K-1, C]. Returns (out, the new
+    conv state: the last K-1 inputs)."""
+    k, s = w.shape[0], x.shape[1]
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    out = xp[:, :s] * w[0].to(x.dtype)
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i].to(x.dtype)
+    return out + b.to(x.dtype), xp[:, s:]
+
+
+def mamba2_forward(
+    p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict, *,
+    reuse_ctx=None, prefix: str = "mamba",
+) -> tuple[torch.Tensor, dict]:
+    """x: [B, S, d]; state: {"conv": [B, K-1, C], "h": [B, nh, hd, state]
+    f32}, both updated in place."""
+    b, s, _ = x.shape
+    di, st, nh, hd = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                      cfg.ssm_head_dim)
+    dt_ = x.dtype
+    hin = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    zxbcdt = _maybe_reuse_matmul(f"{prefix}_in", hin, p["in_proj"], None,
+                                 reuse_ctx)
+    z, xc, bc, cc, dt = torch.split(zxbcdt, [di, di, st, st, nh], dim=-1)
+    conv_out, conv_state = _causal_conv(torch.cat([xc, bc, cc], dim=-1),
+                                        p["conv_w"], p["conv_b"],
+                                        state["conv"])
+    conv_out = F.silu(conv_out.float()).to(dt_)
+    xc, bc, cc = torch.split(conv_out, [di, st, st], dim=-1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"])                    # [B, S, nh]
+    decay = torch.exp(dt * -torch.exp(p["A_log"]))                # [B, S, nh]
+    xh = xc.reshape(b, s, nh, hd).float()
+    bf, cf = bc.float(), cc.float()
+    h = state["h"]
+    ys = []
+    for t in range(s):
+        dx = dt[:, t, :, None] * xh[:, t]                         # [B, nh, hd]
+        h = (decay[:, t, :, None, None] * h
+             + dx[..., :, None] * bf[:, t, None, None, :])
+        ys.append(torch.einsum("bhps,bs->bhp", h, cf[:, t]))
+    y = torch.stack(ys, dim=1) + p["D"][:, None] * xh             # [B, S, nh, hd]
+    y = rms_norm(y.reshape(b, s, di).to(dt_), p["out_norm"]["scale"],
+                 cfg.norm_eps)
+    y = y * F.silu(z.float()).to(dt_)
+    out = _maybe_reuse_matmul(f"{prefix}_out", y, p["out_proj"], None,
+                              reuse_ctx)
+    state["conv"].copy_(conv_state)
+    state["h"].copy_(h)
+    return out.to(dt_), state
+
+
+def init_mamba2_state(cfg: ModelConfig, batch: int, *, lead: tuple = (),
+                      device="cuda") -> dict:
+    """Zero state, stacked over `lead` ([nsb, 6] as the decode state)."""
+    di, st = cfg.d_inner, cfg.ssm_state
+    return {
+        "conv": torch.zeros((*lead, batch, MAMBA_CONV_K - 1, di + 2 * st),
+                            dtype=cfg.dtype, device=device),
+        "h": torch.zeros((*lead, batch, cfg.n_ssm_heads, cfg.ssm_head_dim, st),
+                         dtype=torch.float32, device=device),
     }

@@ -1,18 +1,24 @@
 """Model composition: parameters, decode state, forward, logits.
 
-Three families are ported: the dense decoder (qwen3-style, tied embeddings,
-KV cache), the MoE decoder (the same attention, full or sliding-window with
-a rolling KV cache, and a routed-expert block in place of the MLP; mixtral
-and llama4-scout) and RWKV6 (time mix + channel mix per block, an untied LM
-head, a recurrent state instead of a KV cache).
+The ported families: the dense decoder (qwen3-style, tied embeddings;
+qwen2-72b and nemotron-4-15b with untied heads, a QKV bias or a squared-ReLU
+MLP; qwen2-vl-7b with M-RoPE and the vision stub), the local:global decoder
+(gemma3: superblocks of 5 sliding-window layers and one global layer), the
+MoE decoder (the same attention, full or sliding-window with a rolling KV
+cache, and a routed-expert block in place of the MLP; mixtral and
+llama4-scout), RWKV6 (time mix + channel mix per block, an untied LM head, a
+recurrent state instead of a KV cache) and the zamba2 hybrid (superblocks of
+6 Mamba2 blocks, then one attention+MLP block whose weights all superblocks
+share, with a KV cache of its own in each).
 
 Parameters are a plain dict laid out as the JAX package's pytree: the block
 leaves stay STACKED with a leading [L] axis (`params["blocks"]["attn"]["wqkv"]`
-is [L, d, q+2kv], `params["blocks"]["rwkv"]["tmix"]["wr"]` is [L, d, d]), and
-layer l reads the contiguous views `leaf[l]`. The reference's `lax.scan` over
-stacked blocks becomes a Python loop over layers; the per-layer lane of the
-decode state (KV cache or rwkv state) and of every reuse site is a view, and
-both are updated in place.
+is [L, d, q+2kv], `params["blocks"]["rwkv"]["tmix"]["wr"]` is [L, d, d];
+gemma3's `local` and zamba2's `mamba` leaves [L, n, ...]), and layer l reads
+the contiguous views `leaf[l]`. The reference's `lax.scan` over stacked
+blocks becomes a Python loop over layers; the per-layer lane of the decode
+state (KV caches, rwkv or Mamba2 state) and of every reuse site is a view,
+and both are updated in place.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import f32_product
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -33,28 +40,43 @@ from repro_torch.models.layers import (
     mlp_forward,
 )
 
+MLP_KINDS = ("swiglu", "gelu", "relu2")
+
 
 def check_family(cfg: ModelConfig) -> None:
-    """The ported families: dense (full causal attention with RoPE, a swiglu
-    MLP, tied embeddings, an unquantized KV cache), MoE (the same attention,
-    full or sliding-window, and routed swiglu experts, with or without a
-    shared expert) and rwkv6 (attention-free, untied LM head). Anything
-    else raises."""
-    common = (cfg.frontend != "none" or cfg.hybrid_attn_every
-              or cfg.kv_head_pad_to or cfg.kv_cache_quant)
-    decoder = (cfg.ssm_kind == "none" and cfg.rope == "rope"
-               and cfg.mlp_kind == "swiglu" and cfg.tie_embeddings)
-    dense = (decoder and cfg.family == "dense" and not cfg.n_experts
-             and cfg.attn_kind == "full")
-    moe = (decoder and cfg.family == "moe" and cfg.n_experts > 0
+    """The ported families: dense decoders (full causal attention with RoPE
+    or M-RoPE, a swiglu, gelu or squared-ReLU MLP, tied or untied head, an
+    optional QKV bias; the vision stub), the local:global decoder, MoE (full
+    or sliding-window attention, routed swiglu experts, with or without a
+    shared expert), rwkv6 (attention-free, untied LM head) and the Mamba2
+    hybrid with a shared attention block. Anything else raises: the audio
+    frontend (an encoder, no decode path), `kv_head_pad_to` and
+    `kv_cache_quant`."""
+    common = (cfg.frontend not in ("none", "vision") or cfg.kv_head_pad_to
+              or cfg.kv_cache_quant or not cfg.causal
+              or (cfg.frontend == "vision") != (cfg.family == "vlm"))
+    attn = (cfg.ssm_kind == "none" and not cfg.hybrid_attn_every
+            and cfg.rope in ("rope", "mrope"))
+    dense = (attn and cfg.family in ("dense", "vlm") and not cfg.n_experts
+             and cfg.mlp_kind in MLP_KINDS
+             and (cfg.attn_kind == "full"
+                  or (cfg.attn_kind == "local_global" and cfg.local_ratio > 0)))
+    moe = (attn and cfg.family == "moe" and cfg.n_experts > 0
+           and cfg.mlp_kind == "swiglu" and cfg.tie_embeddings
            and cfg.attn_kind in ("full", "swa"))
     rwkv6 = (cfg.family == "ssm" and cfg.ssm_kind == "rwkv6"
              and cfg.attn_kind == "none" and not cfg.tie_embeddings
              and not cfg.n_experts)
-    if common or not (dense or moe or rwkv6):
+    hybrid = (cfg.family == "hybrid" and cfg.ssm_kind == "mamba2"
+              and cfg.hybrid_attn_every > 0 and cfg.attn_kind == "full"
+              and cfg.rope == "rope" and not cfg.n_experts
+              and cfg.mlp_kind in MLP_KINDS)
+    if common or not (dense or moe or rwkv6 or hybrid):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense qwen3-style, the MoE (mixtral, "
-            "llama4-scout) and the rwkv6 paths are ported")
+            f"{cfg.name}: only the dense decoders (qwen3, qwen2, nemotron, "
+            "qwen2-vl, gemma3 local:global), the MoE (mixtral, llama4-scout), "
+            "the rwkv6 and the zamba2 hybrid paths are ported; not the audio "
+            "frontend, kv_head_pad_to or kv_cache_quant")
 
 
 def _tree_map(fn, tree):
@@ -85,33 +107,58 @@ def init_params(
         return {"embed": embed, "blocks": blocks, "final_norm": final_norm,
                 "lm_head": head.to(dt)}
 
-    def dense(*shape):
-        t = torch.randn((L, *shape), generator=gen, device=device,
+    def dense(*shape, lead=(L,)):
+        t = torch.randn((*lead, *shape), generator=gen, device=device,
                         dtype=torch.float32)
         return t.mul_(1.0 / math.sqrt(shape[0])).to(dt)
 
-    def norm(width):
-        return {"scale": torch.zeros((L, width), dtype=torch.float32,
-                                     device=device)}
+    def zeros(*shape, lead=(L,)):
+        return torch.zeros((*lead, *shape), dtype=torch.float32,
+                           device=device)
 
-    attn = {
-        "wqkv": dense(d, cfg.q_dim + 2 * cfg.kv_dim),
-        "wo": dense(cfg.q_dim, d),
-        "norm": norm(d),
-    }
-    if cfg.qk_norm:
-        attn["q_norm"] = norm(cfg.head_dim)
-        attn["k_norm"] = norm(cfg.head_dim)
-    embed = torch.randn((cfg.vocab, d), generator=gen, device=device,
-                        dtype=torch.float32).mul_(0.01).to(dt)
-    if cfg.n_experts:
-        blocks = {"attn": attn,
-                  "moe": moe_mod.init_moe(cfg, gen, layers=L, device=device)}
+    def attention(lead=(L,)):
+        p = {"wqkv": dense(d, cfg.q_dim + 2 * cfg.kv_dim, lead=lead),
+             "wo": dense(cfg.q_dim, d, lead=lead),
+             "norm": {"scale": zeros(d, lead=lead)}}
+        if cfg.qkv_bias:
+            p["bqkv"] = zeros(cfg.q_dim + 2 * cfg.kv_dim, lead=lead)
+        if cfg.qk_norm:
+            p["q_norm"] = {"scale": zeros(cfg.head_dim, lead=lead)}
+            p["k_norm"] = {"scale": zeros(cfg.head_dim, lead=lead)}
+        return p
+
+    def mlp(lead=(L,)):
+        fi = 2 * cfg.d_ff if cfg.mlp_kind == "swiglu" else cfg.d_ff
+        return {"wi": dense(d, fi, lead=lead), "wo": dense(cfg.d_ff, d, lead=lead),
+                "norm": {"scale": zeros(d, lead=lead)}}
+
+    def embedding():
+        return torch.randn((cfg.vocab, d), generator=gen, device=device,
+                           dtype=torch.float32).mul_(0.01).to(dt)
+
+    params: Params = {}
+    if cfg.ssm_kind == "mamba2":
+        # the hybrid: the shared attention+MLP block lives outside the stack
+        params["blocks"] = {"mamba": ssm_mod.init_mamba2(
+            cfg, gen, lead=(L, cfg.hybrid_attn_every), device=device)}
+        params["shared_block"] = {"attn": attention(()), "mlp": mlp(())}
+        params["embed"] = embedding()
+    elif cfg.attn_kind == "local_global":
+        local = (L, cfg.local_ratio)
+        params["blocks"] = {
+            "local": {"attn": attention(local), "mlp": mlp(local)},
+            "global": {"attn": attention(), "mlp": mlp()}}
+        params["embed"] = embedding()
     else:
-        blocks = {"attn": attn,
-                  "mlp": {"wi": dense(d, 2 * cfg.d_ff),
-                          "wo": dense(cfg.d_ff, d), "norm": norm(d)}}
-    return {"embed": embed, "blocks": blocks, "final_norm": final_norm}
+        attn = attention()
+        params["embed"] = embedding()
+        params["blocks"] = {"attn": attn, **(
+            {"moe": moe_mod.init_moe(cfg, gen, layers=L, device=device)}
+            if cfg.n_experts else {"mlp": mlp()})}
+    params["final_norm"] = final_norm
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(d, cfg.vocab, lead=())
+    return params
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> Params:
@@ -134,48 +181,68 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> Params:
 def init_decode_state(
     cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda"
 ) -> dict:
-    """The valid length (a device scalar) and the per-layer state: KV
-    caches [L, B, S, KV, D] (dense and MoE; S = min(window, cache_len) for
-    sliding-window attention, a rolling cache), or the rwkv state {tmix:
-    {shift [L, B, d], wkv [L, B, H, dk, dv] f32}, cmix: {shift}} (rwkv6)."""
+    """The valid length (a device scalar) and the per-layer state, as the
+    reference lays it out: KV caches {k, v} [L, B, S, KV, D] (dense and MoE;
+    S = min(window, cache_len) for sliding-window attention, a rolling
+    cache); for gemma3 {local: [L, 5, B, min(window, cache_len), KV, D]
+    caches, global: [L, B, S, KV, D]}; for zamba2 {mamba: {conv [L, 6, B,
+    3, C], h [L, 6, B, nh, hd, state] f32}, shared_kv: [L, B, S, KV, D]};
+    or the rwkv state {tmix: {shift [L, B, d], wkv [L, B, H, dk, dv] f32},
+    cmix: {shift}} (rwkv6)."""
     check_family(cfg)
+    nsb = cfg.n_superblocks
     length = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.ssm_kind == "rwkv6":
         return {"len": length,
                 "blocks": ssm_mod.init_rwkv6_state(
-                    cfg, batch, layers=cfg.n_superblocks, device=device)}
-    if cfg.attn_kind == "swa":
-        cache_len = min(cfg.window, cache_len)
-    shape = (cfg.n_superblocks, batch, cache_len, cfg.kv_heads_eff, cfg.head_dim)
-    return {
-        "len": length,
-        "blocks": {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   "v": torch.zeros(shape, dtype=cfg.dtype, device=device)},
-    }
+                    cfg, batch, layers=nsb, device=device)}
+
+    def kv(*lead, seq):
+        shape = (*lead, batch, seq, cfg.kv_heads_eff, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+    if cfg.ssm_kind == "mamba2":
+        blocks = {"mamba": ssm_mod.init_mamba2_state(
+                      cfg, batch, lead=(nsb, cfg.hybrid_attn_every),
+                      device=device),
+                  "shared_kv": kv(nsb, seq=cache_len)}
+    elif cfg.attn_kind == "local_global":
+        blocks = {"local": kv(nsb, cfg.local_ratio,
+                              seq=min(cfg.window, cache_len)),
+                  "global": kv(nsb, seq=cache_len)}
+    elif cfg.attn_kind == "swa":
+        blocks = kv(nsb, seq=min(cfg.window, cache_len))
+    else:
+        blocks = kv(nsb, seq=cache_len)
+    return {"len": length, "blocks": blocks}
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
-    return params["embed"][inputs["tokens"].long()]
+    """Token embeddings; with `vision_embeds` [B, P, d] and
+    `vision_positions` [B, P] (the VLM stub), the precomputed patch
+    embeddings overwrite their token slots."""
+    x = params["embed"][inputs["tokens"].long()]
+    ve = inputs.get("vision_embeds")
+    if ve is not None:
+        vp = inputs["vision_positions"].long()
+        x = x.scatter(1, vp[..., None].expand(*vp.shape, x.shape[-1]),
+                      ve.to(x.dtype))
+    return x
 
 
-def output_logits(params: Params, cfg: ModelConfig, h: torch.Tensor,
-                  *, vocab_chunk: int = 16384) -> torch.Tensor:
+def output_logits(params: Params, cfg: ModelConfig,
+                  h: torch.Tensor) -> torch.Tensor:
     """f32 logits [B, S, V] of the untied `lm_head` [d, V] where there is
-    one, else of the tied embedding, as the reference's
-    preferred_element_type=f32 product: the bf16 weights are widened to f32
-    a vocabulary chunk at a time, so no bf16 rounding of the logits."""
-    h = apply_norm(params["final_norm"], h, cfg.norm_eps).float()
+    one, else of the tied embedding [V, d], as the reference's
+    preferred_element_type=f32 product: on the card one bf16 product with an
+    f32 result (`ops.f32_product`), so the head is never widened and the
+    logits are not rounded to bf16; on the CPU both in f32."""
+    h = apply_norm(params["final_norm"], h, cfg.norm_eps)
     head = params.get("lm_head")
-    vocab = head.shape[1] if head is not None else params["embed"].shape[0]
-    out = torch.empty((*h.shape[:-1], vocab), dtype=torch.float32,
-                      device=h.device)
-    for v0 in range(0, vocab, vocab_chunk):
-        if head is not None:
-            wt = head[:, v0:v0 + vocab_chunk].float()
-        else:
-            wt = params["embed"][v0:v0 + vocab_chunk].float().T
-        out[..., v0:v0 + vocab_chunk] = h @ wt
-    return out
+    w = head if head is not None else params["embed"].T
+    out = f32_product(h.reshape(-1, h.shape[-1]), w)
+    return out.reshape(*h.shape[:-1], w.shape[1])
 
 
 def _layer(tree, layer: int):
@@ -198,6 +265,49 @@ def _rwkv6_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return x + h
 
 
+def _hybrid_block(cfg: ModelConfig, bp: Params, shared: Params,
+                  x: torch.Tensor, st: dict | None, *, positions, kv_len,
+                  rctx) -> torch.Tensor:
+    """One zamba2 superblock: 6 Mamba2 blocks without reuse, then the shared
+    attention+MLP block under the sites `shared_attn_*` and `shared_mlp_*`,
+    with this superblock's own KV cache. Without a decode state the Mamba2
+    blocks start from a zero state."""
+    for i in range(cfg.hybrid_attn_every):
+        ms = (_layer(st["mamba"], i) if st is not None
+              else ssm_mod.init_mamba2_state(cfg, x.shape[0], device=x.device))
+        h, _ = ssm_mod.mamba2_forward(_layer(bp["mamba"], i), cfg, x, ms)
+        x = x + h
+    x = x + attention_forward(
+        shared["attn"], cfg, x, positions=positions,
+        kv_cache=st["shared_kv"] if st is not None else None, kv_len=kv_len,
+        reuse_ctx=rctx, site_prefix="shared_attn")
+    return x + mlp_forward(shared["mlp"], cfg, x, reuse_ctx=rctx,
+                           site_prefix="shared_mlp")
+
+
+def _local_global_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
+                        st: dict | None, *, positions, kv_len,
+                        rctx) -> torch.Tensor:
+    """One gemma3 superblock: `local_ratio` layers of sliding-window
+    attention at `window` and an MLP, without reuse (as in the reference),
+    then the global layer under the sites `attn_global_*` and
+    `mlp_global_*`."""
+    for i in range(cfg.local_ratio):
+        lp = _layer(bp["local"], i)
+        x = x + attention_forward(
+            lp["attn"], cfg, x, layer_window=cfg.window, positions=positions,
+            kv_cache=_layer(st["local"], i) if st is not None else None,
+            kv_len=kv_len, site_prefix="attn_local")
+        x = x + mlp_forward(lp["mlp"], cfg, x)
+    gp = bp["global"]
+    x = x + attention_forward(
+        gp["attn"], cfg, x, positions=positions,
+        kv_cache=st["global"] if st is not None else None, kv_len=kv_len,
+        reuse_ctx=rctx, site_prefix="attn_global")
+    return x + mlp_forward(gp["mlp"], cfg, x, reuse_ctx=rctx,
+                           site_prefix="mlp_global")
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -218,27 +328,34 @@ def forward(
         positions = (decode_state["len"] + ar)[None, :].expand(b, s)
     else:
         positions = ar[None, :].expand(b, s)
+    if cfg.rope == "mrope":
+        positions = positions[None].expand(3, b, s)
+    kv_len = decode_state["len"] if decode else None
     stats: dict[str, Any] = {}
     window = cfg.window if cfg.attn_kind == "swa" else None
     for layer in range(cfg.n_superblocks):
         bp = _layer(params["blocks"], layer)
-        kv = _layer(decode_state["blocks"], layer) if decode else None
+        st = _layer(decode_state["blocks"], layer) if decode else None
         rctx = None
         if reuse_engine is not None and reuse_cache is not None:
             rctx = (reuse_engine, reuse_engine.layer_view(reuse_cache, layer),
                     stats)
         if cfg.ssm_kind == "rwkv6":
-            x = _rwkv6_block(bp["rwkv"], cfg, x, kv, rctx)
-            continue
-        x = x + attention_forward(
-            bp["attn"], cfg, x, layer_window=window, positions=positions,
-            kv_cache=kv, kv_len=decode_state["len"] if decode else None,
-            reuse_ctx=rctx,
-        )
-        if cfg.n_experts:
-            x = x + moe_mod.moe_forward(bp["moe"], cfg, x, reuse_ctx=rctx)
+            x = _rwkv6_block(bp["rwkv"], cfg, x, st, rctx)
+        elif cfg.ssm_kind == "mamba2":
+            x = _hybrid_block(cfg, bp, params["shared_block"], x, st,
+                              positions=positions, kv_len=kv_len, rctx=rctx)
+        elif cfg.attn_kind == "local_global":
+            x = _local_global_block(cfg, bp, x, st, positions=positions,
+                                    kv_len=kv_len, rctx=rctx)
         else:
-            x = x + mlp_forward(bp["mlp"], cfg, x, reuse_ctx=rctx)
+            x = x + attention_forward(
+                bp["attn"], cfg, x, layer_window=window, positions=positions,
+                kv_cache=st, kv_len=kv_len, reuse_ctx=rctx)
+            if cfg.n_experts:
+                x = x + moe_mod.moe_forward(bp["moe"], cfg, x, reuse_ctx=rctx)
+            else:
+                x = x + mlp_forward(bp["mlp"], cfg, x, reuse_ctx=rctx)
     new_state = None
     if decode:
         new_state = {"len": decode_state["len"] + s,

@@ -26,20 +26,31 @@ def build_reuse_engine(
     block_k: int = 256,
     policy: ReusePolicy | None = None,
 ) -> ReuseEngine:
-    """Register the decode-time reuse sites, stacked over layers, with the
-    reference's names and shapes: for a dense transformer the attention
+    """Register the decode-time reuse sites, stacked over superblocks, with
+    the reference's names and shapes: for a dense transformer the attention
     projections and the MLP (four per layer); for MoE the attention
     projections and, where there is one, the shared expert's two linears;
     for rwkv6 the time mix's r/k/v/g/o projections and the channel mix's
-    k/v/r (eight per layer).
+    k/v/r (eight per layer); for the zamba2 hybrid the shared block's
+    attention and MLP (`shared_attn_*`, `shared_mlp_*`; the Mamba2 blocks
+    carry none); for gemma3 the global layer's (`attn_global_*`,
+    `mlp_global_*`; the local layers carry none). The MLP's input site is
+    2·d_ff wide for swiglu [gate | up], d_ff for gelu and relu2.
     A tuned `policy` resolves each site's block_k, exec_path and budget."""
     check_family(cfg)
     eng = ReuseEngine(impl=impl, policy=policy or ReusePolicy())
     nsb, d = cfg.n_superblocks, cfg.d_model
+    fi = 2 * cfg.d_ff if cfg.mlp_kind == "swiglu" else cfg.d_ff
 
     def reg(name, fi, fo):
         eng.register(name, fi, fo, n_layers=nsb, block_m=block_m,
                      block_k=block_k)
+
+    def attn_mlp(attn, mlp):
+        reg(f"{attn}_qkv", d, cfg.q_dim + 2 * cfg.kv_dim)
+        reg(f"{attn}_out", cfg.q_dim, d)
+        reg(f"{mlp}_in", d, fi)
+        reg(f"{mlp}_out", cfg.d_ff, d)
 
     if cfg.ssm_kind == "rwkv6":
         for nm in ("wr", "wk", "wv", "wg", "wo"):
@@ -47,19 +58,20 @@ def build_reuse_engine(
         reg("rwkv_cmix_wk", d, cfg.d_ff)
         reg("rwkv_cmix_wv", cfg.d_ff, d)
         reg("rwkv_cmix_wr", d, d)
-        return eng
-
-    reg("attn_qkv", d, cfg.q_dim + 2 * cfg.kv_dim)
-    reg("attn_out", cfg.q_dim, d)
-    if cfg.n_experts:
+    elif cfg.ssm_kind == "mamba2":
+        attn_mlp("shared_attn", "shared_mlp")
+    elif cfg.attn_kind == "local_global":
+        attn_mlp("attn_global", "mlp_global")
+    elif cfg.n_experts:
+        reg("attn_qkv", d, cfg.q_dim + 2 * cfg.kv_dim)
+        reg("attn_out", cfg.q_dim, d)
         # routed experts are not reuse sites (their token stream changes
         # with the routing); a shared expert is
         if cfg.shared_expert:
             reg("moe_shared_in", d, 2 * cfg.d_ff)
             reg("moe_shared_out", cfg.d_ff, d)
-        return eng
-    reg("mlp_in", d, 2 * cfg.d_ff)  # swiglu [gate | up]
-    reg("mlp_out", cfg.d_ff, d)
+    else:
+        attn_mlp("attn", "mlp")
     return eng
 
 

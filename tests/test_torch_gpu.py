@@ -241,6 +241,76 @@ def test_each_k_split_on_card(card, dtype, cluster):
         check_cluster_gemm(kernel, m, k, n, 8, 256, "first", dtype, card)
 
 
+# (m, kw, n, block_m, block_k, mask): the weight's kw rows end inside the
+# last k tile (qwen2-72b's mlp_out, K = 29568 = 115.5 tiles of 256)
+K_TAIL_CASES = {
+    "tail_1000": (8, 1000, 256, 8, 256, 0.5),
+    "tail_two_rows": (16, 1100, 384, 8, 128, "rows"),   # K = 1152
+    "qwen2_mlp_out": (8, 29568, 8192, 8, 256, 0.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["output", "input", "ragged"])
+@pytest.mark.parametrize("case", list(K_TAIL_CASES))
+def test_k_tail_on_card(card, dtype, kernel, case):
+    """Δ padded to whole tiles (zero past kw), the weight with its own kw
+    rows: against the plain version at this file's tolerances, and bitwise
+    the same kernel on the weight padded with zero rows, which the kernel's
+    zero-filled copies stand for."""
+    m, kw, n, bm, bk, rule = K_TAIL_CASES[case]
+    k = -(-kw // bk) * bk
+    gen = torch.Generator(device=card).manual_seed(3)
+    mask = input_mask(rule, m // bm, k // bk, gen, card)
+    delta = torch.randn((m, k), generator=gen, device=card).to(dtype)
+    delta[:, kw:] = 0
+    w = (torch.randn((kw, n), generator=gen, device=card)
+         / kw ** 0.5).to(dtype)
+    wpad = torch.cat([w, torch.zeros((k - kw, n), dtype=dtype,
+                                      device=card)])
+    prev = torch.randn((m, n), generator=gen, device=card)
+    want = reuse_matmul_torch(delta, w, prev, mask, block_m=bm, block_k=bk)
+
+    def run(weight):
+        if kernel == "input":
+            return reuse_matmul(delta, weight, prev, mask, block_m=bm,
+                                block_n=128, block_k=bk, dataflow="input")
+        return masked_or_ragged(kernel, delta, weight, prev, mask, bm, bk)
+
+    got = run(w)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, run(wpad))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3-12b", "nemotron-4-15b"])
+def test_lm_head_is_one_bf16_product_on_card(card, arch):
+    """The full-width LM head (gemma3's tied 262,144 x 3840 embedding,
+    nemotron's untied 6144 x 256,000 head): f32 logits of one bf16 product,
+    equal to the widened f32 product within f32 summation order."""
+    from repro_torch.models import output_logits
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device=card).manual_seed(0)
+    d, v = cfg.d_model, cfg.vocab
+    params = {"final_norm": {"scale": torch.zeros(d, device=card)},
+              "embed": (torch.randn((v, d), generator=gen, device=card)
+                        * 0.01).to(BF16)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (torch.randn((d, v), generator=gen, device=card)
+                             / d ** 0.5).to(BF16)
+    h = torch.randn((8, 1, d), generator=gen, device=card).to(BF16)
+    got = output_logits(params, cfg, h)
+    head = params.get("lm_head", params["embed"].T)
+    from repro_torch.models.layers import apply_norm
+
+    want = (apply_norm(params["final_norm"], h, cfg.norm_eps).float()
+            @ head.float())
+    assert got.dtype == torch.float32 and got.shape == (8, 1, v)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
 BF16, F32 = torch.bfloat16, torch.float32
 
 
@@ -425,7 +495,12 @@ def test_int8_split_matches_plain_on_card(card, m, bm, k, n, case):
     ("qwen3-32b", ("delta_quant", "reuse_matmul_output")),
     ("rwkv6-7b", ("delta_quant", "reuse_matmul_output", "wkv6_decode")),
     ("mixtral-8x7b", ("delta_quant", "reuse_matmul_output")),
-    ("llama4-scout-17b-a16e", ("delta_quant", "reuse_matmul_output"))])
+    ("llama4-scout-17b-a16e", ("delta_quant", "reuse_matmul_output")),
+    ("zamba2-2.7b", ("delta_quant", "reuse_matmul_output")),
+    ("gemma3-12b", ("delta_quant", "reuse_matmul_output")),
+    ("qwen2-72b", ("delta_quant", "reuse_matmul_output")),
+    ("nemotron-4-15b", ("delta_quant", "reuse_matmul_output")),
+    ("qwen2-vl-7b", ("delta_quant", "reuse_matmul_output"))])
 def test_serve_runs_the_kernels_on_the_card(card, capsys, arch, kernels):
     backend.reset_launches()
     tserve_cli.main(["--arch", arch, "--reduced", "--requests", "2",
@@ -525,9 +600,16 @@ def _tensor_leaves(tree):
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
+# the site whose layer-0 lane the graph test flips, where not attn_out
+FLIP_SITE = {"rwkv6-7b": "rwkv_wo", "zamba2-2.7b": "shared_attn_out",
+             "gemma3-12b": "attn_global_out"}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b", "mixtral-8x7b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "zamba2-2.7b",
+                                  "gemma3-12b", "qwen2-72b", "nemotron-4-15b",
+                                  "qwen2-vl-7b"])
 def test_graph_step_matches_eager_step_on_card(card, arch):
     """Reduced bf16 models: the same prefills and decode steps, eagerly and
     through captured graphs (with a mode flip and a flip back between
@@ -537,7 +619,7 @@ def test_graph_step_matches_eager_step_on_card(card, arch):
     for graphs in (False, True):
         backend.reset_launches()
         step = _reduced_step(arch, card, graphs)
-        site = "rwkv_wo" if arch == "rwkv6-7b" else "attn_out"
+        site = FLIP_SITE.get(arch, "attn_out")
         gen = torch.Generator(device=card).manual_seed(0)
         logits = [step.prefill(torch.randint(
             0, step.cfg.vocab, (2, 8), generator=gen, device=card)).clone()]

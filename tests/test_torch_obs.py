@@ -726,6 +726,19 @@ def _rows(path):
             for r in jload_journal(str(path))]
 
 
+def pin_watchdogs(mp):
+    """Both packages' straggler watchdogs see no step as a stall: they time
+    the host's wall clock, so under a loaded host one slow step would put a
+    stall row into one journal and not the other. The watchdog itself is
+    held by `tests/test_torch_guard.py`."""
+    from repro.guard import watchdog as jwatchdog
+    from repro_torch.guard import watchdog as twatchdog
+
+    for mod in (jwatchdog, twatchdog):
+        mp.setattr(mod.StragglerWatchdog, "observe",
+                   lambda self, step, dt: None)
+
+
 @pytest.fixture(scope="module")
 def priced_serves(tmp_path_factory):
     """`serve --control-every 2 --latency-table T` on reduced qwen3 in both
@@ -736,6 +749,7 @@ def priced_serves(tmp_path_factory):
     d = tmp_path_factory.mktemp("priced")
     table = _fixed_table(d / "lat.json")
     mp = pytest.MonkeyPatch()
+    pin_watchdogs(mp)
     build = jserve_cli.build_reuse_engine
     mp.setattr(jserve_cli, "build_reuse_engine",
                lambda cfg, *, impl="jnp", policy=None: build(

@@ -147,8 +147,12 @@ def test_serve_inject_prints_the_reference_guard_lines(capsys, monkeypatch,
     print the same `guard plane:` and `fault injection:` lines. The fault
     lands at step 4, just before that step's control interval looks, so it
     trips in both; six decode steps, fewer than the watchdog's eight
-    samples, so no wall-clock verdict can enter the lines."""
+    samples, and both watchdogs are pinned, so no wall-clock verdict can
+    enter the lines."""
     from repro.launch import serve as jserve_cli
+    from test_torch_obs import pin_watchdogs
+
+    pin_watchdogs(monkeypatch)
 
     argv = ["--arch", "qwen3-32b", "--reduced", "--requests", "4",
             "--batch-slots", "2", "--prompt-len", "4", "--cache-len", "24",
