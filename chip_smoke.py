@@ -219,6 +219,22 @@ every phase's failure is fatal (non-zero exit, no result line):
                 mlp_out runs input-stationary); (d) the LM head: qwen3,
                 llama4 and gemma3 steps replayed with the earlier widened
                 head and with one bf16 product, in turns
+  14. sharded — `serve --mesh host:4` (every reuse site's cache and weight
+                in 4 model-axis shards on the card, each shard's GEMM on
+                its column panel of the weight, read in place): (a)
+                qwen3-32b at 8 layers and (b) qwen2-72b at 4 (mlp_in's
+                panels end inside a tile), phase 4's traffic, each as a
+                pair (eager-checked, then graphs), then bitwise the
+                unsharded serve of phase 4 / 13c (tokens, SensorReport
+                lines, decode state, reuse cache with prev_out's panels
+                side by side and counters collapsed); the no-gather, shard
+                skip and ici traffic lines; each site's 4 panel launches
+                timed against its one unsharded launch; 14b: no step copies
+                a weight-sized tensor; (c) the serve with --control-every 2
+                --control-journal at 16 tokens: kind="shard" rows, replay,
+                Controller.step's 2 (3 with the breaker) device->host
+                copies, and a NaN in shard 2's lane of mlp_out tripping the
+                breaker's combined sentinels
 
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
@@ -226,9 +242,9 @@ pools, device busy and idle share), a JSON line of phase 8 (its runs, the
 sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
 closed loops; the controlled serve and the basic-mode product) and of
 phase 10, a JSON line of phase 11, a JSON line of phase 12, a JSON line
-of phase 13, the kernels JSON line (launch counts from the serve runs and
-the int8 path, and per phase 8, 9, 10, 11, 12 and 13 run; errors and times
-from phase 3)
+of phase 13, a JSON line of phase 14, the kernels JSON line (launch counts
+from the serve runs and the int8 path, and per phase 8-14 run; errors and
+times from phase 3)
 and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The controlled and guarded serves' whole output goes to
 chiprun_out/chip_smoke/.
@@ -2983,9 +2999,11 @@ def weight_copy_check(step, cfg) -> dict:
             "longest_other": worst[1], "weight_read_ms": read_ms}
 
 
-def archetype_serve_phase(serve_pair, graph_rows) -> tuple[dict, dict]:
+def archetype_serve_phase(serve_pair, graph_rows,
+                          keep=None) -> tuple[dict, dict]:
     """13a-c: phase 4's traffic with --reuse on each archetype, the checked
-    eager serve then the graph serve, held equal. Returns ({serve: its
+    eager serve then the graph serve, held equal (qwen2-72b's graph serve
+    kept in `keep`, with its row, for phase 14b). Returns ({serve: its
     readings}, {serve: launches})."""
     from repro_torch.configs import get_config
 
@@ -3013,7 +3031,11 @@ def archetype_serve_phase(serve_pair, graph_rows) -> tuple[dict, dict]:
 
         gc.collect()
         torch.cuda.empty_cache()
-        counts, _ = serve_pair(cfg, argv, label, pairs=3, probe=probe)
+        counts, _ = serve_pair(
+            cfg, argv, label, pairs=3, probe=probe,
+            keep=keep if name == "qwen2-72b" else None)
+        if name == "qwen2-72b" and keep is not None:
+            keep["row"] = graph_rows[-1]
         launches[f"{label} (eager, checked)"] = counts
         need = ["delta_quant", "reuse_matmul_output"]
         if name == "qwen2-vl-7b":  # mlp_out: 18944 > 4 x 3584
@@ -3231,6 +3253,305 @@ def head_phase(dev, pairs: int = 5) -> dict:
         del steps, params, engine, rcache, state
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# phase 14: sharded reuse serving (`serve --mesh host:4`: every site's cache
+# and weight in 4 model-axis shards on the one card, each shard running its
+# own delta_quant and its own GEMM on its column panel of the weight, read
+# in place). (a) qwen3-32b at 8 layers and (b) qwen2-72b at 4 (its mlp_in
+# panels end inside a tile: 14,784 columns), phase 4's traffic: the pair,
+# eager-checked then graphs, then held bitwise to phases 4's and 13c's
+# unsharded serves; each sharded site's 4 panel launches timed against its
+# one unsharded launch; (c) the controlled serve: per-shard journal rows,
+# replay, the guard's sentinels combined across shards (a NaN in shard 2's
+# lane), Controller.step's device->host copies
+SHARDS = 4
+SHARD_ARCHS = (("qwen3-32b", N_LAYERS, "qwen3 sharded host:4", "phase 4"),
+               ("qwen2-72b", 4, "qwen2-72b sharded host:4", "13c"))
+
+
+def sharded_equal(label, got, want, shards) -> int:
+    """The sharded serve against the unsharded one, bitwise: tokens,
+    SensorReport lines, the decode state, and the reuse cache with the
+    shard axis collapsed (prev_out's panels laid side by side; counters
+    summed or taken from shard 0 by `COUNTER_SHARD_REDUCE`; every other
+    leaf replicated, each shard's lane equal to the unsharded one). Returns
+    the tensors compared."""
+    from repro_torch.sensor.counters import COUNTER_SHARD_REDUCE
+
+    for part in ("tokens", "reports"):
+        if got[part] != want[part]:
+            fail(f"{label}: {part} differ from the unsharded serve's")
+    for key, t in want["tensors"].items():
+        g = got["tensors"].get(key)
+        if g is None:
+            fail(f"{label}: no {key} in the sharded serve")
+        if key.startswith("rcache."):
+            leaf = key.rsplit(".", 1)[1]
+            if leaf == "prev_out":
+                layers, n_sh, m, nl = g.shape
+                g = g.permute(0, 2, 1, 3).reshape(layers, m, n_sh * nl)
+            elif ".sensor." in key and COUNTER_SHARD_REDUCE[leaf] == "sum":
+                g = g.sum(dim=1).to(t.dtype)
+            else:
+                if not all(torch.equal(g.select(1, i), g.select(1, 0))
+                           for i in range(shards)):
+                    fail(f"{label}: the shards' lanes of {key} differ")
+                g = g.select(1, 0)
+        if g.shape != t.shape or not torch.equal(g, t):
+            fail(f"{label}: {key} differs from the unsharded serve's")
+    return len(want["tensors"])
+
+
+def panel_timing(dev, sites, shards, layers) -> dict:
+    """Each sharded site's ΔW GEMM at decode (M = 8, bf16, skip 0): its
+    `shards` launches on the column panels of one weight, read in place
+    with the unsharded k split, against the one unsharded launch (CUDA
+    events over a graph of 20 calls; every weight here exceeds the 50 MB
+    L2, so each call reads it from HBM)."""
+    from repro_torch.kernels.reuse_matmul import reuse_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(MEASURED_SEED)
+    out = {}
+    for name, (k, n, flow) in sorted(sites.items()):
+        kp, nl = -(-k // BK) * BK, n // shards
+        delta = torch.zeros((8, kp), dtype=torch.bfloat16, device=dev)
+        delta[:, :k] = torch.randn((8, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        prev = torch.randn((8, n), generator=gen, device=dev)
+        prevs = [prev[:, i * nl:(i + 1) * nl].contiguous()
+                 for i in range(shards)]
+        mask = torch.ones((1, kp // BK), dtype=torch.int32, device=dev)
+        kw = dict(block_m=8, block_n=128, block_k=BK, dataflow=flow)
+        whole = time_ms(lambda: reuse_matmul(delta, w, prev, mask, **kw))
+        panels = time_ms(lambda: [
+            reuse_matmul(delta, w[:, i * nl:(i + 1) * nl], prevs[i], mask,
+                         n_total=n, **kw) for i in range(shards)])
+        bound = k * n * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"  {name:9s} [8,{k}]x[{k},{n}] ({flow}): 1 launch "
+              f"{whole:.4f} ms; {shards} panels of {nl} columns {panels:.4f} "
+              f"ms ({shards} launches); bound {bound:.4f} ms; a step of "
+              f"{layers} layers {whole * layers:.3f} -> "
+              f"{panels * layers:.3f} ms")
+        out[name] = {"K": k, "N": n, "panel_N": nl, "dataflow": flow,
+                     "unsharded_ms": whole, "panels_ms": panels,
+                     "panel_launches": shards, "bound_ms": bound,
+                     "step_unsharded_ms": whole * layers,
+                     "step_panels_ms": panels * layers}
+        del delta, w, prev, prevs
+        torch.cuda.empty_cache()
+    return out
+
+
+def panel_copy_check(step, shards) -> dict:
+    """14b: no step copies a weight. In one eager decode step (the dispatch
+    recorder of `repro_torch.roofline.collectives`) no copy, cat or gather
+    writes a tensor as large as the smallest weight panel; in one profiled
+    replay no copy kernel takes as long as a copy of that panel (reading
+    and writing it once at the HBM rate)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.roofline.collectives import trace_step
+
+    smallest = min(sp.in_features * sp.out_features // shards
+                   for sp in step.engine.sites.values())
+    trace = trace_step(step.run_decode)
+    big = [(op, operands[-1]) for op, operands in trace["moves"]
+           if operands and math.prod(operands[-1][1]) >= smallest]
+    if big:
+        fail(f"a sharded step copies a weight-sized tensor: {big[:4]}")
+    copy_ms = 2 * smallest * 2 / HBM_BYTES_PER_S * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step.decode(step.tokens)
+        torch.cuda.synchronize()
+    copies = [(e.device_time_total / 1e3, e.name) for e in prof.events()
+              if str(e.device_type).endswith("CUDA")
+              and ("copy" in e.name.lower() or "memcpy" in e.name.lower())]
+    worst = max(copies, default=(0.0, "none"))
+    print(f"  no weight copied: {len(trace['moves'])} copies and gathers in "
+          f"one eager step, none writing {smallest:,} elements (the smallest "
+          f"panel) or more; the longest copy kernel of a replay "
+          f"{worst[0]:.4f} ms ({worst[1][:60]}) against {copy_ms:.4f} ms to "
+          "copy that panel")
+    if worst[0] >= copy_ms:
+        fail("a copy kernel of the sharded replay takes as long as copying "
+             "a weight panel")
+    return {"moves": len(trace["moves"]), "smallest_panel": smallest,
+            "longest_copy_ms": worst[0], "panel_copy_ms": copy_ms}
+
+
+def sharded_phase(serve_pair, graph_rows, unsharded, dev) -> tuple[dict, dict]:
+    """14a and 14b. Returns ({serve: readings}, {serve: launches})."""
+    from repro_torch.configs import get_config
+
+    out, launches = {}, {}
+    for arch, layers, label, base_label in SHARD_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        argv = ["--arch", arch, "--reuse", "--batch-slots", "8",
+                "--requests", "8", "--prompt-len", "32", "--cache-len",
+                "128", "--max-new", "8", "--mesh", f"host:{SHARDS}"]
+        keep, sites, info = {}, {}, {"layers": layers}
+
+        def probe(step, arch=arch, sites=sites, info=info):
+            sites.update({n: (sp.in_features, sp.out_features, sp.dataflow)
+                          for n, sp in step.engine.sites.items()})
+            if arch == "qwen2-72b":
+                info["weight_copy"] = panel_copy_check(step, SHARDS)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, _ = serve_pair(cfg, argv, label, pairs=3, probe=probe,
+                               keep=keep)
+        launches[f"{label} (eager, checked)"] = counts
+        need = ["delta_quant", "reuse_matmul_output"]
+        if arch == "qwen3-32b":
+            need.append("reuse_matmul_input")
+        for kn in need:
+            if counts[kn] <= 0:
+                fail(f"{kn} was not launched on the {label} path")
+        text = keep["text"]
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("mesh:", "profiler no-gather", "shard skip",
+                                   "ici traffic"))]
+        if not any(ln.startswith("profiler no-gather check: OK")
+                   for ln in lines):
+            fail(f"{label}: no OK no-gather line")
+        if sum(ln.startswith("shard skip") for ln in lines) != len(sites) \
+                or not any(ln.startswith("ici traffic") for ln in lines):
+            fail(f"{label}: shard skip or ici traffic lines missing")
+        base = unsharded[arch]
+        n = sharded_equal(label, keep, base, SHARDS)
+        row, brow = graph_rows[-1], base["row"]
+        print(f"{label}: bitwise the unsharded serve of {base_label} — tokens "
+              f"of {len(keep['tokens'])} requests, "
+              f"{len(keep['reports'])} SensorReport lines, {n} tensors of "
+              "the final decode state and reuse cache (prev_out's panels "
+              "side by side, counters collapsed)")
+        print(f"{label}: replay {row['graph_ms']:.2f} ms (unsharded "
+              f"{brow['graph_ms']:.2f}), device busy {row['busy_graph_ms']:.2f}"
+              f" ms ({brow['busy_graph_ms']:.2f}), {row['kernels_graph']} "
+              f"kernels and copies a replay ({brow['kernels_graph']}); "
+              f"launches {dict(keep['counts'])} (unsharded "
+              f"{dict(base['counts'])})")
+        print(f"{label}: each sharded site's panels against its one "
+              "unsharded launch (bf16, M = 8, skip 0):")
+        info.update(row=row, unsharded_row={
+            k: brow[k] for k in ("graph_ms", "eager_ms", "busy_graph_ms",
+                                 "kernels_graph")},
+            lines=lines, tensors=n,
+            panels=panel_timing(dev, sites, SHARDS, layers))
+        out[label] = info
+        del keep, base
+        unsharded[arch] = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def sharded_control_phase(cfg, argv, drive, logdir) -> dict:
+    """14c: phase 4's serve at 16 new tokens with `--mesh host:4
+    --control-every 2 --control-journal`: kind="shard" rows, at most one per (site, shard,
+    interval); `replay_rows` verifies the journal; then one
+    Controller.step with a window on every site makes 2 device->host
+    copies, 3 with the QuarantineBreaker; then the same serve with a NaN
+    written into shard 2's lane of the last layer's mlp_out prev_out after
+    decode step 3: the breaker's snapshot (its sentinel lanes combined
+    across shards) trips nonfinite_out there at step 4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.control import (
+        ControlConfig,
+        Controller,
+        load_journal,
+        replay_rows,
+    )
+    from repro_torch.guard import QuarantineBreaker
+
+    logdir.mkdir(parents=True, exist_ok=True)
+    # 15 decode steps: 7 control intervals, windows past the first ones
+    argv = argv + ["--mesh", f"host:{SHARDS}", "--control-every", "2",
+                   "--max-new", "16"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = os.path.join(tmp, "j.jsonl")
+        res, _, text = drive(cfg, argv + ["--control-journal", journal],
+                             check=False, log_to=logdir / "phase14c.log")
+        rows = load_journal(journal)
+        shard_rows = [r for r in rows if r.get("decision_kind") == "shard"]
+        per = collections.Counter((r["site"], r["shard"], r["interval"])
+                                  for r in shard_rows)
+        if not shard_rows or max(per.values()) > 1 or any(
+                not 0 <= r["shard"] < SHARDS for r in shard_rows):
+            fail(f"14c: shard rows {len(shard_rows)}, at most "
+                 f"{max(per.values(), default=0)} per (site, shard, interval)")
+        rep = replay_rows(rows)
+        if not rep.ok:
+            fail("14c: the sharded serve's journal does not replay: "
+                 + "; ".join(rep.summary_lines()[:4]))
+        print(f"14c: {len(rows)} journal rows, {len(shard_rows)} kind=shard "
+              f"over {len({r['interval'] for r in shard_rows})} intervals, "
+              f"one per shard whose window moved; replay verifies "
+              f"({rep.n_shard_scoped} shard-scoped)")
+        step, eng, rc = res["step"], res["engine"], res["rcache"]
+        copies = {}
+        for guarded in (False, True):
+            ctl = Controller(ControlConfig(min_window_steps=2),
+                             guard=QuarantineBreaker() if guarded else None)
+            for i in (2, 4):
+                for _ in range(2):
+                    step.decode(step.tokens)
+                if i == 2:
+                    ctl.step(eng, rc, step=i)
+                    continue
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    crep = ctl.step(eng, rc, step=i)
+                    torch.cuda.synchronize()
+                copies[guarded] = sum(1 for e in prof.events()
+                                      if "Memcpy DtoH" in e.name)
+                if len(crep.window_steps) != len(eng.sites):
+                    fail("14c: the profiled interval has no window on "
+                         "every site")
+        print(f"14c: one Controller.step on the sharded engine: "
+              f"{copies[False]} device->host copies, {copies[True]} with the "
+              "QuarantineBreaker")
+        if (copies[False], copies[True]) != (2, 3):
+            fail("14c: Controller.step must make 2 device->host copies, 3 "
+                 "with the guard")
+        out.update(journal_rows=len(rows), shard_rows=len(shard_rows),
+                   copies=copies[False], copies_guarded=copies[True])
+        del res, step, eng, rc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        layer = cfg.n_superblocks - 1
+
+        def poison(step_idx, step):
+            if step_idx == 3:
+                step.rcache["mlp_out"]["prev_out"][layer, 2, 0, 0] = float(
+                    "nan")
+
+        journal = os.path.join(tmp, "g.jsonl")
+        _, _, text = drive(cfg, argv + ["--control-journal", journal],
+                           check=False, after_step=poison,
+                           log_to=logdir / "phase14c_guard.log")
+        trips = [r for r in load_journal(journal)
+                 if r.get("decision_kind") == "quarantine"
+                 and r.get("after") == "quarantined"]
+        first = trips[0] if trips else {}
+        if first.get("layer") != layer or first.get("step") != 4 or \
+                "nonfinite_out" not in first.get("reason", ""):
+            fail(f"14c: the NaN in shard 2's lane did not trip nonfinite_out "
+                 f"at layer {layer}, step 4: {first}")
+        guard = [ln for ln in text.splitlines()
+                 if ln.startswith("guard plane:")]
+        print(f"14c: a NaN in shard 2's lane of mlp_out layer {layer} "
+              f"tripped at step {first['step']}: {first['reason'][:90]}; "
+              f"{guard[0] if guard else ''}")
+        out.update(trip=first["reason"], guard=guard)
     return out
 
 
@@ -3564,7 +3885,7 @@ def main() -> None:
                             lib_rm.rt_reuse_matmul_output(
                                 delta.data_ptr(), wn().data_ptr(), code,
                                 prev.data_ptr(), mask.data_ptr(),
-                                out.data_ptr(), M, k, k, n, BM, BK, c,
+                                out.data_ptr(), M, k, k, n, n, BM, BK, c,
                                 backend.stream_ptr(dev)), "k split sweep"))
                         sweep.append(f"C={c}{'*' if c == pick else ''} "
                                      f"{t_c:.4f}")
@@ -3820,7 +4141,8 @@ def main() -> None:
 
     graph_rows = []
 
-    def serve_pair(cfg, argv, label, hook=None, pairs=5, probe=None):
+    def serve_pair(cfg, argv, label, hook=None, pairs=5, probe=None,
+                   keep=None):
         """The checked serve (`--eager`, every kernel call held against its
         plain version), then the graph serve on the same seed and traffic.
         Tokens, SensorReport lines, launch counts, mode mirrors and every
@@ -3828,7 +4150,8 @@ def main() -> None:
         Prints the graph serve's variants, captures, capture seconds and
         pools, the step time both ways and one profiled eager step and
         replay; then `probe(step)` if given, on the graph serve's step.
-        Returns (launch counts, the hook logs of both serves)."""
+        With `keep` (a dict), the graph serve's outcome and output text go
+        into it. Returns (launch counts, the hook logs of both serves)."""
         hooks = [hook() if hook else (None, None) for _ in range(2)]
         print(f"--- {label}: checked serve, --eager")
         res, counts_e, text = drive(cfg, argv + ["--eager"],
@@ -3867,6 +4190,8 @@ def main() -> None:
             print(f"  {key[0]} variant: capture {v.seconds:.3f} s, pool "
                   f"{v.pool_bytes / 1e6:.1f} MB, "
                   f"{sum(v.launches.values())} kernel launches a replay")
+        if keep is not None:
+            keep.update(got, text=text, counts=counts_g)
         del want, got
         eager, graph = step_times(step, pairs)
         med_e, med_g = statistics.median(eager), statistics.median(graph)
@@ -3875,10 +4200,10 @@ def main() -> None:
               f"({', '.join(f'{t:.2f}' for t in eager)}), graph replay median "
               f"{med_g:.2f} ms ({', '.join(f'{t:.2f}' for t in graph)}); "
               f"{med_e / med_g:.2f}x")
-        wall_e, busy_e, _ = profile_step(step.run_decode,
-                                         f"{label}: one eager decode step")
-        wall_g, busy_g, _ = profile_step(lambda: step.decode(step.tokens),
-                                         f"{label}: one graph replay")
+        wall_e, busy_e, rows_e = profile_step(
+            step.run_decode, f"{label}: one eager decode step")
+        wall_g, busy_g, rows_g = profile_step(
+            lambda: step.decode(step.tokens), f"{label}: one graph replay")
         # the profiler slows the host and each traced kernel, so the idle
         # share is also read against the unprofiled median step time; the
         # busy time comes from the profiled run and can exceed it slightly,
@@ -3896,7 +4221,9 @@ def main() -> None:
             "busy_eager_ms": busy_e, "busy_graph_ms": busy_g,
             "idle_eager": idle_e, "idle_graph": idle_g,
             "idle_eager_profiled": 1 - busy_e / wall_e,
-            "idle_graph_profiled": 1 - busy_g / wall_g})
+            "idle_graph_profiled": 1 - busy_g / wall_g,
+            "kernels_eager": sum(e.count for e in rows_e),
+            "kernels_graph": sum(e.count for e in rows_g)})
         if probe is not None:
             probe(step)
         del res, step
@@ -3904,7 +4231,11 @@ def main() -> None:
         torch.cuda.empty_cache()
         return counts_e, [h[1] for h in hooks]
 
-    launches_default, _ = serve_pair(cfg, serve_argv, "qwen3 default")
+    # phase 4's graph serve, which phase 14a's sharded serve must equal
+    unsharded = {"qwen3-32b": {}, "qwen2-72b": {}}
+    launches_default, _ = serve_pair(cfg, serve_argv, "qwen3 default",
+                                     keep=unsharded["qwen3-32b"])
+    unsharded["qwen3-32b"]["row"] = graph_rows[-1]
     for kn in ("delta_quant", "reuse_matmul_output", "reuse_matmul_input"):
         if launches_default[kn] <= 0:
             fail(f"{kn} was not launched on the serve path")
@@ -4127,7 +4458,8 @@ def main() -> None:
     # ---------------------------------- 13. the remaining archetypes
     phase("13. the remaining decoder archetypes (zamba2, gemma3, qwen2-72b, "
           "nemotron-4-15b, qwen2-vl-7b) and the LM head")
-    archetypes, launches_arch = archetype_serve_phase(serve_pair, graph_rows)
+    archetypes, launches_arch = archetype_serve_phase(
+        serve_pair, graph_rows, keep=unsharded["qwen2-72b"])
     gc.collect()
     torch.cuda.empty_cache()
     archetypes["mamba"] = mamba_phase(dev)
@@ -4137,6 +4469,16 @@ def main() -> None:
     archetypes["lm_head"] = head_phase(dev)
     archetypes["seconds"] = time.perf_counter() - _PHASE["t0"]
     print(json.dumps({"archetypes": archetypes}))
+
+    # ---------------------------------------- 14. sharded reuse serving
+    phase("14. sharded reuse serving (serve --mesh host:4: qwen3-32b, "
+          "qwen2-72b; the controlled serve)")
+    sharded, launches_sharded = sharded_phase(serve_pair, graph_rows,
+                                              unsharded, dev)
+    sharded["control"] = sharded_control_phase(
+        cfg, serve_argv, drive, root / "chiprun_out" / "chip_smoke")
+    sharded["seconds"] = time.perf_counter() - _PHASE["t0"]
+    print(json.dumps({"sharded": sharded}))
 
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
@@ -4159,7 +4501,9 @@ def main() -> None:
                         "launches_moe": {
                             run: c[kn] for run, c in launches_moe.items()},
                         "launches_archetypes": {
-                            run: c[kn] for run, c in launches_arch.items()}})
+                            run: c[kn] for run, c in launches_arch.items()},
+                        "launches_sharded": {
+                            run: c[kn] for run, c in launches_sharded.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))

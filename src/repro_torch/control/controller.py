@@ -47,7 +47,6 @@ from repro_torch.control.report import ControlReport, Decision, DecisionJournal
 from repro_torch.control.retune import (
     bounded_tunables,
     snapshot_cache,
-    snapshot_entry,
     window_layer_records,
     window_record,
 )
@@ -189,16 +188,14 @@ class Controller:
 
         shards = getattr(engine, "shards", None) or {}
         stacking = getattr(engine, "stacking", None) or {}
-        # every unsharded site's counters in ONE device→host transfer (the
-        # sensor counters move only in decode steps, so reading them all
-        # before the loop sees what the reference's per-site reads see)
-        snaps = snapshot_cache(
-            cache, [n for n in engine.sites if n not in shards])
+        # every site's counters in ONE device→host transfer, model-sharded
+        # sites collapsed on the host (the sensor counters move only in
+        # decode steps, so reading them all before the loop sees what the
+        # reference's per-site reads see)
+        snaps = snapshot_cache(cache, list(engine.sites), shard_axes={
+            name: 1 if stacking.get(name, 0) else 0 for name in shards})
         for name, spec in list(engine.sites.items()):
-            cur = (snapshot_entry(
-                cache[name],
-                shard_axis=(1 if stacking.get(name, 0) else 0),
-            ) if name in shards else snaps[name])
+            cur = snaps[name]
             if cur is None:
                 continue
             if name in frozen:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import SiteTunables
+from repro_torch.sensor.aggregate import collapse_shard_sensor
 from repro_torch.tune.harvest import BLOCK_K_CHOICES
 from repro_torch.tune.trace import SiteTraceRecord
 
@@ -51,11 +52,16 @@ _SNAP_EXTRA = ("overflow_fallbacks", "suppressed_flips", "slot_hit_sum",
 _NP_DTYPES = {torch.int32: np.int32, torch.float32: np.float32}
 
 
-def snapshot_cache(cache: dict, names=None) -> dict[str, dict | None]:
+def snapshot_cache(cache: dict, names=None,
+                   shard_axes: dict[str, int] | None = None,
+                   ) -> dict[str, dict | None]:
     """Host-side snapshots (see `snapshot_entry`) of the sites `names`
     (default: every entry of `cache`), all read in ONE device→host
-    transfer. A site without counters maps to None."""
+    transfer. A site without counters maps to None. `shard_axes` names the
+    shard axis of each model-sharded site, whose host copy is collapsed as
+    `snapshot_entry` says."""
     names = list(cache) if names is None else list(names)
+    shard_axes = shard_axes or {}
     parts: list[torch.Tensor] = []
     layout: list[tuple[str, str, tuple, np.dtype]] = []
     for name in names:
@@ -77,6 +83,9 @@ def snapshot_cache(cache: dict, names=None) -> dict[str, dict | None]:
         host.setdefault(name, {})[key] = (
             flat[pos:pos + n].astype(dtype).reshape(shape))
         pos += n
+    for name, ax in shard_axes.items():
+        if name in host:
+            host[name] = collapse_shard_sensor(host[name], ax)
     return {name: (_snapshot_host(host[name]) if name in host else None)
             for name in names}
 
@@ -89,13 +98,15 @@ def snapshot_entry(entry: dict, shard_axis: int | None = None) -> dict | None:
     counter arrays under ``"layers"`` — the per-layer retune loop diffs those
     to give each layer of a stack its own windowed operating point.
 
-    `shard_axis` names a model-sharded entry's shard axis in the reference;
-    the port serves unsharded, so only None is accepted."""
-    if shard_axis is not None:
-        raise NotImplementedError(
-            "sharded cache entries: sharded serving is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
-    return snapshot_cache({"": entry})[""]
+    `shard_axis` (model-sharded entries) names the shard axis position;
+    the entry is collapsed class-aware first (ownership-partition lanes
+    sum, replicated lanes take shard 0 — `sensor.aggregate.
+    collapse_shard_sensor`), so everything below keeps reading global
+    per-layer counters and the retuner's windowed deltas stay identical to
+    an unsharded run's."""
+    return snapshot_cache(
+        {"": entry}, shard_axes=None if shard_axis is None else {"": shard_axis}
+    )[""]
 
 
 def _snapshot_host(sensor: dict[str, np.ndarray]) -> dict:

@@ -32,8 +32,20 @@ place, so a budget move changes neither the device work nor a compiled
 step's decode key. The lanes live on the engine, not in the cache, so the
 cache's leaves stay the reference's.
 
-Unsharded only: the reference's model-axis sharding and its ICI accounting
-come with a later slice.
+Model-axis sharding (`shard_sites(S)` before `init_cache`, the reference's
+`serve --mesh host:S`): every site's weight splits into S column panels and
+its cache gains a shard axis inside the layer axis ([L, S, ...]), prev_out
+holding each shard's columns and every other leaf replicated. `apply` runs
+the shard-local evaluation once a shard (its own delta_quant on its replica
+of prev_q, its own GEMM on its panel, read in place), writes each shard's
+columns into one output, and crosses no shard. The ctrl snapshot is the
+once-a-window cross-mesh reduce: counters summed over shards (the
+ownership partition makes the sums the unsharded counters), per-shard skip
+lanes beside them, ctrl lanes from shard 0, sentinel lanes combined; its
+payload, and the ctrl lanes the host passes write to every shard, are
+metered into `ici_reduce_bytes` and `ici_write_bytes` as the reference
+meters them. Here all shards live on the serve's one device; one shard a
+card is not ported.
 """
 
 from __future__ import annotations
@@ -59,7 +71,14 @@ from repro_torch.core.reuse_cache import (
     resolve_exec_path,
 )
 from repro_torch.core.reuse_linear import ReuseStats, reuse_linear
+from repro_torch.dist.shard import (
+    plan_local_spec,
+    shard_axis_of,
+    shard_view,
+    validate_shardable,
+)
 from repro_torch.kernels.ops import clamp_budget
+from repro_torch.sensor.counters import ShardCtx
 
 # ctrl_snapshot lanes, in the order they are packed per site; the sentinel
 # lanes (guard/sentinel.py), when asked for, follow them, each an int32
@@ -101,6 +120,43 @@ def lane_mean(sim: torch.Tensor) -> torch.Tensor:
     return total * float(np.float32(1.0 / m))
 
 
+def _combine_shard_sentinels(
+    lanes: list[dict[str, torch.Tensor]],
+) -> dict[str, torch.Tensor]:
+    """Collapse the shards' sentinel lanes ([L] each) into one [L] set,
+    keeping each lane's detection: disjoint counts sum (prev_out columns
+    and the counter ownership partition split across shards), replicated
+    health flags take the max (one corrupt shard must still trip), and the
+    ctrl range bitmask ORs (a max would drop bits when shards fail
+    different checks)."""
+    out = {"bad_out": torch.stack([ln["bad_out"] for ln in lanes]).sum(
+               dim=0, dtype=torch.int32),
+           "bad_sim": torch.stack([ln["bad_sim"] for ln in lanes]).amax(dim=0),
+           "steps_l": lanes[0]["steps_l"]}
+    if "ctrl_bad" in lanes[0]:
+        bad = lanes[0]["ctrl_bad"]
+        for ln in lanes[1:]:
+            bad = bad | ln["ctrl_bad"]
+        out["ctrl_bad"] = bad
+        out["quarantine"] = torch.stack(
+            [ln["quarantine"] for ln in lanes]).amax(dim=0)
+    if "skipped_l" in lanes[0]:
+        for key in ("skipped_l", "computed_l"):
+            out[key] = torch.stack([ln[key] for ln in lanes]).sum(
+                dim=0, dtype=torch.int32)
+    return out
+
+
+def reduce_payload_bytes(lanes: int, shards: int) -> float:
+    """Bytes the reference's ctrl snapshot moves for one sharded site with
+    `lanes` layer lanes: sim_l, sim_threshold, min_work (f32), mode_id
+    (int8) and cooldown (int32) of shard 0; the skipped and computed sums
+    (int32); the [S] per-shard skip lanes (int32); and its seven combined
+    int32 sentinel lanes, which ride every snapshot there."""
+    return float(lanes * (4 + 1 + 4 + 4 + 4) + 2 * 4 + 2 * 4 * shards
+                 + 7 * 4 * lanes)
+
+
 @dataclasses.dataclass
 class ReuseEngine:
     policy: ReusePolicy = dataclasses.field(default_factory=ReusePolicy)
@@ -110,9 +166,14 @@ class ReuseEngine:
     exec_cooldown: dict[str, int] = dataclasses.field(default_factory=dict)
     last_mode_events: list[dict] = dataclasses.field(default_factory=list)
     last_snapshot: dict[str, Any] | None = None
-    # the reference's per-site model-axis shard counts; stays empty until
-    # sharded serving is ported, so callers take their unsharded paths
+    # model-axis shard count per site (empty: unsharded), set by
+    # shard_sites() before init_cache
     shards: dict[str, int] = dataclasses.field(default_factory=dict)
+    # interconnect accounting (bytes, cumulative) as the reference meters
+    # it: the per-window cross-mesh counter reduce riding the ctrl
+    # snapshot, and the ctrl lanes written to every shard
+    ici_reduce_bytes: float = 0.0
+    ici_write_bytes: float = 0.0
     # per-site int32 device scalar holding the clamped k-extent budget that
     # the ragged accounting reads, and the value last written to each
     budget_lanes: dict[str, torch.Tensor] = dataclasses.field(
@@ -153,29 +214,52 @@ class ReuseEngine:
         self.exec_cooldown[name] = 0
         return spec
 
+    def shard_sites(self, n_shards: int) -> dict[str, int]:
+        """Plan an N-way model-axis split of every registered site, before
+        `init_cache`: validates divisibility up front and records the plan
+        in `self.shards`; `init_cache` then adds the shard axis, `apply`
+        runs each shard's evaluation and the ctrl snapshot collapses the
+        shard lanes. n_shards <= 1 clears the plan (unsharded)."""
+        if n_shards <= 1:
+            self.shards = {}
+            return self.shards
+        for spec in self.sites.values():
+            validate_shardable(spec, n_shards)
+        self.shards = {name: n_shards for name in self.sites}
+        return self.shards
+
     def init_cache(self, batch: int, *, device="cuda") -> dict[str, Any]:
         # the device with its index, as a tensor there reports it
         self.device = torch.empty(0, device=device).device
         cache: dict[str, Any] = {}
+
+        def lead(n):  # broadcast every leaf to a new leading axis of n
+            return lambda x: (x.expand(n, *x.shape).clone()
+                              if isinstance(x, torch.Tensor)
+                              else np.repeat(x[None], n, axis=0))
+
         for name, spec in self.sites.items():
+            n_shards = self.shards.get(name, 0)
+            if n_shards:
+                spec = plan_local_spec(spec, n_shards)
             entry = init_site_cache(spec, batch, self.policy.resolve(name),
                                     device=device)
+            if n_shards:
+                # shard axis first, the layer axis wraps it: [S, ...]
+                # unstacked, [L, S, ...] stacked; the initial state is the
+                # same on every shard (prev_out zeros at the local N)
+                entry = map_tensors(lead(n_shards), entry)
             n_layers = self.stacking[name]
             if n_layers:
-                entry = map_tensors(
-                    lambda x: (x.expand(n_layers, *x.shape).clone()
-                               if isinstance(x, torch.Tensor)
-                               else np.repeat(x[None], n_layers, axis=0)),
-                    entry,
-                )
+                entry = map_tensors(lead(n_layers), entry)
                 ts = [self.policy.resolve(name, layer=layer)
                       for layer in range(n_layers)]
-                entry["ctrl"]["sim_threshold"] = torch.tensor(
-                    [t.sim_threshold for t in ts], dtype=torch.float32,
-                    device=device)
-                entry["ctrl"]["min_work"] = torch.tensor(
-                    [t.min_work_flops for t in ts], dtype=torch.float32,
-                    device=device)
+                for key, vals in (
+                        ("sim_threshold", [t.sim_threshold for t in ts]),
+                        ("min_work", [t.min_work_flops for t in ts])):
+                    entry["ctrl"][key] = self._site_lane(
+                        name, torch.tensor(vals, dtype=torch.float32,
+                                           device=device))
             cache[name] = entry
             lane = self.budget_lanes.get(name)
             if lane is None or lane.device != self.device:
@@ -222,6 +306,23 @@ class ReuseEngine:
             self.sync_budgets()
         return lane
 
+    def _site_lane(self, name: str, per_layer):
+        """Per-layer values ([L], or [1] unstacked) in the ctrl lane's
+        layout: replicated over the shard axis of a sharded site (every
+        shard runs the layer's operating point). A tensor stays a tensor on
+        its device, a numpy array numpy."""
+        n_shards = self.shards.get(name, 0)
+        if not n_shards:
+            return per_layer
+        if self.stacking.get(name, 0) > 0:
+            rows = per_layer.reshape(-1, 1)
+            shape = (rows.shape[0], n_shards)
+        else:
+            rows, shape = per_layer.reshape(1), (n_shards,)
+        if isinstance(rows, torch.Tensor):
+            return rows.expand(shape).contiguous()
+        return np.broadcast_to(rows, shape).copy()
+
     @staticmethod
     def layer_view(cache: dict[str, Any], layer: int) -> dict[str, Any]:
         """Every site's lane `layer`, as views into the stacked cache."""
@@ -239,9 +340,55 @@ class ReuseEngine:
         spec = self.sites[name]
         # pinned sites keep a static branch; "auto" sites read the mirror
         mode = spec.mode if spec.mode in ("reuse", "basic") else None
+        if self.shards.get(name):
+            return self._apply_sharded(name, x, w, b, cache_entry, mode)
         return reuse_linear(x, w, b, cache_entry, spec, mode=mode,
                             impl=self.impl,
                             budget=self.budget_lane(name, x.device))
+
+    def _apply_sharded(
+        self,
+        name: str,
+        x: torch.Tensor,
+        w: torch.Tensor,
+        b: torch.Tensor | None,
+        entry: dict[str, Any],
+        mode: str | None,
+    ) -> tuple[torch.Tensor, dict[str, Any], ReuseStats]:
+        """One sharded site call: the shard-local evaluation once a shard,
+        on the shard's column panel `w[:, s·nl:(s+1)·nl]` (a view: no
+        weight is copied) and its lane of the entry ([S, ...]), each
+        written into its columns of one [*lead, N] output. Nothing crosses
+        shards. The layer's mode is replicated across shards and read once,
+        from the host mirror's shard 0, as the reference takes its branch
+        once outside its vmap."""
+        spec = self.sites[name]
+        n_shards = self.shards[name]
+        nl = spec.out_features // n_shards
+        local = dataclasses.replace(spec, out_features=nl)
+        gn_total = -(-spec.out_features // spec.block_n)
+        if mode is None:
+            if "ctrl" not in entry:
+                raise ValueError(
+                    f"site {name!r}: sharded mode=None needs a ctrl block "
+                    "in the cache entry (engine.init_cache creates it)")
+            mode = ("reuse" if int(np.reshape(entry["mode_host"], -1)[0]) > 0
+                    else "basic")
+        budget = self.budget_lane(name, x.device)
+        out = stats = None
+        for s in range(n_shards):
+            cols = slice(s * nl, (s + 1) * nl)
+            part, _, st = reuse_linear(
+                x, w[:, cols], None if b is None else b[cols],
+                shard_view(entry, 0, s), local, mode=mode, impl=self.impl,
+                budget=budget,
+                shard=ShardCtx(s, n_shards, spec.out_features, gn_total))
+            if out is None:
+                out = torch.empty((*part.shape[:-1], spec.out_features),
+                                  dtype=part.dtype, device=part.device)
+                stats = st  # replicated per shard
+            out[..., cols] = part
+        return out, entry, stats
 
     # ------------------------------------------------ ctrl-block interrogation
     # The mode helpers read the host mirror: the control plane asks for every
@@ -252,13 +399,22 @@ class ReuseEngine:
         """A site's per-layer mode ids as a 1-d host array ([1] unstacked)."""
         return np.atleast_1d(np.asarray(entry["mode_host"]))
 
+    def _mode_ids(self, cache: dict[str, Any], name: str) -> np.ndarray:
+        """Per-layer mode ids with the shard lane collapsed (mode lanes are
+        replicated across model shards, so lane 0 is the site's truth)."""
+        ids = np.asarray(cache[name]["mode_host"])
+        if self.shards.get(name, 0):
+            ids = np.take(ids, 0, axis=shard_axis_of(
+                self.stacking.get(name, 0)))
+        return np.atleast_1d(ids)
+
     def layer_modes(self, cache: dict[str, Any], name: str) -> list[str]:
-        return [mode_name(m) for m in self.entry_mode_ids(cache[name])]
+        return [mode_name(m) for m in self._mode_ids(cache, name)]
 
     def site_mode(self, cache: dict[str, Any], name: str) -> str:
         """One site's kernelMode summary: "reuse"/"basic" when uniform over
         layers, "mixed" when a stack settled distinct per-layer modes."""
-        ids = self.entry_mode_ids(cache[name])
+        ids = self._mode_ids(cache, name)
         if np.all(ids == ids[0]):
             return mode_name(ids[0])
         return "mixed"
@@ -270,7 +426,8 @@ class ReuseEngine:
 
     @staticmethod
     def _write_modes(entry: dict[str, Any], mode_ids: np.ndarray) -> None:
-        """Write a site's mode ids to the device lane and its host mirror."""
+        """Write a site's mode ids (in the lane's layout) to the device lane
+        and its host mirror."""
         new = np.asarray(mode_ids, np.int8).reshape(entry["mode_host"].shape)
         entry["ctrl"]["mode_id"].copy_(torch.from_numpy(new.copy()))
         entry["mode_host"][...] = new
@@ -346,10 +503,13 @@ class ReuseEngine:
         n_layers = self.stacking.get(name, 0)
         ts = ([self.policy.resolve(name, layer=i) for i in range(n_layers)]
               if n_layers else [self.policy.resolve(name)])
-        thr = torch.tensor([t.sim_threshold for t in ts], dtype=torch.float32)
-        mw = torch.tensor([t.min_work_flops for t in ts], dtype=torch.float32)
-        ctrl["sim_threshold"].copy_(thr.reshape(ctrl["sim_threshold"].shape))
-        ctrl["min_work"].copy_(mw.reshape(ctrl["min_work"].shape))
+        for key, vals in (("sim_threshold", [t.sim_threshold for t in ts]),
+                          ("min_work", [t.min_work_flops for t in ts])):
+            lane = self._site_lane(
+                name, torch.tensor(vals, dtype=torch.float32))
+            ctrl[key].copy_(lane.reshape(ctrl[key].shape))
+            if name in self.shards:  # written to every shard's lane
+                self.ici_write_bytes += float(lane.numel()) * 4
 
     def set_budget(self, name: str, budget: int) -> bool:
         """Re-point a compacted site's k-extent budget (the online budget
@@ -381,28 +541,56 @@ class ReuseEngine:
         transfer: per-layer sim_ema means, the ctrl lanes and the sensor tile
         sums (with `sentinels`, also the guard's sentinel lanes) are packed
         on the device into one f64 vector (every value is exact in f64: the
-        sentinel lanes are int32 counts and bitmasks) and copied once."""
+        sentinel lanes are int32 counts and bitmasks) and copied once.
+
+        On a sharded engine this snapshot is also the once-a-window
+        cross-mesh reduce: a sharded site's counters sum over all axes
+        (layers and shards), its per-shard skip lanes (`skipped_shard`,
+        `computed_shard`, [S]) ride along, its replicated ctrl and sim
+        lanes come from shard 0 (quarantine: the max over shards), and its
+        sentinel lanes are combined across shards
+        (`_combine_shard_sentinels`). The reference's payload for those
+        sites is metered into `ici_reduce_bytes`."""
         from repro_torch.guard.sentinel import sentinel_lanes
 
         parts: list[torch.Tensor] = []
         layout: list[tuple[str, str, int]] = []
         for name, entry in cache.items():
             ctrl = entry.get("ctrl")
+            n_shards = self.shards.get(name, 0)
+            ax = shard_axis_of(self.stacking.get(name, 0))
             lanes = {}
             if ctrl is not None:
                 sim = entry["sim_ema"]
-                lanes = {
-                    "sim_l": sim if sim.ndim == 0 else lane_mean(sim),
-                    **{k: ctrl[k] for k in _SNAP_LANES[1:]},
-                }
+                lane0 = {k: ctrl[k] for k in _SNAP_LANES[1:]}
+                if n_shards:  # replicated across shards: lane 0
+                    sim = sim.select(ax, 0)
+                    lane0 = {k: v.select(ax, 0) for k, v in lane0.items()}
+                    lane0["quarantine"] = ctrl["quarantine"].amax(dim=ax)
+                lanes = {"sim_l": sim if sim.ndim == 0 else lane_mean(sim),
+                         **lane0}
             sensor = entry.get("sensor")
             if sensor is not None:
                 for key, src in (("skipped", "skipped_tiles"),
                                  ("computed", "computed_tiles")):
+                    # the ownership partition: the plain sum over layers
+                    # and shards is the global count
                     lanes[key] = sensor[src].sum()
+                    if n_shards:
+                        t = sensor[src]
+                        other = tuple(i for i in range(t.ndim) if i != ax)
+                        lanes[key + "_shard"] = t.sum(dim=other) if other \
+                            else t
             if sentinels and ctrl is not None:
-                for key, v in sentinel_lanes(entry).items():
+                sl = (sentinel_lanes(entry) if not n_shards
+                      else _combine_shard_sentinels(
+                          [sentinel_lanes(shard_view(entry, ax, i))
+                           for i in range(n_shards)]))
+                for key, v in sl.items():
                     lanes.setdefault(key, v)  # quarantine is a ctrl lane
+            if n_shards and ctrl is not None:
+                self.ici_reduce_bytes += reduce_payload_bytes(
+                    max(1, self.stacking.get(name, 0)), n_shards)
             for key, v in lanes.items():
                 scalar = key in ("skipped", "computed")
                 v = v.reshape(-1)
@@ -472,9 +660,15 @@ class ReuseEngine:
                 # cooldown (and an exec flip freezes the mode lanes)
                 self.exec_cooldown[name] = max(
                     self.exec_cooldown.get(name, 0), int(hyst[applied].max()))
-            self._write_modes(entry, new_mode)
+            # decided per layer; a sharded site's lanes take the decision
+            # on every shard (metered as the reference meters the fan-out)
+            self._write_modes(entry, self._site_lane(name, new_mode))
             ctrl["cooldown"].copy_(torch.from_numpy(
-                new_cd.astype(np.int32).reshape(tuple(ctrl["cooldown"].shape))))
+                self._site_lane(name, new_cd.astype(np.int32)).reshape(
+                    tuple(ctrl["cooldown"].shape))))
+            if name in self.shards:
+                self.ici_write_bytes += float(ctrl["mode_id"].numel()) * (
+                    1 + 4)
         return self.refresh_exec_paths(cache, snapshot=snap)
 
     def refresh_exec_paths(

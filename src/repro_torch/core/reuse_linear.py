@@ -29,6 +29,13 @@ last two are torch ops, as the reference's are jnp outside any kernel.
 scalar (the engine's budget lane, written in place by budget moves, so a
 captured graph reads the live value); None reads the spec's
 `max_active_k`.
+
+`shard` (a `ShardCtx`): one model-axis shard's evaluation. `w` is then the
+shard's column panel of the site's weight (a view, read in place) and the
+cache entry the shard's lane; the product is the unsharded one on fewer
+columns, with the k split of the global N (`n_total`), and only the
+accounting changes: the ownership partition of `sensor.counters` (dma and
+grid steps at gn = 1 times the shard's owned global n-panels).
 """
 
 from __future__ import annotations
@@ -45,7 +52,12 @@ from repro_torch.core.reuse_cache import (
 from repro_torch.core.similarity import ema_update_mean, row_code_matches
 from repro_torch.kernels import ops
 from repro_torch.quant import dequantize_int8, quantize_int8
-from repro_torch.sensor.counters import update_on_basic, update_on_reuse
+from repro_torch.sensor.counters import (
+    ShardCtx,
+    owned_panel_count,
+    update_on_basic,
+    update_on_reuse,
+)
 
 
 class ReuseStats(NamedTuple):
@@ -53,7 +65,8 @@ class ReuseStats(NamedTuple):
     skip_fraction: torch.Tensor  # fraction of weight tiles skipped this call
 
 
-def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float):
+def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float,
+                shard: ShardCtx | None = None):
     """ReuseOFF: the plain quantized GEMM, with the cache refreshed."""
     m, k = xm.shape
     n = w.shape[-1]
@@ -70,7 +83,7 @@ def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float):
         update_on_basic(
             cache["sensor"], row_matches=matches, m=m, k=k, n=n,
             gn=-(-n // spec.block_n), block_m=spec.block_m,
-            block_k=spec.block_k, w_itemsize=w.element_size(),
+            block_k=spec.block_k, w_itemsize=w.element_size(), shard=shard,
         )
     stats = ReuseStats(similarity=(matches * (1.0 / k)).mean(),
                        skip_fraction=torch.zeros((), device=xm.device))
@@ -78,10 +91,15 @@ def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float):
 
 
 def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
-                ema_decay: float, budget: torch.Tensor | None):
+                ema_decay: float, budget: torch.Tensor | None,
+                shard: ShardCtx | None = None):
     """ReuseON: delta-encode against the previous evaluation and run the ΔW
     GEMM on the spec's execution path."""
     n = w.shape[-1]
+    # a shard's dma and grid steps: the per-panel formula at gn = 1 times
+    # the global n-panels it owns
+    panels = None if shard is None else owned_panel_count(shard)
+    n_total = None if shard is None else shard.n_total
     sub = kernel_impl(impl)
     cur_q, delta, mask = ops.delta_quant_fused(
         xm, cache["prev_q"], cache["scale"],
@@ -101,11 +119,16 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
         out = ops.reuse_matmul_ragged(
             delta, w, cache["prev_out"], mask,
             block_m=spec.block_m, block_n=spec.block_n, block_k=spec.block_k,
-            impl=sub, compacted=(idx, counts),
+            impl=sub, compacted=(idx, counts), n_total=n_total,
         )
-        dma_issued = ops.ragged_dma_tiles(counts, gn=gn)
-        grid_steps = ops.ragged_grid_steps(
-            counts, gm=gm, gn=gn, gk=gk, max_active_k=kb)
+        if shard is None:
+            dma_issued = ops.ragged_dma_tiles(counts, gn=gn)
+            grid_steps = ops.ragged_grid_steps(
+                counts, gm=gm, gn=gn, gk=gk, max_active_k=kb)
+        else:
+            dma_issued = ops.ragged_dma_tiles(counts, gn=1) * panels
+            grid_steps = ops.ragged_grid_steps(
+                counts, gm=gm, gn=1, gk=gk, max_active_k=kb) * float(panels)
         overflow = ops.budget_overflow(counts, gk=gk, max_active_k=kb)
     elif path == "compact":
         k_mask = mask.amax(dim=0)
@@ -114,16 +137,22 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
         # the reference's gather streams each live K-block's weight panel
         # once, shared by all rows
         live = k_mask.sum(dtype=torch.int32)
-        dma_issued = live * gn
-        grid_steps = ops.ragged_grid_steps(
-            live.expand(gm), gm=gm, gn=gn, gk=gk, max_active_k=kb)
+        if shard is None:
+            dma_issued = live * gn
+            grid_steps = ops.ragged_grid_steps(
+                live.expand(gm), gm=gm, gn=gn, gk=gk, max_active_k=kb)
+        else:
+            dma_issued = live * panels
+            grid_steps = ops.ragged_grid_steps(
+                live.expand(gm), gm=gm, gn=1, gk=gk,
+                max_active_k=kb) * float(panels)
         overflow = ops.budget_overflow(live, gk=gk, max_active_k=kb)
     elif path == "kernel":
         sel = ops.skip_sel(mask)
         out = ops.reuse_matmul(
             delta, w, cache["prev_out"], mask,
             block_m=spec.block_m, block_n=spec.block_n, block_k=spec.block_k,
-            dataflow=spec.dataflow, impl=sub,
+            dataflow=spec.dataflow, impl=sub, n_total=n_total,
         )
     else:
         raise ValueError(f"unknown exec_path {path!r} of site {spec.name!r}")
@@ -141,12 +170,19 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
     if "sensor" in cache:
         if dma_issued is None:  # kernel/dense: masked full-grid semantics
             dma_issued = ops.weight_dma_tiles(
-                mask, gn=gn, dataflow=spec.dataflow, sel=sel)
+                mask, gn=gn if shard is None else 1, dataflow=spec.dataflow,
+                sel=sel)
+            if shard is not None:
+                dma_issued = dma_issued * panels
+        if grid_steps is None and shard is not None:
+            # the masked full-grid walk over the shard's owned global panels
+            grid_steps = torch.full((), float(gm * gk * panels),
+                                    dtype=torch.float32, device=mask.device)
         update_on_reuse(
             cache["sensor"], block_mask=mask, row_matches=matches, k=k,
             block_m=spec.block_m, block_k=spec.block_k, n=n, gn=gn,
             w_itemsize=w.element_size(), dma_issued=dma_issued,
-            grid_steps=grid_steps, overflow=overflow,
+            grid_steps=grid_steps, overflow=overflow, shard=shard,
         )
     stats = ReuseStats(similarity=(matches * (1.0 / k)).mean(),
                        skip_fraction=1.0 - mask.float().mean())
@@ -164,6 +200,7 @@ def reuse_linear(
     impl: str = "cuda",
     ema_decay: float = 0.9,
     budget: torch.Tensor | None = None,
+    shard: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, dict, ReuseStats]:
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -176,9 +213,10 @@ def reuse_linear(
     if mode is None:
         mode = "reuse" if int(cache["mode_host"]) > 0 else "basic"
     if mode == "basic":
-        out, stats = _basic_eval(xm, w, cache, spec, ema_decay)
+        out, stats = _basic_eval(xm, w, cache, spec, ema_decay, shard)
     elif mode == "reuse":
-        out, stats = _reuse_eval(xm, w, cache, spec, impl, ema_decay, budget)
+        out, stats = _reuse_eval(xm, w, cache, spec, impl, ema_decay, budget,
+                                 shard)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     if b is not None:

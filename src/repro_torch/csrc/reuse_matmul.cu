@@ -58,7 +58,7 @@ struct InputList : reuse::MaskList {};
 
 template <typename List>
 int run(const void* delta, const void* w, int dtype, const void* prev_out,
-        const void* mask, void* out, int M, int K, int Kw, int N,
+        const void* mask, void* out, int M, int K, int Kw, int N, int ldw,
         int block_m, int block_k, int cluster, void* stream) {
   List list;
   list.mask = static_cast<const int*>(mask);
@@ -67,34 +67,35 @@ int run(const void* delta, const void* w, int dtype, const void* prev_out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return reuse::launch<__nv_bfloat16>(delta, w, prev_out, out, M, K, Kw,
-                                        N, block_k, cluster, list, s);
-  return reuse::launch<float>(delta, w, prev_out, out, M, K, Kw, N, block_k,
-                              cluster, list, s);
+                                        N, ldw, block_k, cluster, list, s);
+  return reuse::launch<float>(delta, w, prev_out, out, M, K, Kw, N, ldw,
+                              block_k, cluster, list, s);
 }
 
 }  // namespace
 
-// delta [M, K], w [Kw, N] (both bf16 or both f32; K − block_k < Kw ≤ K,
-// the rows past Kw read as zero), prev_out / out [M, N] f32, mask
+// delta [M, K], w [Kw, N] of row stride ldw >= N (both bf16 or both f32;
+// K − block_k < Kw ≤ K, the rows past Kw read as zero; a model-axis
+// shard's column panel of a wider weight), prev_out / out [M, N] f32, mask
 // [M / block_m, K / block_k] int32. M % 8 == 0, K % block_k == 0,
-// N % 128 == 0, block_m % 8 == 0, block_k % 64 == 0 (checked by the
-// wrapper); cluster in {1, 2, 4, 8}. One launch of (N / 128) · cluster ×
-// M / 8 CTAs; no scratch.
+// block_m % 8 == 0, block_k % 64 == 0; w, N and ldw aligned to 16 bytes
+// (checked by the wrapper); cluster in {1, 2, 4, 8}. One launch of
+// ceil(N / 128) · cluster × M / 8 CTAs; no scratch.
 extern "C" int rt_reuse_matmul_output(const void* delta, const void* w,
                                       int dtype, const void* prev_out,
                                       const void* mask, void* out, int M, int K,
-                                      int Kw, int N, int block_m, int block_k,
-                                      int cluster, void* stream) {
+                                      int Kw, int N, int ldw, int block_m,
+                                      int block_k, int cluster, void* stream) {
   return run<reuse::MaskList>(delta, w, dtype, prev_out, mask, out, M, K, Kw,
-                              N, block_m, block_k, cluster, stream);
+                              N, ldw, block_m, block_k, cluster, stream);
 }
 
 // As rt_reuse_matmul_output, in clusters of 8.
 extern "C" int rt_reuse_matmul_input(const void* delta, const void* w,
                                      int dtype, const void* prev_out,
                                      const void* mask, void* out, int M, int K,
-                                     int Kw, int N, int block_m, int block_k,
-                                     void* stream) {
+                                     int Kw, int N, int ldw, int block_m,
+                                     int block_k, void* stream) {
   return run<InputList>(delta, w, dtype, prev_out, mask, out, M, K, Kw, N,
-                        block_m, block_k, 8, stream);
+                        ldw, block_m, block_k, 8, stream);
 }

@@ -29,17 +29,19 @@
 // registers, f32 157, no spills.
 #include "reuse_tile.cuh"
 
-// delta [M, K], w [Kw, N] (both bf16 or both f32; K − block_k < Kw ≤ K,
-// the rows past Kw read as zero), prev_out / out [M, N] f32, counts
-// [M / block_m] and idx [M / block_m, idx_ld] int32 (idx_ld >= K /
-// block_k). M % 8 == 0, K % block_k == 0, N % 128 == 0, block_m % 8 == 0,
-// block_k % 64 == 0 (checked by the wrapper); cluster in {1, 2, 4, 8}.
+// delta [M, K], w [Kw, N] of row stride ldw >= N (both bf16 or both f32;
+// K − block_k < Kw ≤ K, the rows past Kw read as zero; a model-axis
+// shard's column panel of a wider weight), prev_out / out [M, N] f32,
+// counts [M / block_m] and idx [M / block_m, idx_ld] int32 (idx_ld >= K /
+// block_k). M % 8 == 0, K % block_k == 0, block_m % 8 == 0, block_k % 64
+// == 0; w, N and ldw aligned to 16 bytes (checked by the wrapper); cluster
+// in {1, 2, 4, 8}.
 extern "C" int rt_reuse_matmul_ragged(const void* delta, const void* w,
                                       int dtype, const void* prev_out,
                                       const void* counts, const void* idx,
                                       int idx_ld, void* out, int M, int K,
-                                      int Kw, int N, int block_m, int block_k,
-                                      int cluster, void* stream) {
+                                      int Kw, int N, int ldw, int block_m,
+                                      int block_k, int cluster, void* stream) {
   reuse::RaggedList list;
   list.counts = static_cast<const int*>(counts);
   list.idx = static_cast<const int*>(idx);
@@ -49,7 +51,7 @@ extern "C" int rt_reuse_matmul_ragged(const void* delta, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return reuse::launch<__nv_bfloat16>(delta, w, prev_out, out, M, K, Kw,
-                                        N, block_k, cluster, list, s);
-  return reuse::launch<float>(delta, w, prev_out, out, M, K, Kw, N, block_k,
-                              cluster, list, s);
+                                        N, ldw, block_k, cluster, list, s);
+  return reuse::launch<float>(delta, w, prev_out, out, M, K, Kw, N, ldw,
+                              block_k, cluster, list, s);
 }

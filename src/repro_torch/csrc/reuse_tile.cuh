@@ -33,6 +33,15 @@
 //    are zero), but the weight keeps its Kw ≤ K rows: a stage row k ≥ Kw is
 //    zero-filled by its `cp.async` (source size 0) and never read, so no
 //    call pads or copies the weight.
+//  * Column panels and the N tail. The weight is read with its own row
+//    stride `ldw` (≥ N), so one model-axis shard's panel `w[:, s·N:(s+1)·N]`
+//    of an unsplit [K, S·N] weight is read in place. N need not be a
+//    multiple of 128: the last tile column zero-fills the weight chunks past
+//    N (`cp.async` of source size 0), reads no prev_out there and writes
+//    nothing. A 16-byte chunk never straddles N (N % (16 / sizeof(T)) == 0,
+//    checked by the wrappers with the alignment of the panel's base and
+//    row stride). The k split comes from the unsharded site's N, so each
+//    output element is summed in the same order whatever panel holds it.
 //  * The reduction. Each rank leaves its [8, 128] f32 partial in its own
 //    shared memory; rank r then sums rows r·8/C .. (r + 1)·8/C − 1 of the
 //    tile over ranks 0 .. C − 1 in that order, through distributed shared
@@ -186,15 +195,16 @@ struct RaggedList {
   }
 };
 
-// delta [M, K], w [Kw, N] (K − block_k < Kw ≤ K), prev_out / out [M, N]
-// f32. The grid is
-// (N / 128 · cluster, M / 8), launched in clusters of `cluster` CTAs along x
-// (none when cluster == 1); block_k % 64 == 0.
+// delta [M, K], w [Kw, N] of row stride ldw (K − block_k < Kw ≤ K),
+// prev_out / out [M, N] f32. The grid is (ceil(N / 128) · cluster, M / 8),
+// launched in clusters of `cluster` CTAs along x (none when cluster == 1);
+// block_k % 64 == 0.
 template <typename T, typename List>
 __global__ void __launch_bounds__(kThreads)
 cluster_gemm(const T* __restrict__ delta, const T* __restrict__ w,
              const float* __restrict__ prev_out, float* __restrict__ out,
-             int K, int Kw, int N, int block_k, int cluster, List list) {
+             int K, int Kw, int N, int ldw, int block_k, int cluster,
+             List list) {
   using C = Cfg<T>;
   extern __shared__ __align__(128) unsigned char shm[];
   int* tiles = reinterpret_cast<int*>(shm + C::kRingBytes);
@@ -206,17 +216,20 @@ cluster_gemm(const T* __restrict__ delta, const T* __restrict__ w,
   // threadIdx.x; their prev_out is read now, so the read's latency hides
   // behind the loop
   const int rows = kRows / cluster;
+  // the column this thread writes; past N (the N tail) it writes nothing
+  const bool col_in = n0 + (int)threadIdx.x < N;
+  const int rows_in = col_in ? rows : 0;
   const size_t o = (size_t)(m0 + rank * rows) * N + n0 + threadIdx.x;
   float prev[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
-    prev[i] = i < rows ? prev_out[o + (size_t)i * N] : 0.f;
+    prev[i] = i < rows_in ? prev_out[o + (size_t)i * N] : 0.f;
 
   const int n_active = list.build(tiles, m0);
   if (n_active == 0) {  // the same in every rank: no reduction
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
-      if (i < rows) out[o + (size_t)i * N] = prev[i];
+      if (i < rows_in) out[o + (size_t)i * N] = prev[i];
     return;
   }
 
@@ -237,11 +250,10 @@ cluster_gemm(const T* __restrict__ delta, const T* __restrict__ w,
     for (int q = 0; q < kSubK * kRowChunks / kThreads; ++q) {
       const int e = threadIdx.x + q * kThreads;
       const int r = e / kRowChunks, c = e % kRowChunks;
-      const bool in = k0 + r < Kw;
+      const int col = n0 + c * C::kVec;
+      const bool in = k0 + r < Kw && col < N;
       ptx::cp_async16_zfill(sw + swz(r, c, C::kWRow),
-                            w + (size_t)(in ? k0 + r : 0) * N + n0 +
-                                c * C::kVec,
-                            in);
+                            w + (in ? (size_t)(k0 + r) * ldw + col : 0), in);
     }
     constexpr int kDChunks = C::kDRow / 16;
     if (threadIdx.x < kRows * kDChunks) {
@@ -291,14 +303,15 @@ cluster_gemm(const T* __restrict__ delta, const T* __restrict__ w,
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
-      out[o + (size_t)i * N] = prev[i] + part[i * kCols + threadIdx.x];
+      if (col_in)
+        out[o + (size_t)i * N] = prev[i] + part[i * kCols + threadIdx.x];
     return;
   }
   cg::cluster_group cl = cg::this_cluster();
   cl.sync();  // every rank's partial is in its shared memory
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    if (i < rows) {
+    if (i < rows_in) {
       float v = prev[i];
       for (int q = 0; q < cluster; ++q)
         v += cl.map_shared_rank(part, q)[(rank * rows + i) * kCols +
@@ -314,8 +327,9 @@ cluster_gemm(const T* __restrict__ delta, const T* __restrict__ w,
 // when a larger list needs more), then launches in clusters of `cluster`.
 template <typename T, typename List>
 cudaError_t launch(const void* delta, const void* w, const void* prev_out,
-                   void* out, int M, int K, int Kw, int N, int block_k,
-                   int cluster, const List& list, cudaStream_t stream) {
+                   void* out, int M, int K, int Kw, int N, int ldw,
+                   int block_k, int cluster, const List& list,
+                   cudaStream_t stream) {
   if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
     return cudaErrorInvalidValue;
   const int smem = Cfg<T>::smem_bytes(K / block_k);
@@ -328,7 +342,7 @@ cudaError_t launch(const void* delta, const void* w, const void* prev_out,
     granted = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / kCols * cluster, M / kRows, 1);
+  cfg.gridDim = dim3((N + kCols - 1) / kCols * cluster, M / kRows, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -342,7 +356,7 @@ cudaError_t launch(const void* delta, const void* w, const void* prev_out,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, cluster_gemm<T, List>, static_cast<const T*>(delta),
       static_cast<const T*>(w), static_cast<const float*>(prev_out),
-      static_cast<float*>(out), K, Kw, N, block_k, cluster, list);
+      static_cast<float*>(out), K, Kw, N, ldw, block_k, cluster, list);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 

@@ -61,19 +61,20 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _P),
     },
     "reuse_matmul": {
-        # delta, w, dtype, prev_out, mask, out, M, K, Kw, N, bm, bk, cluster,
-        # stream
+        # delta, w, dtype, prev_out, mask, out, M, K, Kw, N, ldw, bm, bk,
+        # cluster, stream
         "rt_reuse_matmul_output": (_P, _P, _I, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _P),
-        # delta, w, dtype, prev_out, mask, out, M, K, Kw, N, bm, bk, stream
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # delta, w, dtype, prev_out, mask, out, M, K, Kw, N, ldw, bm, bk,
+        # stream
         "rt_reuse_matmul_input": (_P, _P, _I, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "reuse_matmul_ragged": {
-        # delta, w, dtype, prev_out, counts, idx, idx_ld, out, M, K, Kw, N, bm,
-        # bk, cluster, stream
+        # delta, w, dtype, prev_out, counts, idx, idx_ld, out, M, K, Kw, N,
+        # ldw, bm, bk, cluster, stream
         "rt_reuse_matmul_ragged": (_P, _P, _I, _P, _P, _P, _I, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _P),
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "reuse_matmul_int8": {
         # delta, w, prev_acc, mask, out, M, K, N, bm, bk, stream

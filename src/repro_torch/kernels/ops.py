@@ -96,25 +96,29 @@ def reuse_matmul(
     block_k: int = 256,
     dataflow: str = "output",
     impl: str = "cuda",
+    n_total: int | None = None,
 ) -> torch.Tensor:
-    """Padded entry to the block-skip GEMM (masked full grid). Δ is padded
-    to whole tiles; the weight only in N (never in K: the kernels read the
-    last k tile's rows past K as zero), so no site copies its weight."""
+    """Padded entry to the block-skip GEMM (masked full grid). Δ and
+    prev_out are padded to whole tiles in M, Δ in K; the weight never (the
+    kernels read the last k tile's rows past K and the last n tile's
+    columns past N as zero), so no site copies its weight. `w` may be a
+    model-axis shard's column panel of the site's weight, read in place;
+    `n_total` (the unsharded site's N) then sets the kernel's k split."""
     _check_impl(impl)
     m, n = prev_out.shape
     dp = _pad_to(delta, block_m, block_k)
-    wp = _pad_to(w, 1, block_n)
-    pp = _pad_to(prev_out.float(), block_m, block_n)
+    pp = _pad_to(prev_out.float(), block_m, 1)
     gm, gk = dp.shape[0] // block_m, dp.shape[1] // block_k
     if tuple(block_mask.shape) != (gm, gk):
         raise ValueError(f"mask {tuple(block_mask.shape)} != {(gm, gk)}")
     if impl == "cuda":
         out = _rm.reuse_matmul(
-            dp, wp, pp, block_mask.contiguous(), block_m=block_m,
+            dp, w, pp, block_mask.contiguous(), block_m=block_m,
             block_n=block_n, block_k=block_k, dataflow=dataflow,
+            n_total=n_total,
         )
     else:
-        out = _rm.reuse_matmul_torch(dp, wp, pp, block_mask,
+        out = _rm.reuse_matmul_torch(dp, w, pp, block_mask,
                                      block_m=block_m, block_k=block_k)
     return out[:m, :n]
 
@@ -182,9 +186,10 @@ def reuse_matmul_ragged(
     block_k: int = 256,
     impl: str = "cuda",
     compacted: tuple[torch.Tensor, torch.Tensor] | None = None,  # (idx, counts)
+    n_total: int | None = None,
 ) -> torch.Tensor:
-    """Padded entry to the ragged compacted-walk GEMM (the weight padded in
-    N only, as `reuse_matmul`).
+    """Padded entry to the ragged compacted-walk GEMM (the weight never
+    padded, a column panel read in place, as `reuse_matmul`).
 
     The reference grid has the static extent `max_active_k` and falls back to
     the full extent when a row's live count overflows it; either way it adds
@@ -197,16 +202,19 @@ def reuse_matmul_ragged(
     _check_impl(impl)
     m, n = prev_out.shape
     dp = _pad_to(delta, block_m, block_k)
-    wp = _pad_to(w, 1, block_n)
-    pp = _pad_to(prev_out.float(), block_m, block_n)
+    pp = _pad_to(prev_out.float(), block_m, 1)
     gm, gk = dp.shape[0] // block_m, dp.shape[1] // block_k
     if tuple(block_mask.shape) != (gm, gk):
         raise ValueError(f"mask {tuple(block_mask.shape)} != {(gm, gk)}")
     idx, counts = compact_rows(block_mask) if compacted is None else compacted
-    run = (_rr.reuse_matmul_ragged if impl == "cuda"
-           else _rr.reuse_matmul_ragged_torch)
-    out = run(dp, wp, pp, counts, idx, block_m=block_m, block_n=block_n,
-              block_k=block_k)
+    if impl == "cuda":
+        out = _rr.reuse_matmul_ragged(dp, w, pp, counts, idx,
+                                      block_m=block_m, block_n=block_n,
+                                      block_k=block_k, n_total=n_total)
+    else:
+        out = _rr.reuse_matmul_ragged_torch(dp, w, pp, counts, idx,
+                                            block_m=block_m, block_n=block_n,
+                                            block_k=block_k)
     return out[:m, :n]
 
 

@@ -101,7 +101,7 @@ def reuse_matmul_torch(
     block_k: int,
 ) -> torch.Tensor:
     """Plain version: O_c = O_p + (Δ ⊙ mask) @ W in f32 (Δ's columns past
-    W's rows are its zero padding)."""
+    W's rows are its zero padding; W may be a column panel)."""
     m, k = delta.shape
     d = delta.float() * expand_block_mask(block_mask, m, k, block_m, block_k)
     return prev_out + d[:, :w.shape[0]] @ w.float()
@@ -110,8 +110,12 @@ def reuse_matmul_torch(
 def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what) -> None:
     """Device, dtype, shape, contiguity, alignment and tiling checks of the
     ΔW GEMM kernels (shared with reuse_matmul_ragged). Each CUDA CTA covers
-    ROWS_PER_CTA rows of one block_m group and COLS_PER_CTA columns and
-    deals k out in sub-steps of SUB_K rows. A broken divisor raises
+    ROWS_PER_CTA rows of one block_m group and COLS_PER_CTA columns (the
+    last tile column may end inside the tile: the N tail) and deals k out
+    in sub-steps of SUB_K rows. The weight may be a column panel of a wider
+    weight (a model-axis shard's `w[:, s·N:(s+1)·N]`), read in place with
+    its row stride: its base, its row stride and its N must be 16-byte
+    aligned (N % 8 == 0 in bf16). A broken divisor or alignment raises
     ValueError naming it, before any launch."""
     dev = delta.device
     if delta.dtype not in backend.DTYPE_CODE or w.dtype != delta.dtype:
@@ -133,9 +137,23 @@ def check_gemm(delta, w, prev_out, block_m, block_k, block_n, what) -> None:
     for name, t in (("delta", delta), ("w", w), ("prev_out", prev_out)):
         if t.device != dev:
             raise ValueError(f"{what}: {name} on {t.device}, delta on {dev}")
+    for name, t in (("delta", delta), ("prev_out", prev_out)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
                              "aligned")
+    vec = 16 // w.element_size()
+    if w.shape[1] and (w.stride(1) != 1 or w.stride(0) < w.shape[1]):
+        raise ValueError(f"{what}: w must be row-major (a column panel of a "
+                         f"weight), got strides {tuple(w.stride())}")
+    if w.data_ptr() % 16 or w.stride(0) % vec or w.shape[1] % vec:
+        raise ValueError(f"{what}: w's base, row stride {w.stride(0)} and "
+                         f"columns {w.shape[1]} must be 16-byte aligned "
+                         f"(multiples of {vec} elements)")
+
+
+def ldw(w: torch.Tensor) -> int:
+    """The weight's row stride in elements, as the kernels read it."""
+    return w.stride(0) if w.shape[0] > 1 else w.shape[1]
 
 
 def reuse_matmul(
@@ -148,15 +166,20 @@ def reuse_matmul(
     block_n: int = 128,
     block_k: int = 256,
     dataflow: str = "output",
+    n_total: int | None = None,
 ) -> torch.Tensor:
     """O_c = O_p + Δ·W, skipping weight loads and FMAs for zero tiles.
-    Δ and prev_out are tile multiples, the weight's rows may end inside the
-    last k tile (`check_k_tail`); the padding entry is `ops.reuse_matmul`."""
+    Δ is a tile multiple in M and K; the weight's rows may end inside the
+    last k tile (`check_k_tail`) and its columns inside the last n tile
+    (the N tail); the padding entry is `ops.reuse_matmul`. `w` may be a
+    column panel of a wider weight (`check_gemm`); `n_total`, the
+    unsharded site's N, then picks the k split, so every panel sums each
+    output element in the unsharded order."""
     m, k = delta.shape
     n = w.shape[1]
-    if m % block_m or k % block_k or n % block_n:
-        raise ValueError(f"reuse_matmul: ({m}, {k}, {n}) not a multiple of "
-                         f"({block_m}, {block_k}, {block_n}); pad with ops")
+    if m % block_m or k % block_k:
+        raise ValueError(f"reuse_matmul: ({m}, {k}) not a multiple of "
+                         f"({block_m}, {block_k}); pad with ops")
     check_k_tail(k, w.shape[0], block_k, "reuse_matmul")
     gm, gk = m // block_m, k // block_k
     if tuple(block_mask.shape) != (gm, gk):
@@ -182,19 +205,20 @@ def reuse_matmul(
     # one launch: clusters of CTAs split each tile's active k range and sum
     # their partials on chip, so no scratch is allocated
     if dataflow == "output":
-        cluster = k_split(m, n, k, backend.sm_count(delta.device.index))
+        cluster = k_split(m, n_total or n, k,
+                          backend.sm_count(delta.device.index))
         rc = lib.rt_reuse_matmul_output(
             delta.data_ptr(), w.data_ptr(), code, prev_out.data_ptr(),
             block_mask.data_ptr(), out.data_ptr(), m, k, w.shape[0], n,
-            block_m, block_k, cluster, stream,
+            ldw(w), block_m, block_k, cluster, stream,
         )
         backend.check(rc, "reuse_matmul(output)")
         backend.count_launch("reuse_matmul_output")
         return out
     rc = lib.rt_reuse_matmul_input(
         delta.data_ptr(), w.data_ptr(), code, prev_out.data_ptr(),
-        block_mask.data_ptr(), out.data_ptr(), m, k, w.shape[0], n, block_m,
-        block_k, stream,
+        block_mask.data_ptr(), out.data_ptr(), m, k, w.shape[0], n, ldw(w),
+        block_m, block_k, stream,
     )
     backend.check(rc, "reuse_matmul(input)")
     backend.count_launch("reuse_matmul_input")

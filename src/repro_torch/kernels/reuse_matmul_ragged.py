@@ -18,7 +18,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.reuse_matmul import check_gemm, check_k_tail, k_split
+from repro_torch.kernels.reuse_matmul import (
+    check_gemm,
+    check_k_tail,
+    k_split,
+    ldw,
+)
 
 
 def reuse_matmul_ragged_torch(
@@ -63,14 +68,17 @@ def reuse_matmul_ragged(
     block_m: int = 128,
     block_n: int = 128,
     block_k: int = 256,
+    n_total: int | None = None,
 ) -> torch.Tensor:
     """O_c = O_p + Δ·W over each row's compacted active k-blocks: the first
-    counts[m] entries of the full-extent idx row."""
+    counts[m] entries of the full-extent idx row. `w` may be a column panel
+    with an N tail, and `n_total` picks the k split, as in
+    `reuse_matmul.reuse_matmul`."""
     m, k = delta.shape
     n = w.shape[1]
-    if m % block_m or k % block_k or n % block_n:
-        raise ValueError(f"reuse_matmul_ragged: ({m}, {k}, {n}) not a multiple"
-                         f" of ({block_m}, {block_k}, {block_n}); pad with ops")
+    if m % block_m or k % block_k:
+        raise ValueError(f"reuse_matmul_ragged: ({m}, {k}) not a multiple"
+                         f" of ({block_m}, {block_k}); pad with ops")
     check_k_tail(k, w.shape[0], block_k, "reuse_matmul_ragged")
     gm, gk = m // block_m, k // block_k
     if tuple(counts.shape) != (gm,) or tuple(idx.shape) != (gm, gk):
@@ -95,8 +103,8 @@ def reuse_matmul_ragged(
     rc = backend.library("reuse_matmul_ragged").rt_reuse_matmul_ragged(
         delta.data_ptr(), w.data_ptr(), backend.DTYPE_CODE[delta.dtype],
         prev_out.data_ptr(), counts.data_ptr(), idx.data_ptr(), idx.stride(0),
-        out.data_ptr(), m, k, w.shape[0], n, block_m, block_k,
-        k_split(m, n, k, backend.sm_count(delta.device.index)),
+        out.data_ptr(), m, k, w.shape[0], n, ldw(w), block_m, block_k,
+        k_split(m, n_total or n, k, backend.sm_count(delta.device.index)),
         backend.stream_ptr(delta.device),
     )
     backend.check(rc, "reuse_matmul_ragged")

@@ -60,6 +60,18 @@ and writes its Chrome trace to `DIR/trace.json`; the spans' ranges line up
 with the device slices. `--replica-id ID` stamps every emitted row with
 `replica=ID` for the fleet aggregator (`repro_torch.obs.fleet`).
 
+Sharded serving: `--mesh host:N` (with `--reuse`) splits every reuse site
+N-ways on the model axis (`ReuseEngine.shard_sites`): each shard keeps its
+column panel's prev_out and a replica of every other cache leaf, and runs
+its own kernels on its panel of the weight, read in place, on the serve's
+one device (`host:N@S`: an S-wide model axis, the data axis replicated).
+At startup it prints `mesh: {...} — N sites sharded S-way on the model
+axis` and the no-gather line (one eager decode step on a copy of the state,
+checked by `repro_torch.roofline.collectives`; a violation raises); at the
+end `shard skip <site>: s0=... ` per site and `ici traffic: reduce=...
+ctrl-writes=...`, the interconnect bytes the reference's mesh would move.
+Placing shards on several cards is not ported (`--mesh prod` raises).
+
 `run(cfg, args)` is the callable entry (chip_smoke.py drives it with a config
 cut in depth); `main()` parses the flags and calls it.
 """
@@ -77,7 +89,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ReusePolicy
-from repro_torch.core.reuse_cache import cache_bytes
+from repro_torch.core.reuse_cache import cache_bytes, map_tensors
 from repro_torch.kernels import backend
 from repro_torch.models import init_params
 from repro_torch.obs import events
@@ -156,6 +168,15 @@ def build_parser() -> argparse.ArgumentParser:
                     "--obs-dir/latency_table.json) for the online controller "
                     "— break-even/exec retunes are priced from measured "
                     "wall-clock; requires --control-every")
+    ap.add_argument("--mesh", default=None, metavar="SPEC",
+                    help="shard the reuse serve along the model axis "
+                    "(repro_torch.launch.mesh specs: 'host:N' makes N shards "
+                    "of every site's cache and weight panel on the serve's "
+                    "one device, 'host:N@S' an S-wide model axis); each "
+                    "shard runs its own kernels, nothing crosses shards in "
+                    "a step (checked at startup) and the sensor counters "
+                    "cross the mesh once per control window; requires "
+                    "--reuse")
     ap.add_argument("--inject", default=None, metavar="SCENARIO[:k=v,...]",
                     help="arm a deterministic fault scenario "
                     "(repro_torch.guard.inject.SCENARIOS) at the production "
@@ -186,7 +207,7 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
     if cfg.family == "audio":
         raise ValueError("encoder archs have no decode path")
     for flag in ("sensor_jsonl", "tuned_policy", "refresh_every", "affinity",
-                 "control_every", "control_journal", "inject"):
+                 "control_every", "control_journal", "inject", "mesh"):
         if getattr(args, flag) and not args.reuse:
             raise ValueError(f"--{flag.replace('_', '-')} requires --reuse")
     if args.control_journal and not args.control_every:
@@ -246,6 +267,7 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
                              device=device)
     engine = None
     rcache = None
+    mesh = None
     if args.reuse:
         policy = None
         if args.tuned_policy:
@@ -255,6 +277,14 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
             print(f"tuned policy: {len(policy.site_tunables)} site entries "
                   f"from {args.tuned_policy}")
         engine = build_reuse_engine(cfg, impl=impl, policy=policy)
+        if args.mesh:
+            from repro_torch.launch.mesh import mesh_axes, parse_mesh_spec
+
+            mesh = parse_mesh_spec(args.mesh, device=str(device))
+            ax = mesh_axes(mesh)
+            planned = engine.shard_sites(ax["model_size"])
+            print(f"mesh: {mesh.shape} — {len(planned)} sites sharded "
+                  f"{ax['model_size']}-way on the model axis")
         rcache = engine.init_cache(args.batch_slots, device=device)
         print(f"reuse cache: {cache_bytes(rcache)/1e6:.2f} MB "
               f"({len(engine.sites)} sites)")
@@ -282,6 +312,10 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
                           f"{t_mode} thr={t.sim_threshold:.3f} "
                           f"block_k={spec.block_k} "
                           f"exec={spec.exec_path}{budget}")
+
+    if mesh is not None:
+        no_gather_check(params, cfg, state, engine, rcache, mesh,
+                        args.batch_slots)
 
     # Fault plane: the armed injector (chaos runs) plus the step clock the
     # straggler watchdog reads. Armed independently of the control plane — a
@@ -545,6 +579,22 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
     if engine is not None:
         report = engine.sensor_report(rcache)
         print("\n".join(report.summary_lines()))
+        if engine.shards:
+            # per-shard skip rates from one final cross-mesh snapshot (the
+            # same [S] lanes the controller journals per window)
+            snap = engine.ctrl_snapshot(rcache)
+            for name in sorted(engine.shards):
+                lanes = snap.get(name, {})
+                if "skipped_shard" not in lanes:
+                    continue
+                sk = np.asarray(lanes["skipped_shard"], np.float64)
+                cp = np.asarray(lanes["computed_shard"], np.float64)
+                rates = sk / np.maximum(sk + cp, 1e-9)
+                print(f"shard skip {name}: " + " ".join(
+                    f"s{i}={r:.3f}" for i, r in enumerate(rates)))
+            print(f"ici traffic: reduce={engine.ici_reduce_bytes/1e3:.1f} KB "
+                  f"ctrl-writes={engine.ici_write_bytes/1e3:.1f} KB "
+                  f"(priced at E_ICI in the sensor energy report)")
         if args.sensor_jsonl:
             report.write_jsonl(args.sensor_jsonl)
             print(f"sensor report appended to {args.sensor_jsonl}")
@@ -616,6 +666,49 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
             "controller": controller, "breaker": breaker,
             "injector": injector, "registry": registry,
             "latency_table": table, "profile": profile}
+
+
+def no_gather_check(params, cfg: ModelConfig, state: dict, engine, rcache,
+                    mesh, batch: int) -> dict:
+    """The sharded serve's hot-path invariant, checked once at startup: one
+    eager decode step, on copies of the decode state and the reuse cache,
+    moves no reuse-cache state across shards — no collective, and no copy,
+    cat or gather of a cache leaf's signature
+    (`repro_torch.roofline.collectives`). Raises on a violation; prints the
+    line the reference prints for its HLO check."""
+    from repro_torch.dist.shard import (
+        cache_shape_signatures,
+        cache_shard_axes,
+    )
+    from repro_torch.roofline.collectives import (
+        cache_collective_violations,
+        collective_count,
+        trace_step,
+    )
+    from repro_torch.serve.serve_step import decode_step
+
+    def copy(t):
+        return t.clone() if isinstance(t, torch.Tensor) else np.array(t)
+
+    probe_cache = map_tensors(copy, rcache)
+    probe_state = map_tensors(copy, state)
+    tokens = torch.zeros((batch, 1), dtype=torch.int32,
+                         device=state["len"].device)
+    trace = trace_step(lambda: decode_step(
+        params, cfg, tokens, probe_state, engine=engine,
+        reuse_cache=probe_cache))
+    del probe_cache, probe_state
+    violations = cache_collective_violations(
+        trace, cache_shape_signatures(
+            rcache, cache_shard_axes(engine, mesh, rcache)))
+    if violations:
+        raise RuntimeError(
+            "sharded serve step gathers reuse-cache state across the mesh — "
+            f"hot-path invariant violated: {violations}")
+    print(f"profiler no-gather check: OK — 0 cache-touching gathers "
+          f"({collective_count(trace)} collectives, {len(trace['moves'])} "
+          f"copies and gathers in one eager decode step)")
+    return trace
 
 
 def main(argv=None) -> None:

@@ -247,12 +247,22 @@ def attention_forward(
         q = apply_mrope(q, positions, cfg.rope_theta, _mrope_sections(cfg))
         k = apply_mrope(k, positions, cfg.rope_theta, _mrope_sections(cfg))
 
+    def to_cache(t):
+        """The cache's layout: KV heads duplicated to kv_heads_eff
+        (`kv_head_pad_to`), each head repeated in place, as the reference's
+        `jnp.repeat` on the head axis."""
+        if cfg.kv_heads_eff != cfg.n_kv_heads:
+            return torch.repeat_interleave(
+                t, cfg.kv_heads_eff // cfg.n_kv_heads, dim=2)
+        return t
+
     if kv_cache is None or s > 1:
         out = blockwise_attention(
             q, k, v, causal=cfg.causal, window=layer_window,
             chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
         )
         if kv_cache is not None:
+            k, v = to_cache(k), to_cache(v)
             cache_len = kv_cache["k"].shape[1]
             rolling = layer_window is not None and layer_window <= cache_len
             if rolling and s >= cache_len:
@@ -272,8 +282,8 @@ def attention_forward(
         else:
             slot = torch.clamp(kv_len, max=cache_len - 1)
         slot = slot.reshape(1).long()
-        kv_cache["k"].index_copy_(1, slot, k)
-        kv_cache["v"].index_copy_(1, slot, v)
+        kv_cache["k"].index_copy_(1, slot, to_cache(k))
+        kv_cache["v"].index_copy_(1, slot, to_cache(v))
         out = decode_attention(q, kv_cache["k"], kv_cache["v"], kv_len + 1)
 
     out = out.reshape(b, s, cfg.q_dim)

@@ -49,10 +49,10 @@ def check_family(cfg: ModelConfig) -> None:
     optional QKV bias; the vision stub), the local:global decoder, MoE (full
     or sliding-window attention, routed swiglu experts, with or without a
     shared expert), rwkv6 (attention-free, untied LM head) and the Mamba2
-    hybrid with a shared attention block. Anything else raises: the audio
-    frontend (an encoder, no decode path), `kv_head_pad_to` and
-    `kv_cache_quant`."""
-    common = (cfg.frontend not in ("none", "vision") or cfg.kv_head_pad_to
+    hybrid with a shared attention block; any of them with `kv_head_pad_to`
+    (KV heads duplicated into the cache). Anything else raises: the audio
+    frontend (an encoder, no decode path) and `kv_cache_quant`."""
+    common = (cfg.frontend not in ("none", "vision")
               or cfg.kv_cache_quant or not cfg.causal
               or (cfg.frontend == "vision") != (cfg.family == "vlm"))
     attn = (cfg.ssm_kind == "none" and not cfg.hybrid_attn_every
@@ -76,7 +76,7 @@ def check_family(cfg: ModelConfig) -> None:
             f"{cfg.name}: only the dense decoders (qwen3, qwen2, nemotron, "
             "qwen2-vl, gemma3 local:global), the MoE (mixtral, llama4-scout), "
             "the rwkv6 and the zamba2 hybrid paths are ported; not the audio "
-            "frontend, kv_head_pad_to or kv_cache_quant")
+            "frontend or kv_cache_quant")
 
 
 def _tree_map(fn, tree):

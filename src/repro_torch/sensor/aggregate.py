@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.policy import mode_name
 from repro_torch.core.reuse_cache import resolve_exec_path
+from repro_torch.sensor.counters import COUNTER_SHARD_REDUCE
 
 # Version stamped on every emitted JSONL row (the reference's; the trace
 # loaders of both packages refuse rows they don't understand). v6 rows carry
@@ -217,6 +218,37 @@ def _entry_rows(name: str, entry: dict, spec=None,
     return rows
 
 
+def collapse_shard_sensor(sensor: dict, axis: int) -> dict[str, np.ndarray]:
+    """Host copies of a model-sharded site's counters (and "steps", if
+    present) with the shard axis `axis` collapsed per
+    `COUNTER_SHARD_REDUCE`: ownership-partition lanes sum (the unsharded
+    counter, bitwise), replicated lanes take shard 0."""
+    out = {}
+    for key, arr in sensor.items():
+        a = _host(arr)
+        red = COUNTER_SHARD_REDUCE.get(key, "first")
+        out[key] = a.sum(axis=axis) if red == "sum" else np.take(a, 0,
+                                                                  axis=axis)
+    return out
+
+
+def _collapse_shard_entry(entry: dict, axis: int) -> dict:
+    """A model-sharded entry's shard axis collapsed on the host, BEFORE the
+    row builder (whose leading-axis reading must keep meaning "layers"):
+    counters per `collapse_shard_sensor`; ctrl and steps are replicated
+    across shards, so lane 0. Returns the host entry the row builder
+    reads (sensor, ctrl, steps)."""
+    out: dict[str, Any] = {
+        "sensor": collapse_shard_sensor(entry["sensor"], axis),
+        "steps": np.take(_host(entry["steps"]), 0, axis=axis),
+    }
+    ctrl = entry.get("ctrl")
+    if ctrl is not None:
+        out["ctrl"] = {k: np.take(_host(v), 0, axis=axis)
+                       for k, v in ctrl.items()}
+    return out
+
+
 def _sum_rows(name: str, rows: list[SiteSensor]) -> SiteSensor:
     hit = np.mean([r.slot_hit_rates for r in rows], axis=0)
     lane_steps = np.max([r.slot_steps for r in rows], axis=0)
@@ -253,13 +285,20 @@ def _sum_rows(name: str, rows: list[SiteSensor]) -> SiteSensor:
 
 
 def build_report(engine, cache: dict[str, Any]) -> SensorReport:
-    """Reduce a reuse cache's sensor counters (`engine` supplies the specs)."""
+    """Reduce a reuse cache's sensor counters (`engine` supplies the specs;
+    model-sharded sites are collapsed first, and the model row of a sharded
+    engine carries the mesh and interconnect keys)."""
     per_site, per_layer = [], []
     impl = getattr(engine, "impl", "cuda")
+    shards = getattr(engine, "shards", None) or {}
+    stacking = getattr(engine, "stacking", None) or {}
     for name in engine.sites:
         entry = cache[name]
         if "sensor" not in entry:
             continue
+        if name in shards:
+            entry = _collapse_shard_entry(
+                entry, 1 if stacking.get(name, 0) else 0)
         rows = _entry_rows(name, entry, spec=engine.sites[name], impl=impl)
         if rows[0].layer is not None:
             per_layer += rows
@@ -290,6 +329,14 @@ def build_report(engine, cache: dict[str, Any]) -> SensorReport:
         ),
         hit_rate=float(np.mean([s.hit_rate for s in per_site])) if per_site else 0.0,
     )
+    if shards:
+        # mesh provenance and interconnect payloads for the E_ICI pricing:
+        # keys only sharded runs carry (unsharded rows are unchanged)
+        model["mesh_model_shards"] = max(shards.values())
+        model["ici_reduce_bytes"] = float(
+            getattr(engine, "ici_reduce_bytes", 0.0))
+        model["ici_ctrl_write_bytes"] = float(
+            getattr(engine, "ici_write_bytes", 0.0))
     return SensorReport(per_site=per_site, per_layer=per_layer, model=model)
 
 

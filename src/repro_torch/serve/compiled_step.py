@@ -9,7 +9,8 @@ length, the decode state and the reuse cache (the step writes both in place,
 and advances the state's `len` in place). A variant is one captured graph
 with its own output logits, keyed as the reference keys its compiled steps:
 
-  decode   (spec signature, mode signature). The spec signature is the
+  decode   (spec signature, mode signature, shard plan). The spec
+           signature is the
            reference's `tuple(sorted(engine.sites.items()))` without the
            budgets: exec paths and tile geometry. A budget reaches only the
            ragged accounting, which reads the engine's budget lanes (device
@@ -19,6 +20,9 @@ with its own output logits, keyed as the reference keys its compiled steps:
            (`core/reuse_linear.py`) where the reference branches on the
            device lane, so a mode flip is a new operating point here and a
            ctrl write there. A flip back to a known key reuses its graph.
+           The shard plan is the engine's model-axis shard count per site
+           (`ReuseEngine.shards`, empty unsharded): a sharded step launches
+           each shard's kernels, so another plan is another graph.
   prefill  the prompt buffer's shape.
 
 Decode variants are bounded: past `max_decode_variants` live ones, the
@@ -136,8 +140,14 @@ class CompiledStep:
                      for name, spec in sorted(self.engine.sites.items())
                      if spec.mode not in ("reuse", "basic"))
 
+    def shard_plan(self) -> tuple:
+        if self.engine is None:
+            return ()
+        return tuple(sorted(self.engine.shards.items()))
+
     def decode_key(self) -> tuple:
-        return ("decode", self.spec_signature(), self.mode_signature())
+        return ("decode", self.spec_signature(), self.mode_signature(),
+                self.shard_plan())
 
     # ------------------------------------------- the functions a graph holds
 

@@ -87,9 +87,11 @@ def test_check_family_takes_the_archetypes_and_refuses_the_encoder():
     assert set(ARCHS) == set(JARCHS)
     with pytest.raises(NotImplementedError, match="audio frontend"):
         check_family(ARCHS["hubert-xlarge"])
-    for changes in ({"kv_head_pad_to": 16}, {"kv_cache_quant": True}):
-        with pytest.raises(NotImplementedError):
-            check_family(dataclasses.replace(ARCHS["gemma3-12b"], **changes))
+    # kv_head_pad_to is ported with sharded serving; kv_cache_quant is not
+    check_family(dataclasses.replace(ARCHS["gemma3-12b"], kv_head_pad_to=16))
+    with pytest.raises(NotImplementedError):
+        check_family(dataclasses.replace(ARCHS["gemma3-12b"],
+                                         kv_cache_quant=True))
 
 
 @pytest.mark.parametrize("arch", ARCHETYPES)

@@ -283,6 +283,111 @@ def test_k_tail_on_card(card, dtype, kernel, case):
     assert torch.equal(got, run(wpad))
 
 
+# (k, n, dataflow) of sharded sites whose column panels the kernels read in
+# place: qwen3-32b mlp_in and mlp_out (input-stationary, K > 4 N), qwen2-72b
+# attn_qkv and mlp_in (at 4 shards 14,784 columns = 115.5 tiles: an N tail)
+PANEL_SITES = {
+    "qwen3_mlp_in": (5120, 51200, "output"),
+    "qwen3_mlp_out": (25600, 5120, "input"),
+    "qwen2_attn_qkv": (8192, 10240, "output"),
+    "qwen2_mlp_in": (8192, 59136, "output"),
+}
+
+
+def panel_gemm(kernel, delta, w, prev, mask, n_total):
+    """One launch of `kernel` ("output", "input" or "ragged") with the k
+    split of `n_total` columns, checked to be one launch."""
+    name = f"reuse_matmul_{kernel}"
+    before = backend.launch_counts()[name]
+    if kernel == "ragged":
+        idx, counts = compact_rows(mask)
+        out = reuse_matmul_ragged(delta, w, prev, counts, idx, block_m=8,
+                                  block_n=128, block_k=256, n_total=n_total)
+    else:
+        out = reuse_matmul(delta, w, prev, mask, block_m=8, block_n=128,
+                           block_k=256, dataflow=kernel, n_total=n_total)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("site", list(PANEL_SITES))
+def test_column_panel_on_card(card, site, ragged, shards):
+    """A model-axis shard's panel `w[:, s·nl:(s+1)·nl]` read in place (row
+    stride N) with the k split of the site's N: bitwise the unsharded
+    kernel's columns of that panel, and bitwise the same kernel on a
+    contiguous copy of the panel; bf16 at M = 8, skip 0.5."""
+    k, n, dataflow = PANEL_SITES[site]
+    kernel = "ragged" if ragged else dataflow
+    nl = n // shards
+    gen = torch.Generator(device=card).manual_seed(shards)
+    mask = input_mask(0.5, 1, k // 256, gen, card)
+    delta = torch.randn((8, k), generator=gen, device=card).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=card)
+         / k ** 0.5).to(torch.bfloat16)
+    prev = torch.randn((8, n), generator=gen, device=card)
+    whole = panel_gemm(kernel, delta, w, prev, mask, None)
+    for s in range(shards):
+        cols = slice(s * nl, (s + 1) * nl)
+        pv = prev[:, cols].contiguous()
+        got = panel_gemm(kernel, delta, w[:, cols], pv, mask, n)
+        assert torch.equal(got, whole[:, cols]), s
+        assert torch.equal(got, panel_gemm(
+            kernel, delta, w[:, cols].contiguous(), pv, mask, n)), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["output", "input", "ragged"])
+@pytest.mark.parametrize("nl", [14784, 200, 8])
+def test_n_tail_on_card(card, dtype, kernel, nl):
+    """A panel whose columns end inside the last 128-column tile (qwen2-72b
+    mlp_in at 4 shards; 1.56 tiles; 8 columns): within this file's
+    tolerances of the plain version, and bitwise the kernel on the panel
+    zero-padded to whole tiles, which its zero-filled copies stand for."""
+    k = 2048
+    gen = torch.Generator(device=card).manual_seed(nl)
+    mask = input_mask(0.5, 1, k // 256, gen, card)
+    delta = torch.randn((8, k), generator=gen, device=card).to(dtype)
+    w = (torch.randn((k, 2 * nl), generator=gen, device=card)
+         / k ** 0.5).to(dtype)
+    panel = w[:, nl:]
+    prev = torch.randn((8, nl), generator=gen, device=card)
+    npad = -(-nl // 128) * 128
+    wpad = torch.zeros((k, npad), dtype=dtype, device=card)
+    wpad[:, :nl] = panel
+    ppad = torch.zeros((8, npad), device=card)
+    ppad[:, :nl] = prev
+    got = panel_gemm(kernel, delta, panel, prev, mask, 2 * nl)
+    want = reuse_matmul_torch(delta, panel, prev, mask, block_m=8,
+                              block_k=256)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    padded = panel_gemm(kernel, delta, wpad, ppad, mask, 2 * nl)
+    assert torch.equal(got, padded[:, :nl])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["output", "input", "ragged"])
+def test_misaligned_panel_raises_on_card(card, kernel):
+    """A panel whose base, row stride or width is not 16-byte aligned
+    raises before any launch (bf16: multiples of 8 elements)."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    mask = torch.ones((1, 4), dtype=torch.int32, device=card)
+    delta = torch.randn((8, 1024), generator=gen, device=card).to(
+        torch.bfloat16)
+    w = torch.randn((1024, 1024), generator=gen, device=card).to(
+        torch.bfloat16)
+    for panel in (w[:, 4:132], w[:, :100], w.T):
+        prev = torch.zeros((8, panel.shape[1]), device=card)
+        before = backend.launch_counts()
+        with pytest.raises(ValueError, match="aligned|row-major"):
+            panel_gemm(kernel, delta, panel, prev, mask, 1024)
+        assert backend.launch_counts() == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["gemma3-12b", "nemotron-4-15b"])
 def test_lm_head_is_one_bf16_product_on_card(card, arch):
