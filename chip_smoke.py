@@ -235,6 +235,23 @@ every phase's failure is fatal (non-zero exit, no result line):
                 Controller.step's 2 (3 with the breaker) device->host
                 copies, and a NaN in shard 2's lane of mlp_out tripping the
                 breaker's combined sentinels
+  15. ckpt    — checkpointing on qwen3-32b at 8 layers, phase 4's traffic:
+                (a) a save (`--control-every 2`, a table pinning
+                attn_qkv's sim_threshold, `--cache-ckpt`): step directory,
+                sidecar, marker, hashes, manifest paths (the cache's
+                without mode_host), every stored leaf bitwise the final
+                live cache; (b) the restore without the table as a pair
+                (eager-checked, then graphs, each from a copy): restore
+                lines and kind="restore" journal rows that replay, the
+                cache before the first step bitwise the checkpoint in the
+                tensors init_cache built, mode_host equal to the mode
+                lanes; (c) a `--inject corrupt-ckpt` save whose next start
+                raises CorruptCheckpointError before any capture; (d) the
+                round trip at `--mesh host:4` (prev_out stored [L, 4, B,
+                N/4]); save, verify and restore timed on both caches; (e)
+                phase 4's serve with kv_cache_quant=True as a pair: int8
+                K/V at half the bf16 bytes, a prefill's codes bitwise the
+                bf16 prefill's K/V quantized, the replay beside phase 4's
 
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
@@ -242,12 +259,12 @@ pools, device busy and idle share), a JSON line of phase 8 (its runs, the
 sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
 closed loops; the controlled serve and the basic-mode product) and of
 phase 10, a JSON line of phase 11, a JSON line of phase 12, a JSON line
-of phase 13, a JSON line of phase 14, the kernels JSON line (launch counts
-from the serve runs and the int8 path, and per phase 8-14 run; errors and
-times from phase 3)
+of phase 13, a JSON line of phase 14, a JSON line of phase 15, the kernels
+JSON line (launch counts from the serve runs and the int8 path, and per
+phase 8-15 run; errors and times from phase 3)
 and the card's name and power limit; the last line is {"ok": true,
-"device": {...}}. The controlled and guarded serves' whole output goes to
-chiprun_out/chip_smoke/.
+"device": {...}}. The controlled, guarded and checkpointing serves' whole
+output goes to chiprun_out/chip_smoke/.
 Exits non-zero when no CUDA device is available, and when the repository's
 package is not beside it.
 """
@@ -3555,6 +3572,400 @@ def sharded_control_phase(cfg, argv, drive, logdir) -> dict:
     return out
 
 
+# phase 15: checkpointing and the int8 KV cache on the compiled serve. (a)
+# phase 4's serve with --control-every 2, a tuned table pinning attn_qkv's
+# sim_threshold and --cache-ckpt: the checkpoint on disk (step directory,
+# sidecar, marker, hashes, manifest paths) and every stored leaf bitwise the
+# run's final live cache; (b) the same serve without the table from that
+# checkpoint, a pair (eager-checked, then graphs): the restore line and its
+# journaled kind="restore" rows, the cache before the first step bitwise the
+# checkpoint in the tensors init_cache built, the mode mirrors rebuilt; (c) a
+# save with --inject corrupt-ckpt, whose next start raises before any
+# capture; (d) the same round trip at --mesh host:4; (e) phase 4's serve
+# with kv_cache_quant=True as a pair, the prefill's int8 codes against the
+# bf16 prefill's K/V. Save, verify and restore are timed on the 8-layer and
+# the host:4 caches.
+CKPT_THR = 0.61   # attn_qkv's sim_threshold in 15a's table
+
+
+def ck_leaves(tree, prefix: str = "") -> dict:
+    """{checkpoint path: tensor} of a nested dict's tensor leaves."""
+    return {k.replace(".", "/"): t
+            for k, t in tensor_leaves(tree, prefix).items()}
+
+
+def stored_leaves(directory, step: int) -> tuple[dict, dict]:
+    """(manifest, {path: numpy array}) of a saved step, read with numpy
+    alone."""
+    import numpy as np
+
+    step_dir = pathlib.Path(directory) / f"step_{step:06d}"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    with np.load(step_dir / "host_00000.npz") as z:
+        return manifest, {k: z[k] for k in z.files}
+
+
+def bitwise_stored(label, live: dict, directory, step: int) -> int:
+    """Every stored leaf equals its live tensor bit for bit (cache leaves
+    are f32 and integers), with the manifest's shape and dtype tag, and the
+    stored paths are the live paths. Returns the leaf count."""
+    manifest, arrays = stored_leaves(directory, step)
+    if set(arrays) != set(live) or set(manifest["leaves"]) != set(live):
+        fail(f"{label}: stored paths differ from the cache's "
+             f"({sorted(set(arrays) ^ set(live))[:6]})")
+    for key, t in live.items():
+        meta, arr = manifest["leaves"][key], arrays[key]
+        if meta != {"shape": list(t.shape),
+                    "dtype": str(t.dtype).removeprefix("torch.")} \
+                or str(arr.dtype) != meta["dtype"]:
+            fail(f"{label}: {key} stored as {meta} ({arr.dtype})")
+        if not (arr == t.cpu().numpy()).all():
+            fail(f"{label}: stored {key} differs from the live cache")
+    return len(live)
+
+
+@contextlib.contextmanager
+def restore_probe():
+    """While it lasts, records the addresses of the cache `init_cache`
+    builds and, when a serve builds its CompiledStep (after the restore,
+    before the first step), a copy of the cache, its addresses and its mode
+    mirrors against the mode lanes."""
+    from repro_torch.core.engine import ReuseEngine
+    from repro_torch.launch import serve
+
+    log = {"builds": 0}
+    init_cache, compiled_step = ReuseEngine.init_cache, serve.CompiledStep
+
+    def recording_init(self, batch, **kw):
+        cache = init_cache(self, batch, **kw)
+        log["ptrs"] = {k: t.data_ptr() for k, t in ck_leaves(cache).items()}
+        return cache
+
+    def recording_step(*args, rcache=None, **kw):
+        log["builds"] += 1
+        if rcache is not None:
+            leaves = ck_leaves(rcache)
+            log["at_build"] = {k: t.clone() for k, t in leaves.items()}
+            log["ptrs_at_build"] = {k: t.data_ptr() for k, t in leaves.items()}
+            log["mirrors"] = all(
+                (e["mode_host"] == e["ctrl"]["mode_id"].cpu().numpy()).all()
+                for e in rcache.values())
+        return compiled_step(*args, rcache=rcache, **kw)
+
+    ReuseEngine.init_cache, serve.CompiledStep = recording_init, recording_step
+    try:
+        yield log
+    finally:
+        ReuseEngine.init_cache, serve.CompiledStep = init_cache, compiled_step
+
+
+def restored_as_saved(label, log, directory, step) -> int:
+    """The probe's cache at the CompiledStep's construction is bitwise the
+    checkpoint, in the tensors init_cache built, with its mode mirrors
+    equal to its mode lanes."""
+    if log["builds"] != 1 or "at_build" not in log:
+        fail(f"{label}: {log['builds']} CompiledStep builds")
+    n = bitwise_stored(label, log["at_build"], directory, step)
+    if log["ptrs_at_build"] != log["ptrs"]:
+        moved = [k for k in log["ptrs"]
+                 if log["ptrs"][k] != log["ptrs_at_build"].get(k)]
+        fail(f"{label}: restored leaves moved from init_cache's tensors: "
+             f"{moved[:6]}")
+    if not log["mirrors"]:
+        fail(f"{label}: mode_host differs from ctrl['mode_id'] after the "
+             "restore")
+    return n
+
+
+def ckpt_costs(label, rcache, tmp) -> dict:
+    """Save, verify and restore (in place) of a live cache, timed on the
+    host clock around synchronize, with the cache's and the file's bytes."""
+    from repro_torch.ckpt.checkpoint import (
+        restore_cache,
+        save_cache,
+        verify_checkpoint,
+    )
+    from repro_torch.core.reuse_cache import cache_bytes
+
+    d = pathlib.Path(tmp) / "timed"
+    shutil.rmtree(d, ignore_errors=True)
+    times = {}
+    for what, fn in (("save", lambda: save_cache(d, 1, rcache)),
+                     ("verify", lambda: verify_checkpoint(d, 1)),
+                     ("restore", lambda: restore_cache(d, 1, rcache))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[what] = (time.perf_counter() - t0) * 1e3
+    out = {"cache_bytes": cache_bytes(rcache),
+           "file_bytes": (d / "step_000001" / "host_00000.npz").stat().st_size,
+           "leaves": len(ck_leaves(rcache)),
+           **{f"{k}_ms": v for k, v in times.items()}}
+    print(f"{label}: cache {out['cache_bytes'] / 1e6:.2f} MB in "
+          f"{out['leaves']} leaves (npz {out['file_bytes'] / 1e6:.2f} MB); "
+          f"save {times['save']:.1f} ms, verify {times['verify']:.1f} ms, "
+          f"restore in place {times['restore']:.1f} ms (host clock around "
+          "synchronize)")
+    return out
+
+
+def need_kernels(label, counts, names=("delta_quant", "reuse_matmul_output",
+                                       "reuse_matmul_input")) -> None:
+    for kn in names:
+        if counts[kn] <= 0:
+            fail(f"{kn} was not launched on the {label} path")
+
+
+def ckpt_phase(cfg, argv, drive, logdir) -> tuple[dict, dict]:
+    """15a-d. Returns ({part: readings}, {run: launches})."""
+    from repro_torch.ckpt.checkpoint import (
+        CorruptCheckpointError,
+        cache_state,
+        verify_checkpoint,
+    )
+    from repro_torch.control import load_journal, replay_rows
+    from repro_torch.core.policy import ReusePolicy, SiteTunables
+    from repro_torch.tune.table import save_table
+
+    logdir.mkdir(parents=True, exist_ok=True)
+    out, launches = {}, {}
+    ctl = argv + ["--control-every", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        table = tmp / "table.json"
+        save_table(str(table), {"attn_qkv": SiteTunables(
+            sim_threshold=CKPT_THR)}, meta={"written_by": "chip_smoke.py"})
+        d = tmp / "D"
+        # ------------------------------------------------------- 15a. save
+        res, counts, text = drive(
+            cfg, ctl + ["--control-journal", str(tmp / "j1.jsonl"),
+                        "--tuned-policy", str(table), "--cache-ckpt", str(d)],
+            check=False, log_to=logdir / "phase15a.log")
+        need_kernels("15a save", counts)
+        launches["15a save (graph)"] = counts
+        n = res["stats"]["steps"]
+        step_dir = d / f"step_{n:06d}"
+        for p in (step_dir / "manifest.json", step_dir / "host_00000.npz",
+                  step_dir / "host_00000.npz.sha256",
+                  d / f"step_{n:06d}.COMPLETE"):
+            if not p.exists():
+                fail(f"15a: {p.name} missing")
+        if f"cache checkpoint: saved step {n} to {d}" not in text:
+            fail("15a: no save line")
+        verify_checkpoint(d, n)
+        live = ck_leaves(cache_state(res["step"].rcache))
+        n_leaves = bitwise_stored("15a", live, d, n)
+        # the lanes the restore without the table must adopt: those off the
+        # default (the controller may have moved the table's value)
+        thr = live["attn_qkv/ctrl/sim_threshold"].tolist()
+        default = ReusePolicy().resolve("attn_qkv").sim_threshold
+        moved = sum(abs(v - default) > 1e-5 * default for v in thr)
+        if not moved:
+            fail(f"15a: attn_qkv's lanes {thr} are the defaults")
+        print(f"15a: step {n} saved: {n_leaves} leaves (the cache's paths "
+              "without mode_host) bitwise the final live cache; hashes "
+              f"verify; attn_qkv sim_threshold per layer {thr} (table "
+              f"{CKPT_THR}, default {default})")
+        out["save"] = {"step": n, "leaves": n_leaves,
+                       **ckpt_costs("15a qwen3 8 layers", res["step"].rcache,
+                                    tmp)}
+        del res, live
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------ 15b. the restore
+        runs = {}
+        for how in ("eager", "graph"):
+            dd = tmp / f"D_{how}"
+            shutil.copytree(d, dd)
+            journal = tmp / f"j2_{how}.jsonl"
+            with restore_probe() as log:
+                res, counts, text = drive(
+                    cfg, ctl + ["--control-journal", str(journal),
+                                "--cache-ckpt", str(dd)]
+                    + (["--eager"] if how == "eager" else []),
+                    check=how == "eager", log_to=logdir / f"phase15b_{how}.log")
+            need_kernels(f"15b restore ({how})", counts)
+            launches[f"15b restore ({how}{', checked' * (how == 'eager')})"] \
+                = counts
+            n_restored = restored_as_saved(f"15b {how}", log, d, n)
+            head = f"cache checkpoint: restored step {n} from {dd}; "
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith((head, "  restore "))]
+            m = re.match(re.escape(head) + r"ctrl precedence resolved (\d+) "
+                         r"lanes", lines[0] if lines else "")
+            qkv = [ln for ln in lines if ln.startswith(
+                "  restore attn_qkv@") and "sim_threshold" in ln]
+            if not m or int(m.group(1)) < 1 or len(qkv) != moved:
+                fail(f"15b {how}: restore lines {lines[:3]}")
+            rows = load_journal(str(journal))
+            restore_rows = [r for r in rows
+                            if r.get("decision_kind") == "restore"]
+            rep = replay_rows(rows)
+            if len(restore_rows) != int(m.group(1)) or not rep.ok:
+                fail(f"15b {how}: {len(restore_rows)} restore rows, replay "
+                     f"{'ok' if rep.ok else 'failed'}")
+            runs[how] = (outcome(res, text), counts, lines)
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+        (want, counts_e, lines_e), (got, counts_g, lines_g) = (
+            runs["eager"], runs["graph"])
+        for part in ("tokens", "reports", "modes"):
+            if got[part] != want[part]:
+                fail(f"15b: the graph serve's {part} differ from the eager "
+                     "serve's")
+        diff = [k for k, t in want["tensors"].items()
+                if not torch.equal(t, got["tensors"][k])]
+        if diff or counts_g != counts_e:
+            fail(f"15b: graph serve vs eager: tensors {diff[:6]}, launches "
+                 f"{counts_g} vs {counts_e}")
+        if [ln.split(" from ")[0] for ln in lines_e] != [
+                ln.split(" from ")[0] for ln in lines_g]:
+            fail("15b: the serves resolved the restore differently")
+        print(f"15b: both serves restored step {n}: {lines_g[0].split('; ')[1]}"
+              f"; {len(restore_rows)} kind=\"restore\" rows, the journal "
+              f"replays; before the first step {n_restored} leaves bitwise "
+              "the checkpoint in init_cache's tensors, mode_host rebuilt; "
+              f"the graph serve equal to the checked eager serve (tokens, "
+              f"{len(got['reports'])} report lines, {len(got['tensors'])} "
+              "tensors bitwise)")
+        out["restore"] = {"resolved": len(restore_rows),
+                          "line": lines_g[0], "leaves": n_restored}
+        del runs, want, got
+
+        # ------------------------------------ 15c. a corrupted checkpoint
+        dc = tmp / "C"
+        _, counts, text = drive(
+            cfg, argv + ["--cache-ckpt", str(dc), "--inject", "corrupt-ckpt",
+                         "--eager"], check=False,
+            log_to=logdir / "phase15c.log")
+        launches["15c corrupt-ckpt save (eager)"] = counts
+        fired = [ln.strip() for ln in text.splitlines()
+                 if "corrupt-ckpt @step -1: flipped" in ln]
+        if not fired:
+            fail("15c: corrupt-ckpt did not fire")
+        with restore_probe() as log:
+            try:
+                drive(cfg, argv + ["--cache-ckpt", str(dc)], check=False)
+            except CorruptCheckpointError as e:
+                raised = str(e)
+            else:
+                fail("15c: a start on the corrupted checkpoint served")
+        if log["builds"]:
+            fail("15c: a CompiledStep was built before the raise")
+        print(f"15c: {fired[0]}; the next start raised CorruptCheckpointError "
+              f"before any capture: {raised[raised.find('sha256'):]}")
+        out["corrupt"] = {"fired": fired[0], "raised": raised}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------ 15d. a host:4 cache
+        ds = tmp / "S"
+        res, counts, text = drive(
+            cfg, argv + ["--mesh", f"host:{SHARDS}", "--cache-ckpt", str(ds)],
+            check=False, log_to=logdir / "phase15d_save.log")
+        need_kernels("15d sharded save", counts)
+        launches["15d host:4 save (graph)"] = counts
+        ns = res["stats"]["steps"]
+        live = ck_leaves(cache_state(res["step"].rcache))
+        bitwise_stored("15d", live, ds, ns)
+        manifest, _ = stored_leaves(ds, ns)
+        shape = manifest["leaves"]["mlp_in/prev_out"]["shape"]
+        n_out = res["engine"].sites["mlp_in"].out_features
+        if shape != [cfg.n_superblocks, SHARDS, 8, n_out // SHARDS]:
+            fail(f"15d: stored mlp_in prev_out is {shape}")
+        out["sharded"] = {"step": ns, "prev_out_shape": shape,
+                          **ckpt_costs(f"15d qwen3 host:{SHARDS}",
+                                       res["step"].rcache, tmp)}
+        del res, live
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the restoring serve saves its own final cache at the same step
+        # number at exit: it gets a copy
+        shutil.copytree(ds, tmp / "S_restore")
+        with restore_probe() as log:
+            _, counts, text = drive(
+                cfg, argv + ["--mesh", f"host:{SHARDS}", "--cache-ckpt",
+                             str(tmp / "S_restore"), "--eager"],
+                check=False, log_to=logdir / "phase15d_restore.log")
+        need_kernels("15d sharded restore", counts)
+        launches["15d host:4 restore (eager)"] = counts
+        n_sharded = restored_as_saved("15d", log, ds, ns)
+        if not any(ln.startswith("profiler no-gather check: OK")
+                   for ln in text.splitlines()):
+            fail("15d: no OK no-gather line after the restore")
+        print(f"15d: host:{SHARDS} step {ns} saved with mlp_in prev_out "
+              f"{shape} ([L, S, B, N/S]) and restored into a host:{SHARDS} "
+              f"serve: {n_sharded} leaves bitwise before its first step, in "
+              "init_cache's tensors")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def kv_quant_phase(cfg, argv, serve_pair, graph_rows, dev) -> tuple[dict,
+                                                                    dict]:
+    """15e. Phase 4's serve with kv_cache_quant=True as a pair; on the graph
+    serve's weights, a prefill of 8 random 32-token prompts into an int8 and
+    a bf16 state: the int8 codes are the bf16 K/V quantized, bitwise
+    (prefill attends over the unquantized K/V)."""
+    from repro_torch.serve.serve_step import init_serve_state, prefill_step
+
+    qcfg = dataclasses.replace(cfg, kv_cache_quant=True)
+    info = {}
+
+    def probe(step):
+        blocks = step.state["blocks"]
+        if blocks["k"].dtype != torch.int8 or blocks["v"].dtype != torch.int8:
+            fail("15e: the served K/V caches are not int8")
+        plain = init_serve_state(cfg, 8, 128, device=dev)
+        q_bytes = sum(blocks[k].numel() * blocks[k].element_size()
+                      for k in ("k", "v"))
+        b_bytes = sum(plain["blocks"][k].numel()
+                      * plain["blocks"][k].element_size() for k in ("k", "v"))
+        dtype = str(cfg.dtype).removeprefix("torch.")
+        if q_bytes * plain["blocks"]["k"].element_size() != b_bytes:
+            fail(f"15e: int8 K/V {q_bytes} B against {dtype} {b_bytes} B")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(15)
+        toks = torch.randint(0, cfg.vocab, (8, 32), generator=gen, device=dev,
+                             dtype=torch.int32)
+        with torch.no_grad():
+            _, plain = prefill_step(step.params, cfg, toks, plain)
+            _, quant = prefill_step(step.params, qcfg, toks, init_serve_state(
+                qcfg, 8, 128, device=dev))
+        for k in ("k", "v"):
+            want = torch.clamp(torch.round(
+                plain["blocks"][k][:, :, :32].float() / qcfg.kv_quant_scale),
+                -127, 127).to(torch.int8)
+            got = quant["blocks"][k][:, :, :32]
+            if not torch.equal(got, want):
+                fail(f"15e: prefill {k} codes differ from the bf16 prefill's "
+                     f"quantized ({int((got != want).sum())} codes)")
+            if quant["blocks"][k][:, :, 32:].any():
+                fail(f"15e: prefill wrote {k} past the prompt")
+        info.update(kv_bytes=q_bytes, kv_bytes_plain=b_bytes,
+                    codes_checked=2 * want.numel())
+        print(f"15e: K/V caches int8, {q_bytes / 1e6:.2f} MB against {dtype} "
+              f"{b_bytes / 1e6:.2f} MB; after a prefill of 8x32 tokens "
+              f"{2 * want.numel()} codes bitwise clip(round(kv/"
+              f"{qcfg.kv_quant_scale})) of the {dtype} prefill's K/V")
+
+    counts, _ = serve_pair(qcfg, argv, "qwen3 int8 kv", pairs=3, probe=probe)
+    need_kernels("15e int8 KV serve", counts)
+    row = graph_rows[-1]
+    base = next(r for r in graph_rows if r["serve"] == "qwen3 default")
+    print(f"15e: int8 KV replay {row['graph_ms']:.2f} ms, busy "
+          f"{row['busy_graph_ms']:.2f} ms, {row['kernels_graph']} kernels and "
+          f"copies (phase 4's bf16 cache: {base['graph_ms']:.2f} ms, "
+          f"{base['busy_graph_ms']:.2f} ms, {base['kernels_graph']})")
+    info.update(row=row, phase4={k: base[k] for k in (
+        "graph_ms", "busy_graph_ms", "kernels_graph", "eager_ms")})
+    return info, {"15e int8 kv (eager, checked)": counts}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -4480,6 +4891,17 @@ def main() -> None:
     sharded["seconds"] = time.perf_counter() - _PHASE["t0"]
     print(json.dumps({"sharded": sharded}))
 
+    # ------------------------ 15. checkpointing and the int8 KV cache
+    phase("15. checkpointing, cache restore and the int8 KV cache "
+          "(qwen3-32b 8 layers)")
+    ckpt, launches_ckpt = ckpt_phase(cfg, serve_argv, drive,
+                                     root / "chiprun_out" / "chip_smoke")
+    ckpt["kv_quant"], counts = kv_quant_phase(cfg, serve_argv, serve_pair,
+                                              graph_rows, dev)
+    launches_ckpt.update(counts)
+    ckpt["seconds"] = time.perf_counter() - _PHASE["t0"]
+    print(json.dumps({"ckpt": ckpt}))
+
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
                      "wkv6_decode": launches_rwkv,
@@ -4503,7 +4925,9 @@ def main() -> None:
                         "launches_archetypes": {
                             run: c[kn] for run, c in launches_arch.items()},
                         "launches_sharded": {
-                            run: c[kn] for run, c in launches_sharded.items()}})
+                            run: c[kn] for run, c in launches_sharded.items()},
+                        "launches_ckpt": {
+                            run: c[kn] for run, c in launches_ckpt.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))

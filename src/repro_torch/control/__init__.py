@@ -19,10 +19,9 @@ counters directly — no JSONL round trip:
 * :mod:`replay`     — ``python -m repro_torch.control.replay j.jsonl``:
                       re-applies a journal to a fresh policy state (and,
                       with ``--arch``, a fresh engine) and asserts the
-                      reproduced trajectory matches the recorded one.
-
-The reference's `restore` (checkpointed ctrl block vs tuned table) comes with
-checkpointing, which is not ported yet.
+                      reproduced trajectory matches the recorded one;
+* :mod:`restore`    — checkpointed ctrl lanes vs the tuned table at a cache
+                      restore (`resolve_restored_ctrl`).
 
 Serving entry point: ``python -m repro_torch.launch.serve ... --reuse
 --control-every N``.
@@ -39,6 +38,7 @@ from repro_torch.control.report import (
     load_journal,
 )
 from repro_torch.control.replay import ReplayResult, replay_rows
+from repro_torch.control.restore import resolve_restored_ctrl
 from repro_torch.control.retune import (
     bounded_tunables,
     snapshot_entry,
@@ -59,6 +59,7 @@ __all__ = [
     "bounded_tunables",
     "load_journal",
     "replay_rows",
+    "resolve_restored_ctrl",
     "snapshot_entry",
     "window_layer_records",
     "window_record",

@@ -72,6 +72,17 @@ end `shard skip <site>: s0=... ` per site and `ici traffic: reduce=...
 ctrl-writes=...`, the interconnect bytes the reference's mesh would move.
 Placing shards on several cards is not ported (`--mesh prod` raises).
 
+Checkpointing (`repro_torch.ckpt`): `--cache-ckpt DIR` (with `--reuse`)
+restores the reuse cache from DIR's latest COMPLETE step at startup, in
+place into the tensors `init_cache` built (so the compiled step's buffers
+keep their addresses), rebuilds the mode mirrors from the restored mode
+lanes and resolves the ctrl lanes against the tuned table
+(`repro_torch.control.restore`: checkpoint < tuned table < live
+controller, each resolution printed and journaled as `kind="restore"`).
+At exit it saves the final cache at the batcher's step count, in the
+reference's on-disk format; a sharded cache keeps its `[L, S, ...]`
+layout. A corrupt newest step raises `CorruptCheckpointError` at startup.
+
 `run(cfg, args)` is the callable entry (chip_smoke.py drives it with a config
 cut in depth); `main()` parses the flags and calls it.
 """
@@ -168,6 +179,11 @@ def build_parser() -> argparse.ArgumentParser:
                     "--obs-dir/latency_table.json) for the online controller "
                     "— break-even/exec retunes are priced from measured "
                     "wall-clock; requires --control-every")
+    ap.add_argument("--cache-ckpt", default=None,
+                    help="reuse-cache checkpoint directory: restore the "
+                    "latest step at start (ctrl-block precedence: checkpoint "
+                    "< tuned table < live controller, resolutions journaled) "
+                    "and save the final cache at exit; requires --reuse")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
                     help="shard the reuse serve along the model axis "
                     "(repro_torch.launch.mesh specs: 'host:N' makes N shards "
@@ -207,7 +223,8 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
     if cfg.family == "audio":
         raise ValueError("encoder archs have no decode path")
     for flag in ("sensor_jsonl", "tuned_policy", "refresh_every", "affinity",
-                 "control_every", "control_journal", "inject", "mesh"):
+                 "control_every", "control_journal", "cache_ckpt", "inject",
+                 "mesh"):
         if getattr(args, flag) and not args.reuse:
             raise ValueError(f"--{flag.replace('_', '-')} requires --reuse")
     if args.control_journal and not args.control_every:
@@ -257,6 +274,13 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
                 f"the kernel substrate is {backend.best()!r}: the Hopper "
                 "kernels need a device of capability 9.0 or newer")
     device = torch.device(args.device)
+    # One shared journal: the restore-precedence pass (below) and the online
+    # controller append to the same audit stream.
+    journal = None
+    if args.control_journal:
+        from repro_torch.control import DecisionJournal
+
+        journal = DecisionJournal(args.control_journal)
     impl = (args.impl if args.impl != "auto"
             else "cuda" if device.type == "cuda" else "torch")
     print(f"kernel substrate: {backend.describe()} (serve impl={impl})")
@@ -294,6 +318,8 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
             print(f"  site {name}: {spec.in_features}x{spec.out_features} "
                   f"dataflow={spec.dataflow} exec={spec.exec_path}{budget} "
                   f"block_k={spec.block_k}")
+        if args.cache_ckpt:
+            restore_cache_ckpt(args.cache_ckpt, engine, rcache, journal)
         if args.tuned_policy:
             # tuned-vs-default delta: each site probed at full similarity
             # (the min-work admission decision), and the knobs that moved
@@ -341,12 +367,9 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
             AdmissionPredictor,
             ControlConfig,
             Controller,
-            DecisionJournal,
         )
         from repro_torch.guard import QuarantineBreaker
 
-        journal = (DecisionJournal(args.control_journal)
-                   if args.control_journal else None)
         latency = None
         if args.latency_table:
             from repro_torch.obs.latency import (
@@ -615,12 +638,19 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
               f"{breaker.stall_windows} stall windows, "
               f"{breaker.quarantined_lanes()} lanes quarantined"
               + (f" [{lanes}]" if lanes else ""))
+    if args.cache_ckpt and engine is not None:
+        from repro_torch.ckpt.checkpoint import save_cache
+
+        # the step's live buffers: rcache is the cache the graphs write
+        save_cache(args.cache_ckpt, batcher.stats["steps"], step.rcache)
+        print(f"cache checkpoint: saved step {batcher.stats['steps']} "
+              f"to {args.cache_ckpt}")
     if injector is not None:
         # at-rest scenarios fire at exit, against the artifacts just written
-        # (corrupt-ckpt has no target here: the serve writes no checkpoint
-        # until checkpointing is ported)
         if args.control_journal:
             injector.tear_journal(args.control_journal)
+        if args.cache_ckpt:
+            injector.corrupt_checkpoint(args.cache_ckpt)
         print(f"fault injection: {len(injector.fired)} fault(s) fired")
         for ev in injector.fired:
             print(f"  {ev['scenario']} @step {ev['step']}: {ev['detail']}")
@@ -666,6 +696,31 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
             "controller": controller, "breaker": breaker,
             "injector": injector, "registry": registry,
             "latency_table": table, "profile": profile}
+
+
+def restore_cache_ckpt(directory: str, engine, rcache: dict,
+                      journal) -> None:
+    """`--cache-ckpt` at startup, as the reference: restore the latest
+    COMPLETE step (`latest_step`: a corrupt newest step raises
+    `CorruptCheckpointError`, it is not walked past) into the tensors
+    `init_cache` built, rebuild the mode mirrors from the restored mode
+    lanes, then resolve the ctrl precedence (journaled to `journal`).
+    Nothing without a checkpoint."""
+    from repro_torch.ckpt.checkpoint import latest_step, restore_cache
+    from repro_torch.control.restore import resolve_restored_ctrl
+
+    ck_step = latest_step(directory)
+    if ck_step is None:
+        return
+    restore_cache(directory, ck_step, rcache)
+    resolutions = resolve_restored_ctrl(engine, rcache, journal=journal,
+                                        step=0)
+    print(f"cache checkpoint: restored step {ck_step} from {directory}; "
+          f"ctrl precedence resolved {len(resolutions)} lanes "
+          f"(checkpoint < tuned table < live)")
+    for d in resolutions:
+        where = d.site + (f"@{d.layer}" if d.layer is not None else "")
+        print(f"  restore {where} {d.field}: {d.before} -> {d.after}")
 
 
 def no_gather_check(params, cfg: ModelConfig, state: dict, engine, rcache,

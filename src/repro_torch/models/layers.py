@@ -231,7 +231,9 @@ def attention_forward(
     cache_len on a rolling cache, else min(len, cache_len - 1). The softmax
     over the valid slots does not depend on their order, and RoPE is applied
     before the cache at absolute positions, so decode needs no window mask:
-    a rolling cache of `window` slots holds exactly the window."""
+    a rolling cache of `window` slots holds exactly the window. With
+    `kv_cache_quant` the cache holds int8 codes: decode attends over the
+    dequantized cache, prefill over its own unquantized K/V."""
     b, s, _ = x.shape
     h = apply_norm(p["norm"], x, cfg.norm_eps)
     qkv = _maybe_reuse_matmul(f"{site_prefix}_qkv", h, p["wqkv"],
@@ -250,10 +252,19 @@ def attention_forward(
     def to_cache(t):
         """The cache's layout: KV heads duplicated to kv_heads_eff
         (`kv_head_pad_to`), each head repeated in place, as the reference's
-        `jnp.repeat` on the head axis."""
+        `jnp.repeat` on the head axis; with `kv_cache_quant`, int8 codes at
+        `kv_quant_scale` (torch.round rounds half to even, as jnp.round)."""
         if cfg.kv_heads_eff != cfg.n_kv_heads:
-            return torch.repeat_interleave(
+            t = torch.repeat_interleave(
                 t, cfg.kv_heads_eff // cfg.n_kv_heads, dim=2)
+        if cfg.kv_cache_quant:
+            t = torch.clamp(torch.round(t.float() / cfg.kv_quant_scale),
+                            -127, 127).to(torch.int8)
+        return t
+
+    def from_cache(t):
+        if cfg.kv_cache_quant:
+            return (t.float() * cfg.kv_quant_scale).to(x.dtype)
         return t
 
     if kv_cache is None or s > 1:
@@ -284,7 +295,8 @@ def attention_forward(
         slot = slot.reshape(1).long()
         kv_cache["k"].index_copy_(1, slot, to_cache(k))
         kv_cache["v"].index_copy_(1, slot, to_cache(v))
-        out = decode_attention(q, kv_cache["k"], kv_cache["v"], kv_len + 1)
+        out = decode_attention(q, from_cache(kv_cache["k"]),
+                               from_cache(kv_cache["v"]), kv_len + 1)
 
     out = out.reshape(b, s, cfg.q_dim)
     out = _maybe_reuse_matmul(f"{site_prefix}_out", out, p["wo"], None, reuse_ctx)

@@ -50,10 +50,10 @@ def check_family(cfg: ModelConfig) -> None:
     or sliding-window attention, routed swiglu experts, with or without a
     shared expert), rwkv6 (attention-free, untied LM head) and the Mamba2
     hybrid with a shared attention block; any of them with `kv_head_pad_to`
-    (KV heads duplicated into the cache). Anything else raises: the audio
-    frontend (an encoder, no decode path) and `kv_cache_quant`."""
-    common = (cfg.frontend not in ("none", "vision")
-              or cfg.kv_cache_quant or not cfg.causal
+    (KV heads duplicated into the cache) and `kv_cache_quant` (an int8 KV
+    cache). Anything else raises: the audio frontend (an encoder, no decode
+    path)."""
+    common = (cfg.frontend not in ("none", "vision") or not cfg.causal
               or (cfg.frontend == "vision") != (cfg.family == "vlm"))
     attn = (cfg.ssm_kind == "none" and not cfg.hybrid_attn_every
             and cfg.rope in ("rope", "mrope"))
@@ -76,7 +76,7 @@ def check_family(cfg: ModelConfig) -> None:
             f"{cfg.name}: only the dense decoders (qwen3, qwen2, nemotron, "
             "qwen2-vl, gemma3 local:global), the MoE (mixtral, llama4-scout), "
             "the rwkv6 and the zamba2 hybrid paths are ported; not the audio "
-            "frontend or kv_cache_quant")
+            "frontend")
 
 
 def _tree_map(fn, tree):
@@ -182,7 +182,8 @@ def init_decode_state(
     cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda"
 ) -> dict:
     """The valid length (a device scalar) and the per-layer state, as the
-    reference lays it out: KV caches {k, v} [L, B, S, KV, D] (dense and MoE;
+    reference lays it out: KV caches {k, v} [L, B, S, KV, D], int8 with
+    `kv_cache_quant`, else of the model's dtype (dense and MoE;
     S = min(window, cache_len) for sliding-window attention, a rolling
     cache); for gemma3 {local: [L, 5, B, min(window, cache_len), KV, D]
     caches, global: [L, B, S, KV, D]}; for zamba2 {mamba: {conv [L, 6, B,
@@ -197,10 +198,12 @@ def init_decode_state(
                 "blocks": ssm_mod.init_rwkv6_state(
                     cfg, batch, layers=nsb, device=device)}
 
+    kv_dtype = torch.int8 if cfg.kv_cache_quant else cfg.dtype
+
     def kv(*lead, seq):
         shape = (*lead, batch, seq, cfg.kv_heads_eff, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+        return {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+                "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
 
     if cfg.ssm_kind == "mamba2":
         blocks = {"mamba": ssm_mod.init_mamba2_state(

@@ -87,11 +87,11 @@ def test_check_family_takes_the_archetypes_and_refuses_the_encoder():
     assert set(ARCHS) == set(JARCHS)
     with pytest.raises(NotImplementedError, match="audio frontend"):
         check_family(ARCHS["hubert-xlarge"])
-    # kv_head_pad_to is ported with sharded serving; kv_cache_quant is not
+    # kv_head_pad_to is ported with sharded serving, kv_cache_quant with
+    # checkpointing
     check_family(dataclasses.replace(ARCHS["gemma3-12b"], kv_head_pad_to=16))
-    with pytest.raises(NotImplementedError):
-        check_family(dataclasses.replace(ARCHS["gemma3-12b"],
-                                         kv_cache_quant=True))
+    check_family(dataclasses.replace(ARCHS["gemma3-12b"],
+                                     kv_cache_quant=True))
 
 
 @pytest.mark.parametrize("arch", ARCHETYPES)
@@ -187,6 +187,72 @@ def test_embed_inputs_with_vision_embeds_matches_reference(rng):
         torch.from_numpy(ve), "vision_positions": torch.from_numpy(vp)})
     np.testing.assert_array_equal(t2n(got), np.asarray(want))
     np.testing.assert_array_equal(t2n(got)[0, 4], ve[0, 1])
+
+
+# ------------------------------------------------------ the int8 KV cache
+
+# (prompt, cache_len): mixtral's 66-token prompt overruns its 64-slot window
+# cache, so the prefill writes the rolled tail and every decode step rolls
+KV_QUANT_CASES = {"qwen3-32b": (8, 24), "mixtral-8x7b": (66, 64)}
+
+
+@pytest.mark.parametrize("arch", sorted(KV_QUANT_CASES))
+def test_kv_cache_quant_matches_reference(arch):
+    """`kv_cache_quant`: a prefill and 4 decode steps (greedy tokens of the
+    reference) in both packages. The K/V caches are int8 of the reference's
+    shapes. After the prefill, which attends over the unquantized K/V, the
+    codes are the port's own unquantized prefill K/V quantized
+    (clip(round(t / 0.05))), and equal to the reference's codes wherever
+    the two packages' unquantized K/V are bitwise equal, within one code
+    elsewhere; after each decode step within one code. Logits within this
+    file's step tolerance."""
+    jcfg, tcfg, jparams, tparams = reduced_model(arch)
+    jq = dataclasses.replace(jcfg, kv_cache_quant=True)
+    tq = dataclasses.replace(tcfg, kv_cache_quant=True)
+    prompt, cache = KV_QUANT_CASES[arch]
+    b = 2
+    prompts = np.random.default_rng(5).integers(
+        0, jcfg.vocab, (b, prompt)).astype(np.int32)
+    runs = {}
+    for name, jc, tc in (("plain", jcfg, tcfg), ("quant", jq, tq)):
+        jst = jserve.init_serve_state(jc, b, cache)
+        tst = init_decode_state(tc, b, cache, device="cpu")
+        jlog, jst = jax.jit(lambda p, t, s, jc=jc: jserve.prefill_step(
+            p, jc, t, s))(jparams, jnp.asarray(prompts), jst)
+        tlog, tst = tserve.prefill_step(tparams, tc,
+                                        torch.from_numpy(prompts), tst)
+        runs[name] = (jlog, jst, tlog, tst)
+    jlog, jst, tlog, tst = runs["quant"]
+    assert tst["blocks"]["k"].dtype == torch.int8
+    assert tuple(tst["blocks"]["k"].shape) == jst["blocks"]["k"].shape
+    assert jst["blocks"]["k"].dtype == jnp.int8
+    close(t2n(tlog), jlog, STEP_TOL, STEP_TOL)
+    scale = tcfg.kv_quant_scale
+    for kv in ("k", "v"):
+        t_f = t2n(runs["plain"][3]["blocks"][kv])
+        j_f = np.asarray(runs["plain"][1]["blocks"][kv])
+        t_c = t2n(tst["blocks"][kv])
+        j_c = np.asarray(jst["blocks"][kv])
+        np.testing.assert_array_equal(
+            t_c, np.clip(np.round(t_f / np.float32(scale)), -127, 127))
+        same = t_f == j_f
+        np.testing.assert_array_equal(t_c[same], j_c[same])
+        assert np.abs(t_c.astype(int) - j_c.astype(int)).max() <= 1
+    jdecode = jax.jit(lambda p, t, s: jserve.decode_step(p, jq, t, s))
+    tok = np.array(jserve.greedy_sample(jlog))
+    for _ in range(DECODE_STEPS):
+        jlog, jst, _ = jdecode(jparams, jnp.asarray(tok), jst)
+        tlog, tst, _ = tserve.decode_step(tparams, tq, torch.from_numpy(tok),
+                                          tst)
+        close(t2n(tlog), jlog, STEP_TOL, STEP_TOL)
+        np.testing.assert_array_equal(t2n(tlog).argmax(-1),
+                                      np.asarray(jlog).argmax(-1))
+        for kv in ("k", "v"):
+            diff = np.abs(t2n(tst["blocks"][kv]).astype(int)
+                          - np.asarray(jst["blocks"][kv]).astype(int))
+            assert diff.max() <= 1, kv
+        tok = np.array(jserve.greedy_sample(jlog))
+    assert int(tst["len"]) == prompt + DECODE_STEPS
 
 
 # --------------------------------------- prefill, then decode with reuse

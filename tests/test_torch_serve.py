@@ -214,7 +214,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     # the control plane and the guard plane are covered too
     assert {f.name for f in files if f.parent.name == "control"} >= {
         "report.py", "admit.py", "budget.py", "retune.py", "controller.py",
-        "replay.py", "__init__.py"}
+        "replay.py", "restore.py", "__init__.py"}
+    # and checkpointing
+    assert {f.name for f in files if f.parent.name == "ckpt"} >= {
+        "checkpoint.py", "recovery.py", "__init__.py"}
     assert {f.name for f in files if f.parent.name == "guard"} >= {
         "sentinel.py", "quarantine.py", "inject.py", "watchdog.py",
         "__init__.py"}
