@@ -253,15 +253,32 @@ every phase's failure is fatal (non-zero exit, no result line):
                 K/V at half the bf16 bytes, a prefill's codes bitwise the
                 bf16 prefill's K/V quantized, the replay beside phase 4's
 
+  16. train   — training at full width, cut in depth: (a) qwen3-32b at 4
+                of 64 layers, batch 8, seq 128, correlation 0.9: 6 steps
+                straight, against `launch.train.run` for 3 steps under
+                ResilientLoop (its checkpoint after step 0), the state
+                dropped, and `--resume` to step 6: parameters bitwise; the
+                f32_product gradient against the f32 product's; (b)
+                rwkv6-7b at 8 of 32 layers: every wkv6_decode and
+                wkv6_decode_backward call of 2 steps against its plain
+                version, layer 0's WKV6Sequence gradient against autograd
+                through the plain steps, then 6 steps timed; (c)
+                hubert-xlarge uncut on SyntheticAudioSource: a finite,
+                falling loss. Each cell's step ms, tokens/s, model-FLOPs
+                share, peak memory and device busy share (one profiled
+                step); wkv6_decode_backward at [8,64,64]x64x64 checked and
+                timed beside its bound and its plain version
+
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
 pools, device busy and idle share), a JSON line of phase 8 (its runs, the
 sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
 closed loops; the controlled serve and the basic-mode product) and of
 phase 10, a JSON line of phase 11, a JSON line of phase 12, a JSON line
-of phase 13, a JSON line of phase 14, a JSON line of phase 15, the kernels
-JSON line (launch counts from the serve runs and the int8 path, and per
-phase 8-15 run; errors and times from phase 3)
+of phase 13, a JSON line of phase 14, a JSON line of phase 15, a JSON line
+of phase 16, the kernels JSON line (launch counts from the serve runs, the
+int8 path and the rwkv6 training run, and per phase 8-16 run; errors and
+times from phases 3 and 16)
 and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The controlled, guarded and checkpointing serves' whole
 output goes to chiprun_out/chip_smoke/.
@@ -335,8 +352,8 @@ WKV_ATOL, WKV_RTOL = 1e-5, 1e-5
 # (`mma.sync ... s8` for 8-row tiles, `wgmma ... s8` for 128-row tiles); the
 # three float ΔW GEMMs (output-, input-stationary, ragged: one cluster tile
 # loop) on the bf16 tensor cores (`mma.sync ... bf16`, f32 accumulation) and
-# their f32 operands on CUDA cores in IEEE f32; delta_quant and wkv6_decode
-# on CUDA cores.
+# their f32 operands on CUDA cores in IEEE f32; delta_quant, wkv6_decode and
+# wkv6_decode_backward on CUDA cores.
 KERNEL_META = {
     "delta_quant": ("src/repro_torch/csrc/delta_quant.cu",
                     "src/repro/kernels/delta_quant.py:77"),
@@ -350,6 +367,11 @@ KERNEL_META = {
                           "src/repro/kernels/reuse_matmul_int8.py:80"),
     "wkv6_decode": ("src/repro_torch/csrc/wkv6_decode.cu",
                     "src/repro/kernels/wkv6_decode.py:71"),
+    # no TPU kernel: the gradient of wkv6_decode's step, which the
+    # reference leaves to XLA's differentiation of its lax.scan
+    "wkv6_decode_backward": (
+        "src/repro_torch/csrc/wkv6_backward.cu",
+        "none (the gradient of src/repro/kernels/wkv6_decode.py:71)"),
 }
 
 
@@ -614,16 +636,18 @@ def exact_int8(cur, prev, wq, acc):
             @ wq.double()).to(torch.int32)
 
 
-def profile_step(fn, what: str) -> tuple:
-    """Where one decode step's time goes: device time by kernel name
-    (torch.profiler, CUPTI) against the host wall time of the step. Returns
-    (wall ms, device busy ms, the kernel rows of `key_averages()`)."""
+def profile_step(fn, what: str, *, grad: bool = False) -> tuple:
+    """Where one step's time goes: device time by kernel name
+    (torch.profiler, CUPTI) against the host wall time of the step (a
+    decode step under no_grad; a training step, `grad`, with autograd).
+    Returns (wall ms, device busy ms, the kernel rows of
+    `key_averages()`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with contextlib.nullcontext() if grad else torch.no_grad():
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
@@ -3966,6 +3990,495 @@ def kv_quant_phase(cfg, argv, serve_pair, graph_rows, dev) -> tuple[dict,
     return info, {"15e int8 kv (eager, checked)": counts}
 
 
+# phase 16: training at full width (repro_torch.{train,optim,data},
+# launch/train under ResilientLoop), cut in depth in-process. (a) qwen3-32b
+# at 4 of 64 layers: 6 steps straight (the CLI's step function and batches,
+# no loop, as the reference's tests/test_system.py does), against
+# `launch.train.run` for 3 steps with a checkpoint after step 0, the state
+# dropped, and `--resume` from that checkpoint to step 6: parameters
+# bitwise; the f32_product gradient against the f32 product's. (b)
+# rwkv6-7b at 8 of 32 layers: every wkv6_decode and wkv6_decode_backward
+# call of the training steps against its plain version, one layer's
+# recurrence gradient through WKV6Sequence against autograd through the
+# plain steps, then steps timed without the checks. (c) hubert-xlarge
+# uncut (48 layers) on SyntheticAudioSource: a finite, falling loss.
+# Every cell at batch 8, seq 128; the LM cells at correlation 0.9.
+TRAIN_LAYERS = {"qwen3-32b": 4, "rwkv6-7b": 8, "hubert-xlarge": 48}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CORR, TRAIN_SEED = 8, 128, 0.9, 0
+TRAIN_STEPS = 6          # every cell's run; the checkpointed run stops at 3
+TRAIN_KILL_AT = 3
+# the loop checkpoints at every step % TRAIN_CKPT_EVERY == 0: after step 0
+# only, in both halves of the pair. One checkpoint of qwen3 at 4 layers is
+# 27.3 GB of npz, and a call may write 45 GiB to its machine's disk in all
+TRAIN_CKPT_EVERY = TRAIN_STEPS
+HUBERT_LR = 1e-3
+# wkv6_decode_backward against its plain version: S̄ bitwise (two products
+# and a sum, rounded apart in both); r̄, k̄, v̄, w̄, ū are sums of dk or dv
+# products taken in another order: within atol + rtol·(the same sum of
+# |terms|), as the forward's readout
+WKVB_ATOL, WKVB_RTOL = 1e-5, 1e-5
+# one layer's recurrence gradient, WKV6Sequence against autograd through
+# the plain steps: 128-step chains of such sums; each input's gradient
+# within this share of its largest entry
+SEQ_GRAD_REL = 1e-4
+# the f32_product gradient (the f32 cotangent as two bf16 halves: 2^-16 of
+# it kept) against the f32 product's, each rounded once to bf16
+F32P_REL, F32P_ROUND = 2.0 ** -15, 2.0 ** -8
+
+
+def train_cfg(name: str):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), n_layers=TRAIN_LAYERS[name])
+
+
+def train_argv(arch: str, steps: int, ckpt_dir, *extra) -> list:
+    return ["--arch", arch, "--steps", str(steps), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--correlation",
+            str(TRAIN_CORR), "--seed", str(TRAIN_SEED), "--ckpt-dir",
+            str(ckpt_dir), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--log-every", "1", *extra]
+
+
+def wkvb_terms(mod, r, k, v, w, u, state, g_out, g_state):
+    """The scale of each backward output's rounding error: the plain
+    backward on the inputs' absolute values bounds the sum of |terms| of
+    r̄, k̄, v̄, w̄ and ū."""
+    return mod.wkv6_decode_backward_torch(
+        r.abs(), k.abs(), v.abs(), w, u.abs(), state.abs(), g_out.abs(),
+        g_state.abs())[:5]
+
+
+def wkvb_check(got, got_s, want, want_s, terms, what) -> float:
+    """S̄ bitwise; the others within WKVB_ATOL + WKVB_RTOL·Σ|terms|.
+    Returns the largest error of r̄, k̄, v̄, w̄, ū."""
+    if not torch.equal(got_s, want_s):
+        fail(f"{what}: wkv6_decode_backward S̄ differs from its plain "
+             "version")
+    err = 0.0
+    for name, g, w_, sc in zip("rkvwu", got, want, terms):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{what}: non-finite wkv6_decode_backward {name}̄")
+        e = (g - w_).abs()
+        if bool((e > WKVB_ATOL + WKVB_RTOL * sc).any()):
+            fail(f"{what}: wkv6_decode_backward {name}̄ disagrees with its "
+                 f"plain version: max err {float(e.max()):.3e}")
+        err = max(err, float(e.max()))
+    return err
+
+
+class TrainCheck:
+    """Holds every wkv6 step of a training run against its plain version
+    on that call's inputs: the forward steps (out within the forward's
+    tolerance, S' bitwise) and the backward steps (`wkvb_check`).
+    `WKV6Sequence` calls the two wrappers of `kernels.wkv6_decode` by name,
+    so they are swapped for checking ones while the run lasts; the plain
+    versions launch no kernel."""
+
+    NAMES = ("wkv6_decode", "wkv6_decode_backward")
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.orig = {n: getattr(mod, n) for n in self.NAMES}
+        self.checked = {n: 0 for n in self.NAMES}
+        self.max_err = {n: 0.0 for n in self.NAMES}
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(self.mod, n, getattr(self, n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+
+    def _note(self, name, err):
+        self.checked[name] += 1
+        self.max_err[name] = max(self.max_err[name], err)
+
+    def wkv6_decode(self, r, k, v, w, u, state, state_out=None):
+        before = state.clone() if state_out is None else state
+        out, dest = self.orig["wkv6_decode"](r, k, v, w, u, state, state_out)
+        want_o, want_s = self.mod.wkv6_decode_torch(r, k, v, w, u, before)
+        err, _ = wkv_check(out, dest, want_o, want_s,
+                           wkv_terms(r, k, v, u, before), "train path")
+        self._note("wkv6_decode", err)
+        return out, dest
+
+    def wkv6_decode_backward(self, r, k, v, w, u, state, g_out, g_state):
+        g0 = g_state.clone()
+        got = self.orig["wkv6_decode_backward"](r, k, v, w, u, state, g_out,
+                                                g_state)
+        *want, want_s = self.mod.wkv6_decode_backward_torch(
+            r, k, v, w, u, state, g_out, g0)
+        terms = wkvb_terms(self.mod, r, k, v, w, u, state, g_out, g0)
+        self._note("wkv6_decode_backward", wkvb_check(
+            got, g_state, want, want_s, terms, "train path"))
+        return got
+
+
+def n_params(params) -> int:
+    return sum(t.numel() for t in tensor_leaves(params).values())
+
+
+def train_batches(cfg, dev):
+    """The CLI's batches (`launch.train.run`'s batch_fn) of `cfg`."""
+    from repro_torch.data import make_source
+    from repro_torch.launch.specs import ShapeCell
+
+    src = make_source(cfg, ShapeCell("cli", "train", TRAIN_SEQ, TRAIN_BATCH),
+                      seed=TRAIN_SEED, correlation=TRAIN_CORR)
+    return lambda i: {k: torch.from_numpy(v).to(dev)
+                      for k, v in src.batch(i).items()}
+
+
+def timed_steps(label, cfg, dev, *, steps=TRAIN_STEPS, check=None,
+                falling=True, lr=3e-4) -> dict:
+    """`steps` train steps of `cfg` (the CLI's optimizer at `lr`, schedule
+    and batches) from init, each timed on the host clock around synchronize;
+    under `check` (a context manager) if given. Returns the run's losses,
+    step ms (after the first), launches, peak memory and final state."""
+    from repro_torch.kernels import backend
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, TRAIN_SEED, device=dev)
+    step = make_train_step(cfg, AdamWConfig(lr=lr), total_steps=steps,
+                           warmup_steps=max(steps // 20, 1))
+    batch = train_batches(cfg, dev)
+    losses, ms = [], []
+    backend.reset_launches()
+    with (check or contextlib.nullcontext()):
+        for i in range(steps):
+            b = batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+    counts = backend.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite training loss {losses}")
+    if falling and not losses[-1] < losses[0]:
+        fail(f"{label}: training loss did not fall: {losses}")
+    n = n_params(state["params"])
+    step_ms = statistics.median(ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n * tokens / (step_ms / 1e3 * BF16_FLOPS)
+    print(f"{label}: {n / 1e9:.3f} B parameters; losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step {step_ms:.1f} ms (median of steps 1-{steps - 1}; step 0 "
+          f"{ms[0]:.1f} ms), {tokens / (step_ms / 1e3):.0f} tokens/s, "
+          f"model-FLOPs share {mfu:.1%}; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {dict((k, v) for k, v in counts.items() if v)}")
+    return {"losses": losses, "step_ms": step_ms, "step_ms_all": ms,
+            "tokens_per_s": tokens / (step_ms / 1e3), "params": n,
+            "mfu": mfu, "peak_gib": peak / 2 ** 30, "launches": counts,
+            "state": state, "step": step, "batch": batch}
+
+
+def f32_product_grad_check(params, dev) -> dict:
+    """ops.f32_product's gradient (bf16 operands, f32 result: the chunked
+    cross-entropy's product) against autograd of the f32 product of the
+    same values, at the loss's shapes: a 1024-token chunk of normed hidden
+    states against the first 32768 columns of qwen3's tied head."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    d = params["embed"].shape[1]
+    a = torch.randn((TRAIN_BATCH * TRAIN_SEQ, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    b = params["embed"][:32768].T.detach().to(torch.bfloat16)
+    cot = torch.randn((a.shape[0], b.shape[1]), generator=gen, device=dev)
+    a1, b1 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    out = ops.f32_product(a1, b1)
+    if out.dtype != torch.float32 or out.grad_fn is None:
+        fail(f"f32_product: result {out.dtype}, grad_fn {out.grad_fn}")
+    ga, gb = torch.autograd.grad((out * cot).sum(), (a1, b1))
+    a2, b2 = (x.float().requires_grad_(True) for x in (a, b))
+    wa, wb = torch.autograd.grad(((a2 @ b2) * cot).sum(), (a2, b2))
+    errs = {}
+    for name, got, want in (("a", ga, wa), ("b", gb, wb)):
+        if got.dtype != torch.bfloat16:
+            fail(f"f32_product gradient of {name} is {got.dtype}")
+        e = (got.float() - want).abs()
+        tol = F32P_REL * want.abs().max() + F32P_ROUND * want.abs()
+        if bool((e > tol).any()):
+            fail(f"f32_product gradient of {name} disagrees with the f32 "
+                 f"product's: max err {float(e.max()):.3e}")
+        errs[name] = float((e / want.abs().max()).max())
+    print(f"f32_product gradient [{a.shape[0]},{d}]x[{d},{b.shape[1]}] bf16 "
+          f"against the f32 product's: max err / max|g| a {errs['a']:.2e}, "
+          f"b {errs['b']:.2e} (within 2^-15·max|g| + 2^-8·|g|)")
+    return errs
+
+
+def resume_pair(cfg, dev, straight) -> dict:
+    """(a): `launch.train.run` for TRAIN_KILL_AT steps (its ResilientLoop
+    checkpoints after step 0), the state dropped, then `--resume` to step
+    TRAIN_STEPS: parameters bitwise the straight run's."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch import train as tcli
+
+    parse = tcli.build_parser().parse_args
+    ckdir = pathlib.Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        backend.reset_launches()
+        res = tcli.run(cfg, parse(train_argv(
+            cfg.name, TRAIN_KILL_AT, ckdir, "--device", dev.type)),
+            total_steps=TRAIN_STEPS)
+        t_first = time.perf_counter() - t0
+        marks = sorted(p.name for p in ckdir.glob("*.COMPLETE"))
+        ck_bytes = sum(p.stat().st_size for p in ckdir.rglob("*.npz"))
+        del res                                   # the process "dies"
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = tcli.run(cfg, parse(train_argv(
+            cfg.name, TRAIN_STEPS - 1, ckdir, "--device", dev.type,
+            "--resume")), total_steps=TRAIN_STEPS)
+        t_resume = time.perf_counter() - t0
+        counts = backend.launch_counts()
+        if res["start"] != 1 or int(res["state"]["opt"]["step"]) != \
+                TRAIN_STEPS:
+            fail(f"resume started at {res['start']} and ended at step "
+                 f"{int(res['state']['opt']['step'])}")
+        got = {k: v.to("cpu", copy=True) for k, v in
+               tensor_leaves(res["state"]["params"]).items()}
+        differ = [k for k, v in straight.items() if not torch.equal(v, got[k])]
+        print(f"qwen3 resume pair: run of {TRAIN_KILL_AT} steps under "
+              f"ResilientLoop ({marks}; {ck_bytes / 1e9:.2f} GB of npz) "
+              f"{t_first:.1f} s, resumed at step {res['start']} to "
+              f"{TRAIN_STEPS} {t_resume:.1f} s; parameters bitwise the "
+              f"straight run's: {not differ} ({len(differ)} of "
+              f"{len(straight)} leaves differ{': ' + ', '.join(differ) if differ else ''})")
+        if differ:
+            fail("the resumed run's parameters are not bitwise the straight "
+                 f"run's: {differ}")
+        return {"ckpt_gb": ck_bytes / 1e9, "first_s": t_first,
+                "resume_s": t_resume, "markers": marks,
+                "resumed_losses": res["losses"], "launches": counts}
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def wkv_layer_grad_check(cfg, dev) -> dict:
+    """(b): the inputs of layer 0's WKV6Sequence in one training forward,
+    then its gradients (r, k, v, w, u, s0) under a random cotangent against
+    autograd through the plain steps (`wkv6_decode_torch`) on the card."""
+    from repro_torch.kernels import wkv6_decode as wmod
+    from repro_torch.models import init_params
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.train import loss_fn
+
+    captured = []
+    orig = ssm_mod.WKV6Sequence
+
+    class Recording:
+        @staticmethod
+        def apply(*args):
+            if not captured:
+                captured.extend(a.detach().clone() for a in args)
+            return orig.apply(*args)
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    params = init_params(cfg1, TRAIN_SEED, device=dev)
+    ssm_mod.WKV6Sequence = Recording
+    try:
+        with torch.no_grad():
+            loss_fn(params, cfg1, train_batches(cfg, dev)(0))
+    finally:
+        ssm_mod.WKV6Sequence = orig
+    del params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    b, s, h, dk = captured[0].shape
+    g_out = torch.randn((b, s, h, dk), generator=gen, device=dev)
+    ka = [x.clone().requires_grad_(True) for x in captured]
+    out, _ = wmod.WKV6Sequence.apply(*ka)
+    got = torch.autograd.grad((out * g_out).sum(), ka)
+    pa = [x.clone().requires_grad_(True) for x in captured]
+    st, outs = pa[5], []
+    for t in range(s):
+        o, st = wmod.wkv6_decode_torch(pa[0][:, t], pa[1][:, t], pa[2][:, t],
+                                       pa[3][:, t], pa[4], st)
+        outs.append(o)
+    want = torch.autograd.grad((torch.stack(outs, 1) * g_out).sum(), pa)
+    errs = {}
+    for name, g, w in zip(("r", "k", "v", "w", "u", "s0"), got, want):
+        e = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        if not bool(torch.isfinite(g).all()) or e > SEQ_GRAD_REL * scale:
+            fail(f"WKV6Sequence gradient of {name} disagrees with autograd "
+                 f"through the plain steps: max err {e:.3e} (max |g| "
+                 f"{scale:.3e})")
+        errs[name] = e / max(scale, 1e-30)
+    print(f"WKV6Sequence, layer 0 of rwkv6 ([{b},{s},{h},{dk}], w in "
+          f"[{float(captured[3].min()):.4f}, {float(captured[3].max()):.4f}])"
+          f": gradients against autograd through the plain steps, max err / "
+          f"max|g|: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs
+
+
+def wkvb_timing(dev, results, max_err) -> None:
+    """wkv6_decode_backward at rwkv6-7b's [8, 64, 64] x 64 x 64 against its
+    plain version: three input cases checked (w near 1 in the third), then
+    timed beside its bound."""
+    from repro_torch.kernels import wkv6_decode as wmod
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    shape = (WKV_B, WKV_H, WKV_D)
+    for case in range(3):
+        r, k, v, go = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        w = torch.rand(shape, generator=gen, device=dev)
+        w = 1.0 - w * 0.01 if case == 2 else w * 0.9 + 0.05
+        u = torch.randn((WKV_H, WKV_D), generator=gen, device=dev)
+        st, gs = (torch.randn((*shape, WKV_D), generator=gen, device=dev)
+                  * (1 + 10 * case) for _ in range(2))
+        g0 = gs.clone()
+        got = wmod.wkv6_decode_backward(r, k, v, w, u, st, go, gs)
+        *want, want_s = wmod.wkv6_decode_backward_torch(r, k, v, w, u, st,
+                                                        go, g0)
+        err = wkvb_check(got, gs, want, want_s,
+                         wkvb_terms(wmod, r, k, v, w, u, st, go, g0),
+                         "wkv6_decode_backward")
+        max_err["wkv6_decode_backward"] = max(
+            max_err["wkv6_decode_backward"], err)
+    t_rep = time_ms(lambda: wmod.wkv6_decode_backward(r, k, v, w, u, st, go,
+                                                      gs))
+    t_p = time_ms(lambda: wmod.wkv6_decode_backward_torch(
+        r, k, v, w, u, st, go, gs), iters=5)
+    t_e = time_ms(lambda: wmod.wkv6_decode_backward(r, k, v, w, u, st, go,
+                                                    gs), graph=False)
+    # as WKV6Sequence's backward runs it: t = S-1 ... 0 over S distinct
+    # state slabs of one buffer (1.08 GB at S = 128), each read from HBM,
+    # against one Ḡ carried in place; a repeated call on one input finds its
+    # 26.5 MB in the 50 MB L2
+    s_len = TRAIN_SEQ
+    seq = [torch.randn((s_len, *shape), generator=gen, device=dev)
+           for _ in range(4)]
+    ws = torch.rand((s_len, *shape), generator=gen, device=dev) * 0.1 + 0.9
+    states = torch.randn((s_len + 1, *shape, WKV_D), generator=gen,
+                         device=dev)
+
+    def backward_loop():
+        for t in range(s_len - 1, -1, -1):
+            wmod.wkv6_decode_backward(seq[0][t], seq[1][t], seq[2][t], ws[t],
+                                      u, states[t], seq[3][t], gs)
+
+    t_k = time_ms(backward_loop, iters=2) / s_len
+    del seq, ws, states
+    # S and Ḡ read, S̄ written; r, k, w, v, ḡo read once, u once; r̄, k̄, w̄,
+    # ū, v̄ written; ~16 f32 operations per state element
+    byts = 4 * (3 * st.numel() + 10 * r.numel() + u.numel())
+    flops = 16 * st.numel()
+    bound = max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    print(f"wkv6_decode_backward [{WKV_B},{WKV_H},{WKV_D}] x {WKV_D}x{WKV_D}:"
+          f" three cases S̄ bitwise, the rest within atol {WKVB_ATOL} + rtol "
+          f"{WKVB_RTOL}·Σ|terms| (max err "
+          f"{max_err['wkv6_decode_backward']:.3e}); {t_k:.4f} ms a step of "
+          f"the {s_len}-step backward loop (one call repeated on one input, "
+          f"L2-resident: {t_rep:.4f}; eager call {t_e:.4f}) bound "
+          f"{bound:.6f} ({byts / 1e6:.1f} MB) plain {t_p:.4f}; library: none "
+          "(no single PyTorch call computes the step's gradient)")
+    results["wkv6_decode_backward"] = {
+        "shape": f"[{WKV_B},{WKV_H},{WKV_D}] f32, {WKV_D}x{WKV_D} state",
+        "ms": t_k, "ms_repeated_call": t_rep, "plain_ms": t_p,
+        "bound_ms": bound, "bound_by": (
+            "bytes" if byts / HBM_BYTES_PER_S >= flops / F32_FLOPS
+            else "operations"), "library_ms": None,
+    }
+
+
+def train_phase(dev, results, max_err) -> tuple[dict, dict]:
+    """Phase 16. Returns ({cell: its JSON}, {run: launch counts})."""
+    from repro_torch.kernels import wkv6_decode as wmod
+
+    out, launches = {}, {}
+    wkvb_timing(dev, results, max_err)
+
+    # (a) qwen3-32b, 4 layers: the straight run, then the resume pair
+    cfg = train_cfg("qwen3-32b")
+    run = timed_steps(f"qwen3-32b {cfg.n_layers} layers, straight run",
+                      cfg, dev)
+    straight = {k: v.to("cpu", copy=True) for k, v in
+                tensor_leaves(run["state"]["params"]).items()}
+    launches["qwen3 straight"] = run["launches"]
+    out["qwen3"] = {k: v for k, v in run.items()
+                    if k not in ("state", "step", "batch", "launches")}
+    out["qwen3"]["f32_product_grad"] = f32_product_grad_check(
+        run["state"]["params"], dev)
+    st, step, batch = run["state"], run["step"], run["batch"]
+    wall, busy, _ = profile_step(lambda: step(st, batch(TRAIN_STEPS)),
+                                 "one qwen3 train step", grad=True)
+    out["qwen3"]["busy_share"] = busy / wall
+    del run, st, step
+    pair = resume_pair(cfg, dev, straight)
+    launches["qwen3 train.run + resume"] = pair.pop("launches")
+    out["qwen3"]["resume"] = pair
+    del straight
+
+    # (b) rwkv6-7b, 8 layers: checked steps, the layer gradient, timed steps
+    cfg = train_cfg("rwkv6-7b")
+    with TrainCheck(wmod) as chk:
+        run = timed_steps(f"rwkv6-7b {cfg.n_layers} layers, every wkv6 call "
+                          "checked", cfg, dev, steps=2, check=chk,
+                          falling=False)
+    need = run["launches"]
+    for kn in ("wkv6_decode", "wkv6_decode_backward"):
+        if chk.checked[kn] != need[kn] or need[kn] <= 0:
+            fail(f"train path: {chk.checked[kn]} {kn} calls checked of "
+                 f"{need[kn]} launched")
+        max_err[kn] = max(max_err[kn], chk.max_err[kn])
+    print(f"rwkv6 checked steps: {chk.checked['wkv6_decode']} wkv6_decode "
+          f"calls (max err {chk.max_err['wkv6_decode']:.3e}) and "
+          f"{chk.checked['wkv6_decode_backward']} wkv6_decode_backward "
+          f"calls (max err {chk.max_err['wkv6_decode_backward']:.3e}) "
+          "against their plain versions")
+    launches["rwkv6 checked"] = run["launches"]
+    del run
+    errs = wkv_layer_grad_check(cfg, dev)
+    run = timed_steps(f"rwkv6-7b {cfg.n_layers} layers", cfg, dev)
+    launches["rwkv6"] = run["launches"]
+    out["rwkv6"] = {k: v for k, v in run.items()
+                    if k not in ("state", "step", "batch", "launches")}
+    out["rwkv6"]["layer_grad_rel_err"] = errs
+    st, step, batch = run["state"], run["step"], run["batch"]
+    wall, busy, _ = profile_step(lambda: step(st, batch(TRAIN_STEPS)),
+                                 "one rwkv6 train step", grad=True)
+    out["rwkv6"]["busy_share"] = busy / wall
+    del run, st, step
+
+    # (c) hubert-xlarge, uncut. SyntheticAudioSource draws its labels
+    # uniformly, apart from the frames: the loss falls only as the random
+    # head learns that marginal, which lr 1e-3 shows within 6 steps
+    cfg = train_cfg("hubert-xlarge")
+    run = timed_steps(f"hubert-xlarge {cfg.n_layers} layers", cfg, dev,
+                      lr=HUBERT_LR)
+    launches["hubert"] = run["launches"]
+    out["hubert"] = {k: v for k, v in run.items()
+                     if k not in ("state", "step", "batch", "launches")}
+    st, step, batch = run["state"], run["step"], run["batch"]
+    wall, busy, _ = profile_step(lambda: step(st, batch(TRAIN_STEPS)),
+                                 "one hubert train step", grad=True)
+    out["hubert"]["busy_share"] = busy / wall
+    del run, st, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -4902,10 +5415,22 @@ def main() -> None:
     ckpt["seconds"] = time.perf_counter() - _PHASE["t0"]
     print(json.dumps({"ckpt": ckpt}))
 
+    # ------------------------------------------------------- 16. training
+    phase("16. training (qwen3-32b 4 layers with the resume pair, rwkv6-7b "
+          "8 layers, hubert-xlarge uncut)")
+    train, launches_train = train_phase(dev, results, max_err)
+    for kn, run in (("wkv6_decode", "rwkv6"),
+                    ("wkv6_decode_backward", "rwkv6")):
+        if launches_train[run][kn] <= 0:
+            fail(f"{kn} was not launched on the rwkv6 training path")
+    train["seconds"] = time.perf_counter() - _PHASE["t0"]
+    print(json.dumps({"train": train}))
+
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
                      "wkv6_decode": launches_rwkv,
-                     "reuse_matmul_int8": launches_int8}
+                     "reuse_matmul_int8": launches_int8,
+                     "wkv6_decode_backward": launches_train["rwkv6"]}
     for kn, (src, replaces) in KERNEL_META.items():
         r = results[kn]
         launches = path_launches.get(kn, launches_default)[kn]
@@ -4927,7 +5452,9 @@ def main() -> None:
                         "launches_sharded": {
                             run: c[kn] for run, c in launches_sharded.items()},
                         "launches_ckpt": {
-                            run: c[kn] for run, c in launches_ckpt.items()}})
+                            run: c[kn] for run, c in launches_ckpt.items()},
+                        "launches_train": {
+                            run: c[kn] for run, c in launches_train.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))

@@ -43,9 +43,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 SOURCES = ("delta_quant", "reuse_matmul", "reuse_matmul_ragged",
-           "reuse_matmul_int8", "wkv6_decode")
+           "reuse_matmul_int8", "wkv6_decode", "wkv6_backward")
 KERNELS = ("delta_quant", "reuse_matmul_output", "reuse_matmul_input",
-           "reuse_matmul_ragged", "reuse_matmul_int8", "wkv6_decode")
+           "reuse_matmul_ragged", "reuse_matmul_int8", "wkv6_decode",
+           "wkv6_decode_backward")
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,8 +82,15 @@ SIGNATURES = {
         "rt_reuse_matmul_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "wkv6_decode": {
-        # r, k, v, w, u, state, out, BH, H, dk, dv, stream
-        "rt_wkv6_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # r, k, v, w, u, state, state_out, out, BH, H, dk, dv, stream
+        "rt_wkv6_decode": (_P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _P),
+    },
+    "wkv6_backward": {
+        # r, k, v, w, u, state, gout, gstate, gr, gk, gv, gw, gu, BH, H, dk,
+        # dv, stream
+        "rt_wkv6_decode_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 
@@ -224,6 +232,21 @@ def best() -> str:
     for name in SOURCES:
         library(name)  # raises on a build failure — never degrades
     return "cuda"
+
+
+def require_device(name: str) -> torch.device:
+    """A launcher's `--device`: "cpu" as it is; "cuda" only with a card on
+    which the kernel substrate resolves to "cuda", else RuntimeError."""
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "--device cuda (the default) but no CUDA device is available;"
+                " pass --device cpu to run the plain PyTorch versions")
+        if best() != "cuda":
+            raise RuntimeError(
+                f"the kernel substrate is {best()!r}: the Hopper "
+                "kernels need a device of capability 9.0 or newer")
+    return torch.device(name)
 
 
 def tag() -> dict:

@@ -218,15 +218,56 @@ def reuse_matmul_ragged(
     return out[:m, :n]
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bf16 product with an f32 output ([M,K]x[K,N] or batched)."""
+    mm = torch.bmm if a.ndim == 3 else torch.mm
+    return mm(a, b, out_dtype=torch.float32)
+
+
+def _split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """g (f32) as hi + lo, two bf16 tensors: 16 bits of g's 24-bit mantissa,
+    so a product with a bf16 operand keeps g to a relative 2^-16."""
+    hi = g.to(torch.bfloat16)
+    return hi, (g - hi.float()).to(torch.bfloat16)
+
+
+class _BF16ProductF32(torch.autograd.Function):
+    """a @ b of two bf16 tensors with an f32 result, and its gradient, which
+    `aten::mm.dtype` lacks. The backward products keep both operands in
+    bf16 (the weight is never widened): the f32 cotangent is split into a
+    bf16 pair (`_split_bf16`), each half multiplied with an f32 output, so
+    the gradient is the f32 product's to about 2^-16 of its terms; each
+    gradient is rounded once to bf16, its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        hi, lo = _split_bf16(g.float().contiguous())
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            bt = b.transpose(-1, -2)
+            ga = (_mm_f32(hi, bt) + _mm_f32(lo, bt)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            at = a.transpose(-1, -2)
+            gb = (_mm_f32(at, hi) + _mm_f32(at, lo)).to(b.dtype)
+        return ga, gb
+
+
 def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an f32 result, the reference's preferred_element_type=f32
     product outside any kernel ([M,K]x[K,N], or batched [E,M,K]x[E,K,N]). On
     the card a bf16 pair is one bf16 product with an f32 output, so the
-    weight is never widened; elsewhere (the CPU twin, f32 models) both
-    operands are taken to f32."""
+    weight is never widened, with its gradient (`_BF16ProductF32`);
+    elsewhere (the CPU twin, f32 models) both operands are taken to f32."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        mm = torch.bmm if a.ndim == 3 else torch.mm
-        return mm(a, b, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _BF16ProductF32.apply(a, b)
+        return _mm_f32(a, b)
     return a.float() @ b.float()
 
 

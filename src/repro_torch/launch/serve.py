@@ -264,16 +264,7 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
         # so even a journal/sensor-only run carries its replica identity
         events.set_ids(replica=args.replica_id)
         print(f"obs: replica={args.replica_id}")
-    if args.device == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "--device cuda (the default) but no CUDA device is available;"
-                " pass --device cpu to run the plain PyTorch versions")
-        if backend.best() != "cuda":
-            raise RuntimeError(
-                f"the kernel substrate is {backend.best()!r}: the Hopper "
-                "kernels need a device of capability 9.0 or newer")
-    device = torch.device(args.device)
+    device = backend.require_device(args.device)
     # One shared journal: the restore-precedence pass (below) and the online
     # controller append to the same audit stream.
     journal = None

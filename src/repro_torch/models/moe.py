@@ -142,3 +142,18 @@ def moe_forward(
                                         p["shared_wo"], None,
                                         reuse_ctx).float()
     return out.reshape(b, s, d).to(x.dtype)
+
+
+def router_aux_loss(p: Params, cfg: ModelConfig,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balance loss of one MoE block on x [B, S, d]:
+    E · Σ_e (share of tokens whose top-1 expert is e) · (mean gate of e),
+    f32. The gradient reaches the router through the mean gates only (the
+    top-1 shares are counts). The reference's train step does not add it to
+    the loss, and neither does `train.loss_fn`."""
+    d = x.shape[-1]
+    h = apply_norm(p["norm"], x, cfg.norm_eps).reshape(-1, d)
+    gates = torch.softmax(h.float() @ p["router"], dim=-1)
+    top_e = torch.argmax(gates, dim=-1)
+    density = F.one_hot(top_e, cfg.n_experts).float().mean(dim=0)
+    return cfg.n_experts * torch.sum(density * gates.mean(dim=0))

@@ -10,7 +10,11 @@ The recurrence over the S tokens of a call is a Python loop that runs one
 `ops.wkv6_decode` step per token, so prefill (S > 1) and decode (S = 1) both
 go through the kernel. The state passed in is a layer's lane of the stacked
 decode state and is updated IN PLACE: the wkv lane by the kernel, the token
-shift lanes by a copy of the last token.
+shift lanes by a copy of the last token. With no state (training, and any
+forward without a decode state) every block starts from a zero state and
+returns its new state as values, writing nothing in place, so autograd can
+pass through it: the wkv recurrence is then `WKV6Sequence`, the same kernel
+step with a backward kernel of its own.
 
 Mamba2 (the zamba2 hybrid's blocks): a depthwise causal conv of width 4 over
 [x | B | C], a per-head scalar decay exp(softplus(dt)·A) and the selective
@@ -20,7 +24,8 @@ state h ∈ R^{hd×state} per head,
 
 run one token at a time in the reference's step order (its chunked scan is
 a rematerialisation device for training and keeps that order), for prefill
-and decode alike. The conv state and h are written in place. Its
+and decode alike. A given conv state and h are written in place; with no
+state, the block starts from zeros and returns both as values. Its
 projections run without reuse, as in the reference.
 """
 
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.reuse_cache import kernel_impl
 from repro_torch.kernels import ops
+from repro_torch.kernels.wkv6_decode import WKV6Sequence
 from repro_torch.models.layers import Params, _maybe_reuse_matmul, rms_norm
 
 RWKV_LORA = 32
@@ -101,6 +107,14 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def _shifted(x: torch.Tensor, shift: torch.Tensor | None) -> torch.Tensor:
+    """x delayed by one token: the state's last token (zeros without a
+    state) first, then x[:, :-1]."""
+    if shift is None:
+        return F.pad(x[:, :-1], (0, 0, 1, 0))
+    return torch.cat([shift[:, None], x[:, :-1]], dim=1)
+
+
 def _rwkv_projections(p: Params, cfg: ModelConfig, x, x_shift, reuse_ctx,
                       prefix):
     """Token-shift mixing + r/k/v/g/decay projections. x: [B, S, d]."""
@@ -126,44 +140,54 @@ def _rwkv_projections(p: Params, cfg: ModelConfig, x, x_shift, reuse_ctx,
 
 
 def rwkv6_time_mix(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict, *,
+    p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict | None, *,
     reuse_ctx=None, prefix: str = "rwkv",
 ) -> tuple[torch.Tensor, dict]:
     """x: [B, S, d]; state: {"shift": [B, d], "wkv": [B, H, dk, dv] f32},
     both updated in place. The wkv step runs on the reuse engine's substrate
     when reuse is on, else on "cuda" (the kernel on CUDA tensors, its plain
-    version on CPU tensors)."""
+    version on CPU tensors). With `state=None` the block starts from a zero
+    state and returns the new one as values (`WKV6Sequence`)."""
     b, s, d = x.shape
     hd = cfg.ssm_head_dim
     n_h = d // hd
     tm = p["tmix"]
-    impl = (kernel_impl(reuse_ctx[0].impl) if reuse_ctx is not None
-            else "cuda")
 
-    x_shift = torch.cat([state["shift"][:, None], x[:, :-1]], dim=1)
+    x_shift = _shifted(x, None if state is None else state["shift"])
     r, k, v, g, w = _rwkv_projections(p, cfg, x, x_shift, reuse_ctx, prefix)
     rh, kh, vh = (a.reshape(b, s, n_h, hd).float() for a in (r, k, v))
     wh = w.reshape(b, s, n_h, hd)
     u = tm["bonus"].float()
-    out = torch.stack([
-        ops.wkv6_decode(rh[:, t], kh[:, t], vh[:, t], wh[:, t], u,
-                        state["wkv"], impl=impl)
-        for t in range(s)], dim=1).reshape(b, s, d)
+    if state is None:
+        s0 = torch.zeros((b, n_h, hd, hd), dtype=torch.float32,
+                         device=x.device)
+        out, wkv = WKV6Sequence.apply(rh, kh, vh, wh, u, s0)
+        out = out.reshape(b, s, d)
+    else:
+        impl = (kernel_impl(reuse_ctx[0].impl) if reuse_ctx is not None
+                else "cuda")
+        out = torch.stack([
+            ops.wkv6_decode(rh[:, t], kh[:, t], vh[:, t], wh[:, t], u,
+                            state["wkv"], impl=impl)
+            for t in range(s)], dim=1).reshape(b, s, d)
 
     out = rms_norm(out.to(x.dtype), tm["ln_x"]["scale"], cfg.norm_eps) * g
     out = _maybe_reuse_matmul(f"{prefix}_wo", out, tm["wo"], None, reuse_ctx)
+    if state is None:
+        return out.to(x.dtype), {"shift": x[:, -1], "wkv": wkv}
     state["shift"].copy_(x[:, -1])
     return out.to(x.dtype), state
 
 
 def rwkv6_channel_mix(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict, *,
+    p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict | None, *,
     reuse_ctx=None, prefix: str = "rwkv_cmix",
 ) -> tuple[torch.Tensor, dict]:
-    """x: [B, S, d]; state: {"shift": [B, d]}, updated in place."""
+    """x: [B, S, d]; state: {"shift": [B, d]}, updated in place; with
+    `state=None`, a zero shift and the new one returned as a value."""
     cm = p["cmix"]
     dt = x.dtype
-    x_shift = torch.cat([state["shift"][:, None], x[:, :-1]], dim=1)
+    x_shift = _shifted(x, None if state is None else state["shift"])
     sx = x_shift - x
     xk = x + sx * cm["maa_k"].to(dt)
     xr = x + sx * cm["maa_r"].to(dt)
@@ -172,6 +196,8 @@ def rwkv6_channel_mix(
     kv = _maybe_reuse_matmul(f"{prefix}_wv", k, cm["wv"], None, reuse_ctx)
     r = _maybe_reuse_matmul(f"{prefix}_wr", xr, cm["wr"], None, reuse_ctx)
     out = torch.sigmoid(r.float()).to(dt) * kv
+    if state is None:
+        return out, {"shift": x[:, -1]}
     state["shift"].copy_(x[:, -1])
     return out, state
 
@@ -244,11 +270,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def mamba2_forward(
-    p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict, *,
+    p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict | None, *,
     reuse_ctx=None, prefix: str = "mamba",
 ) -> tuple[torch.Tensor, dict]:
     """x: [B, S, d]; state: {"conv": [B, K-1, C], "h": [B, nh, hd, state]
-    f32}, both updated in place."""
+    f32}, both updated in place; with `state=None`, zeros, and the new
+    state returned as values."""
     b, s, _ = x.shape
     di, st, nh, hd = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
                       cfg.ssm_head_dim)
@@ -257,9 +284,11 @@ def mamba2_forward(
     zxbcdt = _maybe_reuse_matmul(f"{prefix}_in", hin, p["in_proj"], None,
                                  reuse_ctx)
     z, xc, bc, cc, dt = torch.split(zxbcdt, [di, di, st, st, nh], dim=-1)
-    conv_out, conv_state = _causal_conv(torch.cat([xc, bc, cc], dim=-1),
-                                        p["conv_w"], p["conv_b"],
-                                        state["conv"])
+    conv_in = torch.cat([xc, bc, cc], dim=-1)
+    conv0 = (state["conv"] if state is not None else conv_in.new_zeros(
+        (b, MAMBA_CONV_K - 1, conv_in.shape[-1])))
+    conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
+                                        conv0)
     conv_out = F.silu(conv_out.float()).to(dt_)
     xc, bc, cc = torch.split(conv_out, [di, st, st], dim=-1)
 
@@ -267,7 +296,8 @@ def mamba2_forward(
     decay = torch.exp(dt * -torch.exp(p["A_log"]))                # [B, S, nh]
     xh = xc.reshape(b, s, nh, hd).float()
     bf, cf = bc.float(), cc.float()
-    h = state["h"]
+    h = (state["h"] if state is not None else torch.zeros(
+        (b, nh, hd, st), dtype=torch.float32, device=x.device))
     ys = []
     for t in range(s):
         dx = dt[:, t, :, None] * xh[:, t]                         # [B, nh, hd]
@@ -280,6 +310,8 @@ def mamba2_forward(
     y = y * F.silu(z.float()).to(dt_)
     out = _maybe_reuse_matmul(f"{prefix}_out", y, p["out_proj"], None,
                               reuse_ctx)
+    if state is None:
+        return out.to(dt_), {"conv": conv_state, "h": h}
     state["conv"].copy_(conv_state)
     state["h"].copy_(h)
     return out.to(dt_), state

@@ -529,6 +529,78 @@ def test_wkv6_decode_matches_plain_on_card(card, b, h, dk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,dk", [(8, 64, 64), (2, 4, 32), (3, 5, 128)])
+def test_wkv6_decode_backward_matches_plain_on_card(card, b, h, dk):
+    """The step's gradient: S̄ (written over ∂L/∂S' in place) bitwise; r̄,
+    k̄, v̄, w̄ and ū within atol 1e-5 + rtol 1e-5 of the sum of |terms| (the
+    plain backward of the absolute values bounds it): dk- or dv-term f32
+    sums in another order. One launch counted."""
+    from repro_torch.kernels.wkv6_decode import (
+        wkv6_decode_backward,
+        wkv6_decode_backward_torch,
+    )
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    r, k, v, g_out = (torch.randn((b, h, dk), generator=gen, device=card)
+                      for _ in range(4))
+    u = torch.randn((h, dk), generator=gen, device=card)
+    w = torch.rand((b, h, dk), generator=gen, device=card) * 0.9 + 0.05
+    state, g_state = (torch.randn((b, h, dk, dk), generator=gen, device=card)
+                      for _ in range(2))
+    g0 = g_state.clone()
+    *want, want_s = wkv6_decode_backward_torch(r, k, v, w, u, state, g_out,
+                                               g0)
+    terms = wkv6_decode_backward_torch(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                                       state.abs(), g_out.abs(), g0.abs())[:5]
+    before = backend.launch_counts()["wkv6_decode_backward"]
+    got = wkv6_decode_backward(r, k, v, w, u, state, g_out, g_state)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["wkv6_decode_backward"] == before + 1
+    assert torch.equal(g_state, want_s)
+    for name, a, e, sc in zip("rkvwu", got, want, terms):
+        assert bool(((a - e).abs() <= 1e-5 + 1e-5 * sc).all()), name
+
+
+@pytest.mark.gpu
+def test_wkv6_decode_state_out_keeps_the_in_place_step(card):
+    """The forward with a separate output state writes S' there, bitwise
+    the in-place step's, leaves the input state as it was, and gives the
+    same out bitwise; WKV6Sequence's gradients on the card match autograd
+    through the plain steps."""
+    from repro_torch.kernels.wkv6_decode import WKV6Sequence
+
+    gen = torch.Generator(device=card).manual_seed(2)
+    b, h, dk = 8, 64, 64
+    r, k, v, u = (torch.randn(shape, generator=gen, device=card)
+                  for shape in ((b, h, dk),) * 3 + ((h, dk),))
+    w = torch.rand((b, h, dk), generator=gen, device=card) * 0.9 + 0.05
+    state = torch.randn((b, h, dk, dk), generator=gen, device=card)
+    keep, out_state = state.clone(), torch.empty_like(state)
+    o1, s1 = wkv6_decode(r, k, v, w, u, state, out_state)
+    assert s1 is out_state and torch.equal(state, keep)
+    o2, s2 = wkv6_decode(r, k, v, w, u, state)
+    assert s2 is state and torch.equal(o1, o2) and torch.equal(s1, s2)
+
+    s_len = 6
+    ins = [torch.randn((b, s_len, h, dk), generator=gen, device=card)
+           for _ in range(3)]
+    ins += [torch.rand((b, s_len, h, dk), generator=gen, device=card) * 0.9
+            + 0.05, u, keep]
+    g_out = torch.randn((b, s_len, h, dk), generator=gen, device=card)
+    ka = [x.clone().requires_grad_(True) for x in ins]
+    out, _ = WKV6Sequence.apply(*ka)
+    got = torch.autograd.grad((out * g_out).sum(), ka)
+    pa = [x.clone().requires_grad_(True) for x in ins]
+    st, outs = pa[5], []
+    for t in range(s_len):
+        o, st = wkv6_decode_torch(*(x[:, t] for x in pa[:4]), pa[4], st)
+        outs.append(o)
+    want = torch.autograd.grad((torch.stack(outs, 1) * g_out).sum(), pa)
+    for g, e in zip(got, want):
+        assert float((g - e).abs().max()) <= 1e-4 * float(e.abs().max())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m,bm,k,n,case", [
     (8, 8, 1024, 384, "split"), (16, 8, 1024, 384, "split"),
     (16, 16, 1024, 384, "split"), (128, 128, 1024, 384, "split"),

@@ -236,6 +236,15 @@ def test_port_imports_no_jax_and_no_reference_package():
         "mixtral_8x7b.py", "llama4_scout_17b_a16e.py"}
     assert "quantize.py" in {f.name for f in files
                              if f.parent.name == "quant"}
+    # and training
+    assert {f.name for f in files if f.parent.name == "train"} >= {
+        "train_step.py", "__init__.py"}
+    assert {f.name for f in files if f.parent.name == "optim"} >= {
+        "adamw.py", "compression.py", "schedules.py", "__init__.py"}
+    assert {f.name for f in files if f.parent.name == "data"} >= {
+        "pipeline.py", "__init__.py"}
+    assert {"train.py", "specs.py"} <= {f.name for f in files
+                                        if f.parent.name == "launch"}
     bad = []
     for f in files:
         for mod in _imports(f):
