@@ -268,6 +268,21 @@ every phase's failure is fatal (non-zero exit, no result line):
                 share, peak memory and device busy share (one profiled
                 step); wkv6_decode_backward at [8,64,64]x64x64 checked and
                 timed beside its bound and its plain version
+  17. roofline — the analytic roofline model (repro_torch.roofline), priced
+                at the H100 SXM5's datasheet rates: (a) every phase 8a
+                site's sweep (dense_gemm, the masked kernel, ragged at its
+                budget, compact; M = 8) through validate_kernel_sweep: rank
+                correlations, direction agreement, measured and predicted
+                break-even and ok, printed as a finding (the model prices
+                the reference's f32 XLA tiers; a missing site, a malformed
+                report or a row it cannot price fails); (b) cell_cost at
+                MeshSpec(1, 1) for every graph serve (its config at its cut
+                depth, decode, seq_len its --cache-len, its batch slots),
+                phase 8's measured runs (also at the weight_byte_skip their
+                SensorReports measured) and phase 16's three training cells
+                (batch 8, seq 128; model_flops_per_step against phase 16's
+                numel-based 6·N·T): compute, memory, dominant and step ms
+                beside the card's replay (or step) and busy ms
 
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
@@ -276,7 +291,7 @@ sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
 closed loops; the controlled serve and the basic-mode product) and of
 phase 10, a JSON line of phase 11, a JSON line of phase 12, a JSON line
 of phase 13, a JSON line of phase 14, a JSON line of phase 15, a JSON line
-of phase 16, the kernels JSON line (launch counts from the serve runs, the
+of phase 16, a JSON line of phase 17 ({"roofline": ...}), the kernels JSON line (launch counts from the serve runs, the
 int8 path and the rwkv6 training run, and per phase 8-16 run; errors and
 times from phases 3 and 16)
 and the card's name and power limit; the last line is {"ok": true,
@@ -798,6 +813,10 @@ CORRELATION, MEASURED_SEED = 0.95, 0
 # decode steps a run: rwkv6's 32-layer eager step under the per-call checks
 # takes about a second, so it runs fewer
 MEASURED_STEPS = {"qwen3-32b": 24, "rwkv6-7b": 12}
+# the runner's KV extent, passed to every measured run (phase 17 prices it)
+MEASURED_CACHE_LEN = 64
+# the serve whose config phase 8 measures each arch on (phase 4's, 6's)
+MEASURED_SERVE = {"qwen3-32b": "qwen3 default", "rwkv6-7b": "rwkv6"}
 # the three float ΔW GEMMs are one template, `cluster_gemm`, named in a
 # profile by its tile list
 GEMM_LISTS = {"MaskList": "reuse_matmul_output",
@@ -997,7 +1016,7 @@ def measured_pair(label, arch, cfg, params, *, steps, batch, policy, dev,
 
     kw = dict(steps=steps, batch=batch, correlation=correlation,
               seed=MEASURED_SEED, device=dev, params=params, cfg=cfg,
-              **run_kw)
+              cache_len=MEASURED_CACHE_LEN, **run_kw)
     runs, logs = [], []
     for how in ("eager", "timed", "profiled"):
         gc.collect()
@@ -1147,7 +1166,8 @@ def measured_decode_phase(cfg, rcfg, dev, graph_rows, max_err) -> dict:
     (c) fit: the record's JSONL through load_trace, fit_trace at the
     measured gate for the kernel tier, save_table, load_tuned_policy; (d)
     exploit: the same stream on the tuned policy, eager-checked and as
-    graphs. Prints a JSON line of the runs; returns {run: launch counts}."""
+    graphs. Prints a JSON line of the runs; returns ({run: launch counts},
+    the sweep, the runs' rows)."""
     from repro_torch.core.policy import ReusePolicy
     from repro_torch.models import init_params
     from repro_torch.tune import (
@@ -1261,7 +1281,7 @@ def measured_decode_phase(cfg, rcfg, dev, graph_rows, max_err) -> dict:
             del md, params
     print(json.dumps({"measured_decode": measured, "sweep": sweep,
                       "break_even": break_even, "fitted": fitted}))
-    return launches_measured
+    return launches_measured, sweep, measured
 
 
 # phase 9: the online control plane (repro_torch.control) on the reference's
@@ -4423,6 +4443,7 @@ def train_phase(dev, results, max_err) -> tuple[dict, dict]:
     wall, busy, _ = profile_step(lambda: step(st, batch(TRAIN_STEPS)),
                                  "one qwen3 train step", grad=True)
     out["qwen3"]["busy_share"] = busy / wall
+    out["qwen3"]["busy_ms"] = busy
     del run, st, step
     pair = resume_pair(cfg, dev, straight)
     launches["qwen3 train.run + resume"] = pair.pop("launches")
@@ -4458,6 +4479,7 @@ def train_phase(dev, results, max_err) -> tuple[dict, dict]:
     wall, busy, _ = profile_step(lambda: step(st, batch(TRAIN_STEPS)),
                                  "one rwkv6 train step", grad=True)
     out["rwkv6"]["busy_share"] = busy / wall
+    out["rwkv6"]["busy_ms"] = busy
     del run, st, step
 
     # (c) hubert-xlarge, uncut. SyntheticAudioSource draws its labels
@@ -4473,10 +4495,197 @@ def train_phase(dev, results, max_err) -> tuple[dict, dict]:
     wall, busy, _ = profile_step(lambda: step(st, batch(TRAIN_STEPS)),
                                  "one hubert train step", grad=True)
     out["hubert"]["busy_share"] = busy / wall
+    out["hubert"]["busy_ms"] = busy
     del run, st, step
     gc.collect()
     torch.cuda.empty_cache()
     return out, launches
+
+
+# phase 17: the analytic roofline model (repro_torch.roofline), priced at
+# the H100 SXM5's datasheet rates, against what phases 4-16 measured
+SWEEP_REPORT_KEYS = ("rows", "rank_correlation", "rank_ok",
+                     "measured_break_even_skip", "predicted_break_even_skip",
+                     "break_even_within_tol", "direction_agreement",
+                     "direction_ok", "ok")
+
+
+def sweep_rows(k: int, n: int, points: list) -> list:
+    """Phase 8a's points of one site shape in the reference's sweep-row
+    format: the dense yardstick, the masked kernel, ragged at its budget and
+    the compact path, each point's mean time in µs."""
+    rows = []
+    for pt in points:
+        for path, key in (("dense_gemm", "dense_ms"), ("kernel", "kernel_ms"),
+                          ("ragged", "ragged_ms"), ("compact", "compact_ms")):
+            row = {"skip": pt["skip"], "path": path, "us": pt[key] * 1e3,
+                   "m": M, "k": k, "n": n, "block_m": BM, "block_k": BK}
+            if path == "ragged":
+                row["max_active_k"] = pt["budget"]
+            rows.append(row)
+    return rows
+
+
+def kernel_sweep_validation(sweep: dict) -> dict:
+    """Phase 17a. Every phase 8a site's sweep through the port's
+    validate_kernel_sweep. The verdict is printed, not gated: the work model
+    prices the reference's f32 XLA tiers. Fails on a missing site, a
+    malformed report or a row the model cannot price."""
+    from repro_torch.roofline.validate import validate_kernel_sweep
+
+    out = {}
+    print("kernel work model (reuse_kernel_cost, datasheet-priced model) "
+          "against phase 8a's measured sweep, per site "
+          "(validate_kernel_sweep; rank = Spearman of predicted vs measured "
+          "speedup over dense per compaction path; direction = share of "
+          "decided rows where model and card agree on who wins; break-even "
+          "= the compaction crossing, 2.0 = never):")
+    for model, shapes in (("qwen3-32b", SITES), ("rwkv6-7b", RWKV_SITES)):
+        got = {r["site"]: r for r in sweep.get(model, [])}
+        for site, k, n, _ in shapes:
+            if site not in got:
+                fail(f"roofline: phase 8a has no sweep of {model} {site}")
+            rows = sweep_rows(k, n, got[site]["points"])
+            try:
+                rep = validate_kernel_sweep(rows)
+            except (KeyError, ValueError, TypeError) as e:
+                fail(f"roofline: the work model cannot price {model} {site}: "
+                     f"{e!r}")
+            missing = [key for key in SWEEP_REPORT_KEYS if key not in rep]
+            if missing or len(rep["rows"]) != 3 * len(got[site]["points"]):
+                fail(f"roofline: malformed report for {model} {site} "
+                     f"(missing {missing}, {len(rep['rows'])} rows)")
+            rank = ", ".join(f"{p} {'n/a' if c is None else f'{c:.3f}'}"
+                             for p, c in rep["rank_correlation"].items())
+            print(f"  {model} {site:9s} [{M},{k}]x[{k},{n}]: rank {rank} "
+                  f"(ok {rep['rank_ok']}); direction "
+                  f"{rep['direction_agreement']:.3f} (ok "
+                  f"{rep['direction_ok']}); break-even measured "
+                  f"{rep['measured_break_even_skip']:.4f} predicted "
+                  f"{rep['predicted_break_even_skip']:.4f} (ok "
+                  f"{rep['break_even_within_tol']}); ok {rep['ok']}")
+            for r in rep["rows"]:
+                print(f"    skip {r['skip']:.2f} {r['path']:7s} measured "
+                      f"{r['measured_speedup']:.3f}x predicted "
+                      f"{r['predicted_speedup']:.3f}x")
+            out.setdefault(model, {})[site] = rep
+    n_ok = sum(r["ok"] for m in out.values() for r in m.values())
+    print(f"kernel work model holds at {n_ok} of "
+          f"{sum(len(m) for m in out.values())} sites (a finding, not a gate)")
+    return out
+
+
+def priced(cfg, cell, **kw) -> dict:
+    """cell_cost at MeshSpec(1, 1): the datasheet-priced terms in ms. The
+    reference's model charges its TP and DP collective terms at any mesh;
+    no collective runs on one card, so `bound_ms` is the larger of the
+    compute and memory terms."""
+    from repro_torch.roofline.model_cost import MeshSpec, cell_cost
+
+    c = cell_cost(cfg, cell, MeshSpec(1, 1), **kw)
+    return {"flops": c.flops, "hbm_bytes": c.hbm_bytes,
+            "compute_ms": c.compute_s * 1e3, "memory_ms": c.memory_s * 1e3,
+            "collective_ms": c.collective_s * 1e3, "dominant": c.dominant,
+            "step_ms": c.step_s * 1e3,
+            "bound_ms": max(c.compute_s, c.memory_s) * 1e3}
+
+
+def priced_line(label: str, cost: dict, ms: float, busy: float) -> str:
+    return (f"  {label}: model compute {cost['compute_ms']:.4f} ms, memory "
+            f"{cost['memory_ms']:.4f} ms ({cost['hbm_bytes'] / 1e9:.3f} GB), "
+            f"collective {cost['collective_ms']:.4f} ms, "
+            f"{cost['dominant']}-bound, step {cost['step_ms']:.4f} ms; card "
+            f"{ms:.3f} ms, busy {busy:.3f} ms; one-card bound / card "
+            f"{cost['bound_ms'] / ms:.3f} (/ busy "
+            f"{cost['bound_ms'] / busy:.3f})")
+
+
+def step_roofline(graph_rows, serve_cells, measured, train) -> dict:
+    """Phase 17b. Every graph serve, phase 8's measured runs and phase 16's
+    training cells priced by cell_cost at MeshSpec(1, 1), beside the card's
+    step times. A serve's cell: its config at its cut depth, decode,
+    seq_len the KV extent its attention reads (`--cache-len`; a sliding
+    window is cut inside the model), global_batch its batch slots."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import ShapeCell
+    from repro_torch.roofline.model_cost import model_flops_per_step
+
+    out = {"serves": [], "measured": [], "train": []}
+    print("whole steps against cell_cost at MeshSpec(1, 1) (datasheet-priced "
+          "model, reuse_skip_fraction 0 unless given) beside the card's "
+          "replay median and profiled busy time:")
+    for row in graph_rows:
+        if row["serve"] not in serve_cells:
+            fail(f"roofline: no config recorded for serve {row['serve']}")
+        cfg, argv = serve_cells[row["serve"]]
+        args = serve.build_parser().parse_args(argv)
+        cell = ShapeCell(row["serve"], "decode", args.cache_len,
+                         args.batch_slots)
+        cost = priced(cfg, cell)
+        print(priced_line(f"{row['serve']} ({cfg.name}, {cfg.n_layers} "
+                          f"layers, batch {cell.global_batch}, KV "
+                          f"{cell.seq_len}, mesh {args.mesh or 'none'})",
+                          cost, row["graph_ms"], row["busy_graph_ms"]))
+        out["serves"].append({"serve": row["serve"], "arch": cfg.name,
+                              "n_layers": cfg.n_layers,
+                              "batch": cell.global_batch,
+                              "seq_len": cell.seq_len, "model": cost,
+                              "graph_ms": row["graph_ms"],
+                              "busy_graph_ms": row["busy_graph_ms"]})
+    for run in measured:
+        arch = run["run"].split()[0]
+        cfg = serve_cells[MEASURED_SERVE[arch]][0]
+        cell = ShapeCell(run["run"], "decode", MEASURED_CACHE_LEN,
+                         run["batch"])
+        wbs = run["weight_byte_skip"]
+        at0, atw = priced(cfg, cell), priced(cfg, cell,
+                                             reuse_skip_fraction=wbs)
+        print(priced_line(f"{run['run']} (KV {cell.seq_len}), skip 0", at0,
+                          run["replay_ms"], run["busy_ms"]))
+        print(priced_line(f"{run['run']}, at its weight_byte_skip "
+                          f"{wbs:.4f}", atw, run["replay_ms"], run["busy_ms"]))
+        out["measured"].append({"run": run["run"], "batch": run["batch"],
+                                "seq_len": cell.seq_len,
+                                "weight_byte_skip": wbs, "model_skip0": at0,
+                                "model_at_skip": atw,
+                                "replay_ms": run["replay_ms"],
+                                "busy_ms": run["busy_ms"]})
+    for name, key in (("qwen3-32b", "qwen3"), ("rwkv6-7b", "rwkv6"),
+                      ("hubert-xlarge", "hubert")):
+        cfg = train_cfg(name)
+        cell = ShapeCell(key, "train", TRAIN_SEQ, TRAIN_BATCH)
+        cost = priced(cfg, cell)
+        run = train[key]
+        mf = model_flops_per_step(cfg, cell)
+        numel = 6 * run["params"] * TRAIN_BATCH * TRAIN_SEQ
+        print(priced_line(f"train {name} ({cfg.n_layers} layers, batch "
+                          f"{TRAIN_BATCH}, seq {TRAIN_SEQ})", cost,
+                          run["step_ms"], run["busy_ms"]))
+        print(f"    model_flops_per_step {mf:.4e} (active_param_count "
+              f"{cfg.active_param_count()}) against phase 16's 6·N·T "
+              f"{numel:.4e} (N = numel {run['params']}): ratio "
+              f"{mf / numel:.4f}; model-FLOPs share at the card's step "
+              f"{mf / (run['step_ms'] / 1e3 * BF16_FLOPS):.2%}")
+        out["train"].append({"cell": key, "arch": name,
+                             "n_layers": cfg.n_layers, "model": cost,
+                             "model_flops": mf, "numel_6nt": numel,
+                             "step_ms": run["step_ms"],
+                             "busy_ms": run["busy_ms"]})
+    return out
+
+
+def roofline_phase(graph_rows, serve_cells, sweep, measured, train) -> dict:
+    """Phase 17: (a) the kernel work model against phase 8a's sweep, (b)
+    whole steps against cell_cost. Prints and returns the JSON of both."""
+    from repro_torch.roofline import model_cost
+
+    consts = {k: getattr(model_cost, k) for k in
+              ("PEAK_FLOPS", "HBM_BW", "ICI_BW", "MACHINE_BALANCE")}
+    print("roofline constants (H100 SXM5 datasheet, not measured): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in consts.items()))
+    return {"constants": consts,
+            "kernel_sweep": kernel_sweep_validation(sweep),
+            **step_roofline(graph_rows, serve_cells, measured, train)}
 
 
 def main() -> None:
@@ -5064,6 +5273,7 @@ def main() -> None:
         return res, counts, text
 
     graph_rows = []
+    serve_cells = {}   # serve label: (config, argv), priced in phase 17
 
     def serve_pair(cfg, argv, label, hook=None, pairs=5, probe=None,
                    keep=None):
@@ -5077,6 +5287,7 @@ def main() -> None:
         With `keep` (a dict), the graph serve's outcome and output text go
         into it. Returns (launch counts, the hook logs of both serves)."""
         hooks = [hook() if hook else (None, None) for _ in range(2)]
+        serve_cells[label] = (cfg, list(argv))
         print(f"--- {label}: checked serve, --eager")
         res, counts_e, text = drive(cfg, argv + ["--eager"],
                                     after_step=hooks[0][0])
@@ -5301,8 +5512,8 @@ def main() -> None:
 
     # ------------------------------- 8. measured decode and the tuning loop
     phase("8. measured decode on correlated traffic and the tuning loop")
-    launches_measured = measured_decode_phase(cfg, rcfg, dev, graph_rows,
-                                              max_err)
+    launches_measured, sweep, measured = measured_decode_phase(
+        cfg, rcfg, dev, graph_rows, max_err)
 
     # --------------------------------------------- 9. the online control plane
     phase("9. the online control plane (closed loop; the serve with control)")
@@ -5425,6 +5636,14 @@ def main() -> None:
             fail(f"{kn} was not launched on the rwkv6 training path")
     train["seconds"] = time.perf_counter() - _PHASE["t0"]
     print(json.dumps({"train": train}))
+
+    # ------------------------------------------- 17. the roofline model
+    phase("17. roofline (the kernel work model against phase 8a's sweep; "
+          "whole steps against cell_cost)")
+    roofline = roofline_phase(graph_rows, serve_cells, sweep, measured,
+                              train)
+    roofline["seconds"] = time.perf_counter() - _PHASE["t0"]
+    print(json.dumps({"roofline": roofline}))
 
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,

@@ -7,3 +7,6 @@ path is CUDA C++ under `csrc/`, built at first use (see `kernels/backend.py`);
 each has a plain PyTorch twin in the same module, which the wrapper takes for
 CPU tensors.
 """
+
+# the core first: its engine imports the kernels, which import its leaves
+from repro_torch import core  # noqa: E402,F401

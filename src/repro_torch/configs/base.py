@@ -110,6 +110,51 @@ class ModelConfig:
     def kv_heads_eff(self) -> int:
         return max(self.n_kv_heads, self.kv_head_pad_to)
 
+    def param_count(self) -> int:
+        """Total parameters, as the reference counts them for MODEL_FLOPS =
+        6·N·D (rwkv6's token-shift and decay LoRAs are left out, a projection
+        is d·d)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        n = v * d  # embed
+        if not self.tie_embeddings:
+            n += v * d
+        per_attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.mlp_kind == "swiglu":
+            per_mlp = 3 * d * f
+        else:
+            per_mlp = 2 * d * f
+        if self.ssm_kind == "rwkv6":
+            per_layer = 5 * d * d + d * d + per_mlp  # r,k,v,g,w + out
+            n += self.n_layers * per_layer
+        elif self.ssm_kind == "mamba2":
+            di = self.d_inner
+            per_ssm = d * (2 * di + 2 * self.ssm_state + self.n_ssm_heads) + di * d
+            n_ssm_layers = self.n_layers
+            n += n_ssm_layers * per_ssm
+            if self.hybrid_attn_every:
+                # one shared attn+mlp block reused across applications
+                n += per_attn + per_mlp
+        else:
+            per_layer = per_attn + per_mlp
+            if self.n_experts:
+                per_layer = per_attn + self.n_experts * per_mlp
+                per_layer += d * self.n_experts  # router
+                if self.shared_expert:
+                    per_layer += per_mlp
+            n += self.n_layers * per_layer
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: the routed top_k and the
+        shared expert)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        per_mlp = 3 * d * f if self.mlp_kind == "swiglu" else 2 * d * f
+        total = self.param_count()
+        inactive = self.n_layers * (self.n_experts - self.top_k) * per_mlp
+        return total - inactive
+
     def reduced(self) -> "ModelConfig":
         """Same family, smoke-test scale. Keeps every structural feature."""
         return dataclasses.replace(

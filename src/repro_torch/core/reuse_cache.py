@@ -109,6 +109,14 @@ def init_site_cache(
     }
 
 
+def init_reuse_cache(specs: dict[str, ReuseSiteSpec], batch: int, *,
+                     device="cuda") -> dict[str, dict]:
+    """Cache tree for a whole model: {site_name: entry} (one layer's worth
+    per site; the engine stacks its own along the layers)."""
+    return {name: init_site_cache(spec, batch, device=device)
+            for name, spec in specs.items()}
+
+
 def map_tensors(fn, tree):
     """Apply `fn` to every tensor leaf of a nested dict (numpy leaves, such as
     the mode mirror, go through `fn` too when it accepts them)."""

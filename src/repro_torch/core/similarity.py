@@ -1,9 +1,14 @@
 """Input similarity in the int8 code domain, and the tile-granular change mask.
 
 Similarity between two consecutive evaluations of a layer is the fraction of
-identical int8 codes at matching positions. The skip granularity of the reuse
-GEMM is a (block_m × block_k) tile, so `block_zero_mask` marks the tiles with
-any changed code.
+identical int8 codes at matching positions (paper Sec. II-B / III-A, Figs. 3
+and 4). `similarity_breakdown` splits it into positions where both codes are
+zero and identical-nonzero ones (Fig. 4: squared-ReLU and ReLU archs are
+dominated by the zero part, GLU archs by the nonzero part). The skip
+granularity of the reuse GEMM is a (block_m × block_k) tile, so
+`block_zero_mask` marks the tiles with any changed code and
+`harvestable_similarity` reports the share of tiles wholly unchanged: the
+similarity a tile-granular skip can use.
 
 The running lanes fed by a similarity (`sim_ema`, the ctrl occupancy, the
 sensor's `slot_hit_sum`) are rounded as the reference's compiled step rounds
@@ -40,6 +45,31 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor | float,
     return s.float()
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The f32 mean of a 0/1 tensor as XLA lowers the reference's: the exact
+    count times the f32 reciprocal of n."""
+    return x.sum(dtype=torch.float32) * (1.0 / x.numel())
+
+
+def code_similarity(cur_q: torch.Tensor, prev_q: torch.Tensor) -> torch.Tensor:
+    """Fraction of positions whose int8 codes are identical. Scalar f32."""
+    return _mean(cur_q == prev_q)
+
+
+def similarity_breakdown(cur_q: torch.Tensor,
+                         prev_q: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Fig.-4 split: identical-and-zero vs identical-and-nonzero fractions."""
+    same = cur_q == prev_q
+    zero = same & (cur_q == 0)
+    nonzero = same & (cur_q != 0)
+    n = cur_q.numel()
+    return {
+        "similarity": same.sum() / n,
+        "zero_similarity": zero.sum() / n,
+        "nonzero_similarity": nonzero.sum() / n,
+    }
+
+
 def row_code_matches(cur_q: torch.Tensor, prev_q: torch.Tensor) -> torch.Tensor:
     """Per-row count of identical codes, [M] f32 (exact)."""
     return (cur_q == prev_q).sum(dim=-1, dtype=torch.float32)
@@ -65,6 +95,24 @@ def block_zero_mask(delta: torch.Tensor, block_m: int, block_k: int) -> torch.Te
     gm, gk = delta.shape[0] // block_m, delta.shape[1] // block_k
     tiles = delta.reshape(gm, block_m, gk, block_k)
     return (tiles != 0).any(dim=3).any(dim=1).to(torch.int32)
+
+
+def harvestable_similarity(cur_q: torch.Tensor, prev_q: torch.Tensor,
+                           block_m: int, block_k: int) -> torch.Tensor:
+    """Fraction of (bm × bk) tiles fully unchanged — the similarity usable
+    at tile granularity (paper: 'all deltas in the sub-vector must be
+    zero')."""
+    delta = cur_q.to(torch.int32) - prev_q.to(torch.int32)
+    mask = block_zero_mask(delta, block_m, block_k)
+    return 1.0 - _mean(mask)
+
+
+def ema_update(stat: torch.Tensor, obs: torch.Tensor,
+               decay: float) -> torch.Tensor:
+    """Running similarity estimate used by the reuse policy, rounded as
+    written (two products and a sum); `ema_update_mean` is the rounding the
+    compiled step gives it."""
+    return decay * stat + (1.0 - decay) * obs
 
 
 def ema_update_mean(stat: torch.Tensor, total: torch.Tensor, n: int,

@@ -9,6 +9,8 @@ Execution paths of the reuse-mode ΔW GEMM (`ReuseSiteSpec.exec_path`):
              torch ops as the reference's is jnp outside any kernel.
   "dense"  — the masked product `reuse_matmul_ref` in torch ops, as the
              reference computes it outside any kernel (the guard's oracle).
+`reuse_matmul_masked` is the branchless software-reuse product (full work,
+the paper's negative result), also in torch ops.
 
 Beside them: the int8 split GEMM (`reuse_matmul_int8`, exact int32, fed by
 `core.delta.delta_encode_int8`) and the RWKV6 recurrence step
@@ -40,7 +42,11 @@ from repro_torch.kernels import reuse_matmul as _rm
 from repro_torch.kernels import reuse_matmul_int8 as _ri
 from repro_torch.kernels import reuse_matmul_ragged as _rr
 from repro_torch.kernels import wkv6_decode as _wkv
-from repro_torch.kernels.ref import reuse_matmul_ref
+from repro_torch.kernels.ref import (
+    delta_quant_ref,
+    reuse_matmul_int8_ref,
+    reuse_matmul_ref,
+)
 from repro_torch.kernels.reuse_matmul import skip_sel, weight_dma_tiles
 
 __all__ = [
@@ -48,12 +54,15 @@ __all__ = [
     "clamp_budget",
     "compact_rows",
     "delta_quant_fused",
+    "delta_quant_ref",
     "f32_product",
     "ragged_dma_tiles",
     "ragged_grid_steps",
     "reuse_matmul",
     "reuse_matmul_compact",
     "reuse_matmul_int8",
+    "reuse_matmul_int8_ref",
+    "reuse_matmul_masked",
     "reuse_matmul_ragged",
     "reuse_matmul_ref",
     "skip_sel",
@@ -292,6 +301,17 @@ def reuse_matmul_compact(
     if tuple(k_block_mask.shape) != (gk,):
         raise ValueError(f"k mask {tuple(k_block_mask.shape)} != {(gk,)}")
     return prev_out.float() + f32_product(delta, w)
+
+
+def reuse_matmul_masked(
+    delta: torch.Tensor, w: torch.Tensor, prev_out: torch.Tensor
+) -> torch.Tensor:
+    """Software reuse, branchless: prev_out + where(Δ != 0, Δ, 0)·W with an
+    f32 result. All the delta bookkeeping and none of the skipping: the full
+    product runs, which is the paper's Sec.-III negative result. Plain torch
+    ops, as the reference's is jnp outside any kernel."""
+    d = torch.where(delta != 0, delta, torch.zeros_like(delta))
+    return prev_out + f32_product(d, w)
 
 
 def ragged_dma_tiles(counts: torch.Tensor, *, gn: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Layers of the decoder: norms, RoPE and M-RoPE, attention (full or
-sliding-window), MLP (swiglu, gelu or squared ReLU).
+sliding-window), MLP (swiglu, gelu or squared ReLU), and their parameter
+initialisers (`init_norm`, `init_attention`, `init_mlp`).
 
 Plain PyTorch on explicit parameter dicts laid out as the JAX package's
 pytrees ([K, N] weights, heads as [B, S, H, D]). Prefill attention is the
@@ -23,6 +24,17 @@ from repro_torch.kernels.ops import f32_product
 Params = dict[str, Any]
 
 
+# ---------------------------------------------------------------- init utils
+
+def _dense_init(gen: torch.Generator, shape: tuple, *, lead: tuple = (),
+                dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
+    """Normal / sqrt(fan_in) (fan_in = shape[0]), drawn in f32 from `gen`,
+    with `lead` stacked dimensions in front."""
+    t = torch.randn((*lead, *shape), generator=gen, device=device,
+                    dtype=torch.float32)
+    return t.mul_(1.0 / math.sqrt(shape[0])).to(dtype)
+
+
 # ---------------------------------------------------------------------- norms
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -32,7 +44,31 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def init_norm(d: int, kind: str = "rms", *, lead: tuple = (),
+              device="cuda") -> Params:
+    """rms: a zero scale (rms_norm multiplies by 1 + scale); otherwise a
+    layer norm's unit scale and zero bias."""
+    def full(v):
+        return torch.full((*lead, d), v, dtype=torch.float32, device=device)
+
+    if kind == "rms":
+        return {"scale": full(0.0)}
+    return {"scale": full(1.0), "bias": full(0.0)}
+
+
 def apply_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    if "bias" in p:
+        return layer_norm(x, p["scale"], p["bias"], eps)
     return rms_norm(x, p["scale"], eps)
 
 
@@ -82,6 +118,28 @@ def _mrope_sections(cfg: ModelConfig):
 
 
 # ------------------------------------------------------------------ attention
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator, *,
+                   lead: tuple = (), device="cuda") -> Params:
+    """The attention block's parameters as the reference lays them out
+    (wqkv [d, q + 2·kv], wo [q, d], the pre-norm; the QKV bias and the
+    q/k norms where the config has them), with `lead` stacked dimensions."""
+    d = cfg.d_model
+    p: Params = {
+        "wqkv": _dense_init(gen, (d, cfg.q_dim + 2 * cfg.kv_dim), lead=lead,
+                            dtype=cfg.dtype, device=device),
+        "wo": _dense_init(gen, (cfg.q_dim, d), lead=lead, dtype=cfg.dtype,
+                          device=device),
+        "norm": init_norm(d, lead=lead, device=device),
+    }
+    if cfg.qkv_bias:
+        p["bqkv"] = torch.zeros((*lead, cfg.q_dim + 2 * cfg.kv_dim),
+                                dtype=torch.float32, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_norm(cfg.head_dim, lead=lead, device=device)
+        p["k_norm"] = init_norm(cfg.head_dim, lead=lead, device=device)
+    return p
+
 
 def _split_qkv(cfg: ModelConfig, qkv: torch.Tensor):
     q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
@@ -304,6 +362,21 @@ def attention_forward(
 
 
 # ------------------------------------------------------------------------ mlp
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None,
+             *, lead: tuple = (), device="cuda") -> Params:
+    """The MLP's parameters: wi [d, 2f] ([gate | up]) for swiglu, else
+    [d, f]; wo [f, d]; the pre-norm."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    fi = 2 * f if cfg.mlp_kind == "swiglu" else f
+    return {
+        "wi": _dense_init(gen, (d, fi), lead=lead, dtype=cfg.dtype,
+                          device=device),
+        "wo": _dense_init(gen, (f, d), lead=lead, dtype=cfg.dtype,
+                          device=device),
+        "norm": init_norm(d, lead=lead, device=device),
+    }
+
 
 def mlp_forward(
     p: Params, cfg: ModelConfig, x: torch.Tensor, *, reuse_ctx=None,

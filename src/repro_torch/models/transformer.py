@@ -47,8 +47,12 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Params,
+    _dense_init,
     apply_norm,
     attention_forward,
+    init_attention,
+    init_mlp,
+    init_norm,
     mlp_forward,
 )
 
@@ -117,8 +121,7 @@ def init_params(
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L, d, dt = cfg.n_superblocks, cfg.d_model, cfg.dtype
-    final_norm = {"scale": torch.zeros((d,), dtype=torch.float32,
-                                       device=device)}
+    final_norm = init_norm(d, device=device)
     if cfg.ssm_kind == "rwkv6":
         blocks = {"rwkv": ssm_mod.init_rwkv6(cfg, gen, layers=L,
                                              device=device)}
@@ -130,29 +133,13 @@ def init_params(
                 "lm_head": head.to(dt)}
 
     def dense(*shape, lead=(L,)):
-        t = torch.randn((*lead, *shape), generator=gen, device=device,
-                        dtype=torch.float32)
-        return t.mul_(1.0 / math.sqrt(shape[0])).to(dt)
-
-    def zeros(*shape, lead=(L,)):
-        return torch.zeros((*lead, *shape), dtype=torch.float32,
-                           device=device)
+        return _dense_init(gen, shape, lead=lead, dtype=dt, device=device)
 
     def attention(lead=(L,)):
-        p = {"wqkv": dense(d, cfg.q_dim + 2 * cfg.kv_dim, lead=lead),
-             "wo": dense(cfg.q_dim, d, lead=lead),
-             "norm": {"scale": zeros(d, lead=lead)}}
-        if cfg.qkv_bias:
-            p["bqkv"] = zeros(cfg.q_dim + 2 * cfg.kv_dim, lead=lead)
-        if cfg.qk_norm:
-            p["q_norm"] = {"scale": zeros(cfg.head_dim, lead=lead)}
-            p["k_norm"] = {"scale": zeros(cfg.head_dim, lead=lead)}
-        return p
+        return init_attention(cfg, gen, lead=lead, device=device)
 
     def mlp(lead=(L,)):
-        fi = 2 * cfg.d_ff if cfg.mlp_kind == "swiglu" else cfg.d_ff
-        return {"wi": dense(d, fi, lead=lead), "wo": dense(cfg.d_ff, d, lead=lead),
-                "norm": {"scale": zeros(d, lead=lead)}}
+        return init_mlp(cfg, gen, lead=lead, device=device)
 
     def embedding():
         return torch.randn((cfg.vocab, d), generator=gen, device=device,

@@ -1,5 +1,7 @@
-"""repro_torch.roofline — the card's peak rates (`model_cost`).
+"""repro_torch.roofline — the analytic roofline model and its checks.
 
-The reference's analytic per-cell roofline model is not ported yet; only
-the constants the sensor's cost model prices with are here.
+`model_cost` prices a step (per-cell FLOPs, HBM bytes and collective bytes)
+and one reuse GEMM (the kernel work model) at the H100 SXM5's datasheet
+rates; `validate` holds those prices against a measured count or sweep;
+`collectives` is the sharded serve's no-gather check.
 """

@@ -17,6 +17,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import sys
 
 import jax
@@ -154,6 +155,66 @@ def test_mlp_forward_matches_reference(rng, arch):
     x = rng.normal(size=(2, 5, jcfg.d_model)).astype(np.float32)
     close(t2n(tlayers.mlp_forward(tp, tcfg, torch.from_numpy(x))),
           jlayers.mlp_forward(jp, jcfg, jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_layer_norm_and_apply_norm_match_reference(rng, dtype):
+    """layer_norm (population variance), and apply_norm taking it for a
+    norm with a bias, as the reference's."""
+    x = (rng.normal(size=(3, 7, 96)) * 3 + 0.5).astype(np.float32)
+    scale = rng.normal(size=96).astype(np.float32)
+    bias = rng.normal(size=96).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(torch.float32 if dtype == np.float32
+                                else torch.bfloat16)
+    want = jlayers.layer_norm(jx, jnp.asarray(scale), jnp.asarray(bias), 1e-6)
+    got = tlayers.layer_norm(tx, torch.from_numpy(scale),
+                             torch.from_numpy(bias), 1e-6)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    tol = ATOL if dtype == np.float32 else 2 ** -7
+    close(t2n(got.float()), np.asarray(want, np.float32), atol=tol, rtol=tol)
+    p = {"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)}
+    jp = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+    close(t2n(tlayers.apply_norm(p, tx, 1e-6).float()),
+          np.asarray(jlayers.apply_norm(jp, jx, 1e-6), np.float32),
+          atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "qwen2-72b", "nemotron-4-15b",
+                                  "gemma3-12b"])
+def test_init_helpers_match_reference_layout(arch):
+    """init_norm, init_attention and init_mlp: the reference's keys, shapes
+    and dtypes (stacked under `lead`), zero rms scales and QKV bias, the
+    layer norm's unit scale and zero bias, and weights at 1/sqrt(fan_in)."""
+    jcfg, tcfg = JARCHS[arch].reduced(), ARCHS[arch].reduced()
+    gen = torch.Generator().manual_seed(0)
+    for lead in ((), (3,)):
+        for jp, tp in (
+                (jlayers.init_attention(jcfg, jax.random.PRNGKey(1)),
+                 tlayers.init_attention(tcfg, gen, lead=lead, device="cpu")),
+                (jlayers.init_mlp(jcfg, jax.random.PRNGKey(2)),
+                 tlayers.init_mlp(tcfg, gen, lead=lead, device="cpu")),
+                (jlayers.init_mlp(jcfg, jax.random.PRNGKey(3), d_ff=64),
+                 tlayers.init_mlp(tcfg, gen, 64, lead=lead, device="cpu"))):
+            jl, tl = leaves(jp), leaves(tp)
+            assert sorted(tl) == sorted(jl)
+            for key, leaf in jl.items():
+                got = tl[key]
+                assert tuple(got.shape) == (*lead, *leaf.shape), key
+                assert str(got.dtype).split(".")[-1] == str(leaf.dtype), key
+                if key.endswith(("scale", "bqkv")):
+                    np.testing.assert_array_equal(t2n(got)[(0,) * len(lead)],
+                                                  np.asarray(leaf))
+                else:
+                    std = float(got.float().std()) * math.sqrt(leaf.shape[0])
+                    assert 0.9 < std < 1.1, (key, std)
+    for kind in ("rms", "layer"):
+        want = jlayers.init_norm(24, kind)
+        got = tlayers.init_norm(24, kind, device="cpu")
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert got[key].dtype == torch.float32
+            np.testing.assert_array_equal(t2n(got[key]), np.asarray(want[key]))
 
 
 def test_apply_mrope_matches_reference(rng):

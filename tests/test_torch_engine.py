@@ -248,6 +248,43 @@ def test_stacked_cache_leaf_dtypes_and_shapes():
     assert te.sites["rag"].exec_path == "ragged"
 
 
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def test_init_reuse_cache_matches_reference_leaf_for_leaf():
+    """The whole-model cache of one layer's worth per site: every leaf of
+    the reference's, bitwise, with its dtype and shape; the port adds only
+    the host mirror of the mode lane."""
+    from repro.core.reuse_cache import ReuseSiteSpec as JSpec
+    from repro.core.reuse_cache import init_reuse_cache as jinit
+    from repro_torch.core import init_reuse_cache
+    from repro_torch.core.reuse_cache import ReuseSiteSpec
+
+    kws = [dict(name=n, in_features=fi, out_features=fo, mode=mode,
+                fixed_scale=0.05 + 0.01 * i)
+           for i, (n, fi, fo, mode, _) in enumerate(SITES)]
+    want = jinit({kw["name"]: JSpec(**kw) for kw in kws}, M)
+    got = init_reuse_cache({kw["name"]: ReuseSiteSpec(**kw) for kw in kws},
+                           M, device="cpu")
+    assert list(got) == list(want)
+    for name in want:
+        w, g = _leaves(want[name]), _leaves(got[name])
+        assert sorted(g) == sorted([*w, "mode_host"])
+        for key, leaf in w.items():
+            leaf = np.asarray(leaf)
+            gl = g[key].numpy()
+            assert gl.dtype == leaf.dtype and gl.shape == leaf.shape, key
+            np.testing.assert_array_equal(gl, leaf)
+        assert g["mode_host"].tolist() == w["ctrl/mode_id"].tolist()
+
+
 def test_tuned_table_written_by_reference_loads(tmp_path):
     path = str(tmp_path / "table.json")
     table = {"attn_qkv": JTunables(exec_path="ragged", max_active_k=3,

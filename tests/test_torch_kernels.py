@@ -30,6 +30,7 @@ from repro_torch.kernels.delta_quant import (
 )
 from repro_torch.kernels.reuse_matmul import (
     reuse_matmul,
+    reuse_matmul_torch,
     skip_sel,
     weight_dma_tiles,
 )
@@ -537,3 +538,28 @@ def test_block_zero_mask_matches_delta_quant_mask(rng):
                                   block_m=8, block_k=128)
     dq = q.to(torch.int32) - t(prev_q).to(torch.int32)
     assert torch.equal(block_zero_mask(dq, 8, 128), msk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reuse_matmul_masked_matches_reference_and_plain(rng, dtype):
+    """The branchless software-reuse product: the full product of the
+    zero-masked Δ. Equal to the masked plain version at a mask of all ones
+    and, in f32, to the reference's jnp product."""
+    m, k, n = 8, 384, 256
+    delta = rng.normal(size=(m, k)).astype(np.float32)
+    delta[rng.random((m, k)) < 0.6] = 0.0
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    prev = rng.normal(size=(m, n)).astype(np.float32)
+    td, tw = torch.from_numpy(delta).to(dtype), torch.from_numpy(w).to(dtype)
+    got = ops.reuse_matmul_masked(td, tw, torch.from_numpy(prev))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    ones = torch.ones((1, k // 128), dtype=torch.int32)
+    want = reuse_matmul_torch(td, tw, torch.from_numpy(prev), ones,
+                              block_m=8, block_k=128)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-5)
+    if dtype == torch.float32:
+        ref = jops.reuse_matmul_masked(jnp.asarray(delta), jnp.asarray(w),
+                                       jnp.asarray(prev))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
+                                   atol=1e-5)

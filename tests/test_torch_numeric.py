@@ -82,6 +82,62 @@ def test_ema_update_bitwise(rng):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("m,k", [(16, 256), (12, 300), (1, 619), (17, 446)])
+def test_similarity_measures_bitwise(rng, m, k):
+    """The paper's Fig. 3/4 measures on int8 codes, bitwise: the f32 means
+    are XLA's count times f32(1/n), so a wholly unchanged input is
+    harvestable at 1 - n·f32(1/n), as in the reference."""
+    cur = rng.integers(-3, 4, size=(m, k)).astype(np.int8)
+    for p in (0.0, 0.01, 0.3, 1.0):
+        prev = cur.copy()
+        prev[rng.random((m, k)) < p] += 1
+        jc, jp = jnp.asarray(cur), jnp.asarray(prev)
+        tc, tp = t(cur), t(prev)
+        np.testing.assert_array_equal(tsim.code_similarity(tc, tp).numpy(),
+                                      np.asarray(jsim.code_similarity(jc, jp)))
+        want = jsim.similarity_breakdown(jc, jp)
+        got = tsim.similarity_breakdown(tc, tp)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            g, w = got[key].numpy(), np.asarray(want[key])
+            assert g.dtype == w.dtype == np.float32
+            np.testing.assert_array_equal(g, w)
+        for bm, bk in ((8, 128), (1, 64), (4, 32)):
+            g = tsim.harvestable_similarity(tc, tp, bm, bk).numpy()
+            w = np.asarray(jsim.harvestable_similarity(jc, jp, bm, bk))
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
+def test_ema_update_as_written_bitwise(rng):
+    for decay in (0.9, 0.95, 0.7):
+        stat = rng.random(8).astype(np.float32)
+        obs = rng.random(8).astype(np.float32)
+        np.testing.assert_array_equal(
+            tsim.ema_update(t(stat), t(obs), decay).numpy(),
+            np.asarray(jsim.ema_update(jnp.asarray(stat), jnp.asarray(obs),
+                                       decay)))
+
+
+def test_core_exports_the_reference_names():
+    import repro.core as jcore
+    import repro_torch.core as tcore
+
+    assert tcore.__all__ == jcore.__all__
+    for name in tcore.__all__:
+        obj = getattr(tcore, name)
+        assert getattr(obj, "__name__", name) == name or not callable(obj)
+    assert tcore.code_similarity is tsim.code_similarity
+    assert callable(tcore.reuse_linear)
+    # a kernel module imported first (it imports the core's leaves, and
+    # the core's engine imports the kernels) must not meet a half-built one
+    import subprocess
+    import sys
+
+    subprocess.run([sys.executable, "-c", "import repro_torch.kernels.ref"],
+                   check=True)
+
+
 def _round_f32(x: Fraction) -> np.float32:
     """The f32 nearest to the exact rational x, ties to even."""
     f = np.float32(float(x))
