@@ -283,6 +283,20 @@ every phase's failure is fatal (non-zero exit, no result line):
                 (batch 8, seq 128; model_flops_per_step against phase 16's
                 numel-based 6·N·T): compute, memory, dominant and step ms
                 beside the card's replay (or step) and busy ms
+  18. placed  — the sharded serve one shard a card, with 4 cards or more
+                (else one line says why not): `torchrun --nproc-per-node 4`
+                of this script's `placed_rank` (`--mesh host:4`, NCCL; each
+                rank's cache holds its lane, each site call all-gathers the
+                output panels, captured in the CUDA graphs): (a) qwen3-32b
+                at 8 layers and (b) qwen2-72b at 4, phase 4's traffic, each
+                a pair (eager with every kernel call on every card checked,
+                then graphs), bitwise phase 14's one-card host:4 serves
+                (tokens, report lines, each rank's cache lane) and the
+                unsharded serves of phases 4 and 13c; (c) 14c's controlled
+                serve as a pair and its NaN in shard 2's lane (rank 2's),
+                journal rows equal, tripping at step 4; per rank the replay
+                ms, kernels a replay, the NCCL all-gathers' device ms and
+                peak memory, and each card's name and power limit
 
 Each phase prints its seconds. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
@@ -291,9 +305,10 @@ sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
 closed loops; the controlled serve and the basic-mode product) and of
 phase 10, a JSON line of phase 11, a JSON line of phase 12, a JSON line
 of phase 13, a JSON line of phase 14, a JSON line of phase 15, a JSON line
-of phase 16, a JSON line of phase 17 ({"roofline": ...}), the kernels JSON line (launch counts from the serve runs, the
-int8 path and the rwkv6 training run, and per phase 8-16 run; errors and
-times from phases 3 and 16)
+of phase 16, a JSON line of phase 17 ({"roofline": ...}), a JSON line of
+phase 18 ({"placed": ...}), the kernels JSON line (launch counts from the
+serve runs, the int8 path and the rwkv6 training run, and per phase 8-16
+and 18 run; errors and times from phases 3 and 16)
 and the card's name and power limit; the last line is {"ok": true,
 "device": {...}}. The controlled, guarded and checkpointing serves' whole
 output goes to chiprun_out/chip_smoke/.
@@ -3443,8 +3458,17 @@ def panel_copy_check(step, shards) -> dict:
             "longest_copy_ms": worst[0], "panel_copy_ms": copy_ms}
 
 
-def sharded_phase(serve_pair, graph_rows, unsharded, dev) -> tuple[dict, dict]:
-    """14a and 14b. Returns ({serve: readings}, {serve: launches})."""
+def host_outcome(o: dict) -> dict:
+    """A serve's outcome (`outcome`) with its tensors copied to the host."""
+    return {"tokens": o["tokens"], "reports": o["reports"],
+            "tensors": {k: t.cpu() for k, t in o["tensors"].items()}}
+
+
+def sharded_phase(serve_pair, graph_rows, unsharded, dev,
+                  refs=None) -> tuple[dict, dict]:
+    """14a and 14b. Returns ({serve: readings}, {serve: launches}). With
+    `refs` (a dict), each arch's sharded and unsharded graph serves'
+    outcomes go into it, on the host, for phase 18."""
     from repro_torch.configs import get_config
 
     out, launches = {}, {}
@@ -3504,6 +3528,9 @@ def sharded_phase(serve_pair, graph_rows, unsharded, dev) -> tuple[dict, dict]:
             lines=lines, tensors=n,
             panels=panel_timing(dev, sites, SHARDS, layers))
         out[label] = info
+        if refs is not None:
+            refs[arch] = {"sharded": host_outcome(keep),
+                          "unsharded": host_outcome(base), "layers": layers}
         del keep, base
         unsharded[arch] = None
         gc.collect()
@@ -3511,7 +3538,7 @@ def sharded_phase(serve_pair, graph_rows, unsharded, dev) -> tuple[dict, dict]:
     return out, launches
 
 
-def sharded_control_phase(cfg, argv, drive, logdir) -> dict:
+def sharded_control_phase(cfg, argv, drive, logdir, refs=None) -> dict:
     """14c: phase 4's serve at 16 new tokens with `--mesh host:4
     --control-every 2 --control-journal`: kind="shard" rows, at most one per (site, shard,
     interval); `replay_rows` verifies the journal; then one
@@ -3519,7 +3546,9 @@ def sharded_control_phase(cfg, argv, drive, logdir) -> dict:
     copies, 3 with the QuarantineBreaker; then the same serve with a NaN
     written into shard 2's lane of the last layer's mlp_out prev_out after
     decode step 3: the breaker's snapshot (its sentinel lanes combined
-    across shards) trips nonfinite_out there at step 4."""
+    across shards) trips nonfinite_out there at step 4. With `refs` (a
+    dict), both serves' tokens, SensorReport lines and journal rows go
+    into it for phase 18."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.control import (
@@ -3547,6 +3576,9 @@ def sharded_control_phase(cfg, argv, drive, logdir) -> dict:
                 not 0 <= r["shard"] < SHARDS for r in shard_rows):
             fail(f"14c: shard rows {len(shard_rows)}, at most "
                  f"{max(per.values(), default=0)} per (site, shard, interval)")
+        if refs is not None:
+            refs["control"] = {"rows": journal_rows(journal),
+                               **host_outcome(outcome(res, text))}
         rep = replay_rows(rows)
         if not rep.ok:
             fail("14c: the sharded serve's journal does not replay: "
@@ -3596,9 +3628,13 @@ def sharded_control_phase(cfg, argv, drive, logdir) -> dict:
                     "nan")
 
         journal = os.path.join(tmp, "g.jsonl")
-        _, _, text = drive(cfg, argv + ["--control-journal", journal],
-                           check=False, after_step=poison,
-                           log_to=logdir / "phase14c_guard.log")
+        res, _, text = drive(cfg, argv + ["--control-journal", journal],
+                             check=False, after_step=poison,
+                             log_to=logdir / "phase14c_guard.log")
+        if refs is not None:
+            refs["guard"] = {"rows": journal_rows(journal),
+                             **host_outcome(outcome(res, text))}
+        del res
         trips = [r for r in load_journal(journal)
                  if r.get("decision_kind") == "quarantine"
                  and r.get("after") == "quarantined"]
@@ -3614,6 +3650,390 @@ def sharded_control_phase(cfg, argv, drive, logdir) -> dict:
               f"{guard[0] if guard else ''}")
         out.update(trip=first["reason"], guard=guard)
     return out
+
+
+def journal_rows(path) -> list:
+    """A decision journal's rows without their wall-clock stamps."""
+    with open(path) as f:
+        return [{k: v for k, v in json.loads(ln).items() if k != "ts"}
+                for ln in f if ln.strip()]
+
+
+# phase 18: the sharded serve placed one shard a card (`torchrun
+# --nproc-per-node 4 ... --mesh host:4`: rank r holds model-axis shard r,
+# its cache only that lane, and all-gathers the output panels over NCCL;
+# parameters and decode state replicated). Each cell as a pair, eager with
+# every kernel call held against its plain version on its card, then the
+# CUDA graphs capturing the all-gathers: (a) qwen3-32b at 8 layers and (b)
+# qwen2-72b at 4, phase 4's traffic, bitwise phase 14's one-card host:4
+# serves (tokens, SensorReport lines, each rank's cache lane that lane of
+# the one-card cache, the decode state whole) and phases 4's and 13c's
+# unsharded serves (the lanes side by side); (c) phase 14c's controlled
+# serve (journal rows), and its NaN in shard 2's lane, which rank 2 holds,
+# tripping at the same step. Per rank: replay ms, kernels a replay, the
+# NCCL all-gathers' device ms in one profiled replay, peak memory, and each
+# card's name and power limit. Fewer than 4 cards: one line says so.
+PLACED_RANKS = 4
+PLACED_REPLAYS = 10
+
+
+def placed_rank(spec_path: str) -> None:
+    """One rank of a phase 18 serve, under torchrun (`python3 chip_smoke.py
+    --placed-rank SPEC.json`): `serve.run` with the spec's config and argv
+    (eager: every kernel call checked, as `drive` checks it), then this
+    rank's record (launches, tokens, report lines, rank 0's output) and
+    its final cache lane and decode state under the spec's `out`; after a
+    graph serve, its replays timed and one profiled."""
+    import faulthandler
+
+    from torch.profiler import ProfilerActivity, profile
+
+    # a rank that waits on the others leaves its stack in the log
+    faulthandler.dump_traceback_later(180, repeat=True)
+    root = pathlib.Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend, ops
+    from repro_torch.launch import serve
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    rank, local = int(os.environ["RANK"]), int(os.environ["LOCAL_RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = pathlib.Path(spec["out"])
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    eager = spec["mode"] == "eager"
+    args = serve.build_parser().parse_args(
+        spec["argv"] + (["--eager"] if eager else []))
+    backend.reset_launches()
+    buf = io.StringIO()
+    with (PathCheck(ops) if eager else contextlib.nullcontext()) as chk, \
+            contextlib.redirect_stdout(buf):
+        res = serve.run(cfg, args)
+    dev = torch.device("cuda", local)
+    torch.cuda.synchronize(dev)
+    counts = {k: backend.launch_counts()[k] for k in KERNEL_META}
+    text = buf.getvalue()
+    rec = {"rank": rank, "device": str(dev),
+           "card": torch.cuda.get_device_name(dev), "counts": counts,
+           "tokens": {str(r.rid): list(map(int, r.output))
+                      for r in res["done"]},
+           "reports": [ln for ln in text.splitlines()
+                       if ln.startswith("SensorReport rid=")]
+           + res["report"].summary_lines(), "text": text}
+    if eager:
+        if {k: chk.checked[k] for k in KERNEL_META} != counts:
+            fail(f"rank {rank}: kernel calls checked {chk.checked} != "
+                 f"launches {counts}")
+        rec["max_err"] = chk.max_err
+    step = res["step"]
+    torch.save({k: t.detach().cpu() for k, t in tensor_leaves(
+        {"rcache": step.rcache, "state": step.state}).items()},
+        out / f"rank{rank}.pt")
+    if not eager:
+        times = []
+        for _ in range(PLACED_REPLAYS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            step.decode(step.tokens)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step.decode(step.tokens)
+            torch.cuda.synchronize(dev)
+        kern = [e for e in prof.events()
+                if str(e.device_type).endswith("CUDA")]
+        nccl = [e for e in kern if "nccl" in e.name.lower()]
+        rec.update(
+            replay_ms=statistics.median(times), replay_ms_all=times,
+            kernels_replay=len(kern), allgathers_replay=len(nccl),
+            allgather_ms=sum(e.device_time_total for e in nccl) / 1e3,
+            busy_ms=sum(e.device_time_total for e in kern) / 1e3,
+            peak_mb=torch.cuda.max_memory_allocated(dev) / 1e6,
+            summary=step.summary())
+    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    faulthandler.cancel_dump_traceback_later()
+    # the graphs hold the process group's NCCL work: release them first,
+    # then leave without the group's teardown (on the card it waited on
+    # that work past a captured graph's life)
+    step.release()
+    torch.cuda.synchronize(dev)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def torchrun(n: int, *args: str) -> list:
+    """The command that starts `n` ranks on this machine: a static
+    rendezvous at 127.0.0.1 on a port free now (the machine resolves no
+    host name, so no rank is sent to one)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+            "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
+            "--master-port", str(port), *args]
+
+
+def run_logged(cmd, log: pathlib.Path, timeout: float, what: str) -> None:
+    """Run `cmd` in a session of its own, its output into `log` as it
+    comes; past `timeout` seconds it is stopped (SIGTERM, which torchrun
+    passes to its ranks, then SIGKILL to the session). Fails (with the
+    log's tail) unless it exits 0."""
+    import signal
+
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True,
+                                env=dict(os.environ, NCCL_DEBUG="WARN"))
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            rc = f"stopped after {timeout:.0f} s"
+    if rc != 0:
+        fail(f"{what}: exited {rc}: {log.read_text()[-2500:]}")
+
+
+def placed_serve(root, label, arch, layers, argv, mode,
+                 logdir) -> tuple[list, list]:
+    """One phase 18 serve: `placed_rank` on every card under torchrun.
+    Returns (each rank's record, each rank's final tensors); the run's
+    whole output goes to `logdir` (the records and tensors to a temporary
+    directory: four ranks' decode states outgrow what a call brings
+    back)."""
+    log = logdir / f"phase18_{label}_{mode}.log"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        spec = out / "spec.json"
+        spec.write_text(json.dumps({"arch": arch, "layers": layers,
+                                    "argv": argv, "mode": mode,
+                                    "out": str(out)}))
+        run_logged(torchrun(PLACED_RANKS, str(root / "chip_smoke.py"),
+                            "--placed-rank", str(spec)),
+                   log, 400, f"18 {label} ({mode})")
+        recs = [json.loads((out / f"rank{r}.json").read_text())
+                for r in range(PLACED_RANKS)]
+        lanes = [torch.load(out / f"rank{r}.pt")
+                 for r in range(PLACED_RANKS)]
+    print(f"--- 18 {label} ({mode}): {PLACED_RANKS} ranks in "
+          f"{time.perf_counter() - t0:.1f} s (output: {log})")
+    return recs, lanes
+
+
+def lanes_side_by_side(label, lanes, want) -> dict:
+    """Each rank's tensors against the one-card sharded serve's: a leaf
+    whose width differs on one axis is that rank's lane of it (its shard
+    axis, width 1); every other leaf (the decode state) is whole on every
+    rank. Returns the one-card layout rebuilt from the ranks' lanes."""
+    whole = {}
+    for key, t in want.items():
+        got = [ln[key] for ln in lanes]
+        diff = [i for i, (x, y) in enumerate(zip(t.shape, got[0].shape))
+                if x != y]
+        if not diff:
+            for r, g in enumerate(got):
+                if not torch.equal(g, t):
+                    fail(f"18 {label}: rank {r}'s {key} differs from the "
+                         "one-card serve's")
+            whole[key] = t
+            continue
+        ax = diff[0]
+        for r, g in enumerate(got):
+            if g.shape[ax] != 1 or not torch.equal(g, t.narrow(ax, r, 1)):
+                fail(f"18 {label}: rank {r}'s lane of {key} differs from "
+                     "that lane of the one-card serve's")
+        whole[key] = torch.cat(got, dim=ax)
+    return whole
+
+
+def summed_launches(recs) -> dict:
+    """Each kernel's launches summed over the ranks' records."""
+    return {k: sum(r["counts"][k] for r in recs) for k in KERNEL_META}
+
+
+def check_ranks(label, recs) -> None:
+    """Every rank decoded rank 0's tokens and built its sensor report (the
+    request lines are rank 0's alone: it alone prints)."""
+    def summary(rec):
+        return [ln for ln in rec["reports"]
+                if not ln.startswith("SensorReport rid=")]
+
+    for rec in recs:
+        if rec["tokens"] != recs[0]["tokens"]:
+            fail(f"18 {label}: rank {rec['rank']} decoded other tokens than "
+                 "rank 0")
+        if summary(rec) != summary(recs[0]):
+            fail(f"18 {label}: rank {rec['rank']}'s sensor report differs "
+                 "from rank 0's")
+
+
+def placed_pair(root, label, arch, layers, argv, logdir, ref) -> tuple:
+    """18a/b: the pair, eager (checked) then graphs; the ranks agree, the
+    graph serve equals the eager one, and both equal the one-card sharded
+    serve (`ref["sharded"]`) and, their lanes side by side, the unsharded
+    one (`ref["unsharded"]`). Returns (readings, the eager launches summed
+    over the ranks)."""
+    runs = {m: placed_serve(root, label, arch, layers, argv, m, logdir)
+            for m in ("eager", "graph")}
+    (er, el), (gr, gl) = runs["eager"], runs["graph"]
+    for r in range(PLACED_RANKS):
+        if gr[r]["tokens"] != er[r]["tokens"] or \
+                gr[r]["counts"] != er[r]["counts"]:
+            fail(f"18 {label}: rank {r}'s graph serve differs from its "
+                 "eager serve (tokens or launches)")
+        diff = [k for k, t in el[r].items() if not torch.equal(t, gl[r][k])]
+        if diff:
+            fail(f"18 {label}: rank {r}'s final tensors differ between the "
+                 f"eager and graph serves at {diff[:6]}")
+    sharded, unsharded = ref["sharded"], ref["unsharded"]
+    tokens = {int(k): v for k, v in gr[0]["tokens"].items()}
+    check_ranks(label, gr)
+    for base, what in ((sharded, "the one-card host:4 serve"),
+                       (unsharded, "the unsharded serve")):
+        if tokens != base["tokens"] or gr[0]["reports"] != base["reports"]:
+            fail(f"18 {label}: tokens or SensorReport lines differ from "
+                 f"{what}")
+    whole = lanes_side_by_side(label, gl, sharded["tensors"])
+    n = sharded_equal(f"18 {label}", {"tokens": tokens,
+                                      "reports": gr[0]["reports"],
+                                      "tensors": whole}, unsharded,
+                      PLACED_RANKS)
+    text = gr[0]["text"]
+    lines = [ln for ln in text.splitlines() if ln.startswith(
+        ("mesh:", "mesh placement:", "profiler no-gather", "shard skip",
+         "ici traffic"))]
+    for ln in lines:
+        print(f"  {ln}")
+    if not any(ln.startswith("profiler no-gather check: OK") for ln in lines):
+        fail(f"18 {label}: no OK no-gather line")
+    if "mesh placement: all 4 ranks decoded the same tokens" not in text:
+        fail(f"18 {label}: the serve did not check its ranks' tokens")
+    print(f"18 {label}: eager (every kernel call on every card checked) and "
+          f"graph serves equal on every rank; bitwise the one-card host:4 "
+          f"serve ({len(tokens)} requests' tokens, {len(gr[0]['reports'])} "
+          f"report lines, each rank's lane of {len(whole)} tensors) and the "
+          f"unsharded serve ({n} tensors, the lanes side by side)")
+    per_rank = []
+    for rec in gr:
+        row = {k: rec[k] for k in ("rank", "card", "replay_ms",
+                                   "kernels_replay", "allgathers_replay",
+                                   "allgather_ms", "busy_ms", "peak_mb")}
+        per_rank.append(row)
+        print(f"  rank {rec['rank']} ({rec['card']}): replay median "
+              f"{rec['replay_ms']:.2f} ms of {PLACED_REPLAYS}, "
+              f"{rec['kernels_replay']} kernels a replay (profiled), "
+              f"{rec['allgathers_replay']} NCCL all-gathers "
+              f"{rec['allgather_ms']:.3f} ms device, busy "
+              f"{rec['busy_ms']:.2f} ms, peak {rec['peak_mb']:.0f} MB")
+    slowest = max(r["replay_ms"] for r in per_rank)
+    print(f"18 {label}: the step takes the slowest rank's replay, "
+          f"{slowest:.2f} ms")
+    launches = summed_launches(er)
+    for r in range(PLACED_RANKS):
+        for kn in ("delta_quant", "reuse_matmul_output"):
+            if er[r]["counts"][kn] <= 0:
+                fail(f"18 {label}: {kn} was not launched on rank {r}")
+    max_err = {k: max(rec["max_err"][k] for rec in er) for k in KERNEL_META}
+    return ({"per_rank": per_rank, "step_ms": slowest, "lines": lines,
+             "tensors": n, "summary": gr[0]["summary"],
+             "max_err": max_err}, launches)
+
+
+def placed_phase(root, serve_argv, refs, logdir) -> tuple[dict, dict]:
+    """18a-c (see above). Returns (readings, {serve: eager launches summed
+    over the ranks})."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    for ln in smi:
+        print(f"  card {ln}")
+    out, launches = {"cards": smi}, {}
+    for cell in ("18a", "18b"):
+        placed_cell(root, cell, refs, logdir, out, launches)
+    out["control"] = placed_control(root, serve_argv, refs, logdir, launches)
+    return out, launches
+
+
+PLACED_CELLS = {"18a": ("qwen3-32b", "qwen3 placed host:4"),
+                "18b": ("qwen2-72b", "qwen2-72b placed host:4")}
+
+
+def placed_cell(root, cell, refs, logdir, out, launches) -> None:
+    """18a or 18b (`placed_pair` on phase 4's traffic), into `out` and
+    `launches`."""
+    arch, label = PLACED_CELLS[cell]
+    ref = refs[arch]
+    argv = ["--arch", arch, "--reuse", "--batch-slots", "8", "--requests",
+            "8", "--prompt-len", "32", "--cache-len", "128", "--max-new",
+            "8", "--mesh", f"host:{PLACED_RANKS}"]
+    out[label], launches[f"{label} (eager, checked, 4 cards)"] = \
+        placed_pair(root, cell, arch, ref["layers"], argv, logdir, ref)
+
+
+def placed_control(root, serve_argv, refs, logdir, launches) -> dict:
+    """18c: the controlled serve as a pair, then its NaN in shard 2's lane
+    (rank 2's) through the graphs, against 14c's one-card serves."""
+    layers = refs["qwen3-32b"]["layers"]
+    argv = serve_argv + ["--mesh", f"host:{PLACED_RANKS}", "--control-every",
+                         "2", "--max-new", "16"]
+    got = {}
+    # the controlled serve as a pair; the poisoned one through the graphs
+    for what, mode, extra in (
+            ("control", "eager", []), ("control", "graph", []),
+            ("guard", "graph", ["--inject", "poison-nan:at_step=3,"
+                                f"site=mlp_out,layer={layers - 1},shard=2"])):
+        journal = logdir / f"phase18c_{what}.jsonl"
+        journal.unlink(missing_ok=True)
+        recs, _ = placed_serve(
+            root, f"18c-{what}", "qwen3-32b", layers,
+            argv + ["--control-journal", str(journal), *extra], mode,
+            logdir)
+        check_ranks(f"18c {what}", recs)
+        ref = refs[what]
+        rows = journal_rows(journal)
+        tokens = {int(k): v for k, v in recs[0]["tokens"].items()}
+        if rows != ref["rows"]:
+            fail(f"18c {what} ({mode}): the journal differs from 14c's "
+                 f"one-card serve's ({len(rows)} rows against "
+                 f"{len(ref['rows'])})")
+        if tokens != ref["tokens"] or recs[0]["reports"] != ref["reports"]:
+            fail(f"18c {what} ({mode}): tokens or SensorReport lines differ "
+                 "from 14c's")
+        if mode == "eager":
+            launches[f"18c {what} (eager, checked, 4 cards)"] = \
+                summed_launches(recs)
+            continue
+        got[what] = {"rows": len(rows), "replay_ms": max(
+            r["replay_ms"] for r in recs), "per_rank_replay_ms": [
+                r["replay_ms"] for r in recs]}
+        print(f"18c {what}: {len(rows)} journal rows, tokens and "
+              "SensorReport lines equal to 14c's one-card serve (eager and "
+              "graph serves)" if what == "control" else
+              f"18c {what}: {len(rows)} journal rows, tokens and "
+              "SensorReport lines equal to 14c's one-card poisoned serve")
+    trips = [r for r in journal_rows(logdir / "phase18c_guard.jsonl")
+             if r.get("decision_kind") == "quarantine"
+             and r.get("after") == "quarantined"]
+    first = trips[0] if trips else {}
+    if first.get("layer") != layers - 1 or first.get("step") != 4 or \
+            "nonfinite_out" not in first.get("reason", ""):
+        fail(f"18c: the NaN in rank 2's lane did not trip nonfinite_out at "
+             f"layer {layers - 1}, step 4: {first}")
+    print(f"18c: a NaN in shard 2's lane, on rank 2's card, tripped at step "
+          f"{first['step']} as on one card: {first['reason'][:90]}")
+    got["trip"] = first["reason"]
+    return got
 
 
 # phase 15: checkpointing and the int8 KV cache on the compiled serve. (a)
@@ -5608,10 +6028,14 @@ def main() -> None:
     # ---------------------------------------- 14. sharded reuse serving
     phase("14. sharded reuse serving (serve --mesh host:4: qwen3-32b, "
           "qwen2-72b; the controlled serve)")
+    # what phase 18 holds its placed serves against (with 4 cards)
+    placed_refs = {} if count >= PLACED_RANKS else None
     sharded, launches_sharded = sharded_phase(serve_pair, graph_rows,
-                                              unsharded, dev)
+                                              unsharded, dev,
+                                              refs=placed_refs)
     sharded["control"] = sharded_control_phase(
-        cfg, serve_argv, drive, root / "chiprun_out" / "chip_smoke")
+        cfg, serve_argv, drive, root / "chiprun_out" / "chip_smoke",
+        refs=placed_refs)
     sharded["seconds"] = time.perf_counter() - _PHASE["t0"]
     print(json.dumps({"sharded": sharded}))
 
@@ -5645,6 +6069,27 @@ def main() -> None:
     roofline["seconds"] = time.perf_counter() - _PHASE["t0"]
     print(json.dumps({"roofline": roofline}))
 
+    # ------------------------- 18. the sharded serve, one shard a card
+    phase("18. placed sharded serve (torchrun --nproc-per-node 4, one "
+          "shard a card: qwen3-32b, qwen2-72b; the controlled serve)")
+    launches_placed = {}
+    if placed_refs is None:
+        placed = {"ran": False, "cards": count}
+        print(f"phase 18 did not run: {count} CUDA device(s) here, and the "
+              f"placed serve needs {PLACED_RANKS}, one shard a card")
+    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+        placed, launches_placed = placed_phase(
+            root, serve_argv, placed_refs, root / "chiprun_out" / "chip_smoke")
+        placed["ran"] = True
+        for cell in placed.values():  # the eager serves' checked calls
+            for kn, err in (cell.get("max_err", {}) if isinstance(cell, dict)
+                            else {}).items():
+                max_err[kn] = max(max_err[kn], err)
+    placed["seconds"] = time.perf_counter() - _PHASE["t0"]
+    print(json.dumps({"placed": placed}))
+
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
                      "wkv6_decode": launches_rwkv,
@@ -5673,7 +6118,9 @@ def main() -> None:
                         "launches_ckpt": {
                             run: c[kn] for run, c in launches_ckpt.items()},
                         "launches_train": {
-                            run: c[kn] for run, c in launches_train.items()}})
+                            run: c[kn] for run, c in launches_train.items()},
+                        "launches_placed": {
+                            run: c[kn] for run, c in launches_placed.items()}})
     print(json.dumps({"graph_serves": graph_rows}))
     phase(None)
     print(json.dumps({"kernels": kernels}))
@@ -5683,4 +6130,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--placed-rank":
+        placed_rank(sys.argv[2])
+    else:
+        main()

@@ -22,9 +22,14 @@ newest-first past corrupt or missing steps.
 Leaf keys are the reference's tree paths: dict keys joined by "/", sequence
 indices written as their number; None is no leaf. Dtype tags are numpy's
 names ("float32", "int8", "bfloat16"), and bf16 is stored as its uint16
-bits, so either package restores the other's checkpoint bitwise. The
-reference's `shardings=` (placement onto another mesh) has no counterpart
-on one card.
+bits, so either package restores the other's checkpoint bitwise.
+
+Placement (one shard a card): the counterpart of the reference's
+`restore_checkpoint(shardings=)` is `restore_into(..., shardings=)`, whose
+`ShardBlock`s (`repro_torch.dist.shard.cache_shardings`) narrow each
+stored leaf to the rank's block of its shard axis before the in-place
+copy; a placed serve saves `gather_cache`'s one-device `[L, S, ...]`
+layout, so the files are the one-device serve's and the reference's.
 
 `restore_checkpoint` builds new tensors on the devices of the struct's
 leaves; `restore_into` copies into live tensors in place, so the buffers a
@@ -276,24 +281,33 @@ def restore_checkpoint(directory: str | Path, step: int,
         state_struct)
 
 
-def restore_into(directory: str | Path, step: int, live: Any) -> Any:
+def restore_into(directory: str | Path, step: int, live: Any, *,
+                 shardings: Any | None = None) -> Any:
     """Restore step `step` into the tensors of `live` in place (`copy_`),
-    after the same checks as `restore_checkpoint`. Every leaf of `live` must
-    be stored with its shape and dtype, else ValueError (before anything is
-    written). Returns `live`."""
+    after the same checks as `restore_checkpoint`. With `shardings` (a tree
+    like `live`'s of `ShardBlock`s or None), each stored leaf is first
+    narrowed to its block. Every leaf of `live` must be stored with its
+    shape (after the narrowing) and dtype, else ValueError (before anything
+    is written). Returns `live`."""
     manifest, merged = _load(directory, step)
+    blocks = dict(_items(shardings)) if shardings is not None else {}
     pairs = []
     for key, leaf in _items(live):
         meta = manifest["leaves"].get(key)
         if meta is None or key not in merged:
             raise ValueError(f"step {step}: no stored leaf {key!r}")
-        if (list(leaf.shape) != list(meta["shape"])
+        shape, arr = list(meta["shape"]), merged[key]
+        block = blocks.get(key)
+        if block is not None and len(shape) > block.axis:
+            arr = block.take(arr.reshape(shape))
+            shape = list(arr.shape)
+        if (list(leaf.shape) != shape
                 or _dtype_tag(leaf) != meta["dtype"]):
             raise ValueError(
                 f"step {step}: leaf {key!r} is {meta['dtype']}"
-                f"{meta['shape']} in the checkpoint, {_dtype_tag(leaf)}"
+                f"{shape} in the checkpoint, {_dtype_tag(leaf)}"
                 f"{list(leaf.shape)} live")
-        pairs.append((leaf, _from_host(merged[key], meta)))
+        pairs.append((leaf, _from_host(arr, dict(meta, shape=shape))))
     for leaf, value in pairs:
         leaf.copy_(value)
     return live
@@ -313,11 +327,39 @@ def save_cache(directory: str | Path, step: int, cache: dict) -> Path:
     return save_checkpoint(directory, step, cache_state(cache))
 
 
-def restore_cache(directory: str | Path, step: int, cache: dict) -> dict:
-    """Restore a reuse cache in place (`restore_into`), then rebuild each
-    entry's `mode_host` in place from its restored `ctrl["mode_id"]` lanes
-    (one device-to-host copy a site). Returns `cache`."""
-    restore_into(directory, step, cache_state(cache))
+def gather_cache(engine, cache: dict) -> dict:
+    """The reuse cache in the one-device layout: `cache` itself, or on a
+    placed engine (one shard a card) every sharded site's tensors with the
+    shard axis rebuilt from every rank's lane (one all-gather a leaf, which
+    every rank makes, outside any step; the host mirror `mode_host`
+    stays behind)."""
+    from repro_torch.core.reuse_cache import map_tensors
+    from repro_torch.dist.shard import shard_axis_of
+
+    placement = getattr(engine, "placement", None)
+    if placement is None:
+        return cache
+    out = {}
+    for name, entry in cache.items():
+        entry = {k: v for k, v in entry.items() if k != "mode_host"}
+        if engine.shards.get(name):
+            ax = shard_axis_of(engine.stacking.get(name, 0))
+            entry = map_tensors(
+                lambda t, ax=ax: placement.gather_lanes(t, ax), entry)
+        out[name] = entry
+    return out
+
+
+def restore_cache(directory: str | Path, step: int, cache: dict, *,
+                  shardings: dict | None = None) -> dict:
+    """Restore a reuse cache in place (`restore_into`; with `shardings`,
+    from `cache_shardings`, each rank's own lane of the one-device layout),
+    then rebuild each entry's `mode_host` in place from its restored
+    `ctrl["mode_id"]` lanes (one device-to-host copy a site). Returns
+    `cache`."""
+    restore_into(directory, step, cache_state(cache),
+                 shardings=None if shardings is None
+                 else cache_state(shardings))
     for entry in cache.values():
         entry["mode_host"][...] = entry["ctrl"]["mode_id"].cpu().numpy()
     return cache

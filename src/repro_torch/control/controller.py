@@ -193,7 +193,8 @@ class Controller:
         # decode steps, so reading them all before the loop sees what the
         # reference's per-site reads see)
         snaps = snapshot_cache(cache, list(engine.sites), shard_axes={
-            name: 1 if stacking.get(name, 0) else 0 for name in shards})
+            name: 1 if stacking.get(name, 0) else 0 for name in shards},
+            placement=getattr(engine, "placement", None))
         for name, spec in list(engine.sites.items()):
             cur = snaps[name]
             if cur is None:

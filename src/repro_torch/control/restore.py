@@ -21,7 +21,8 @@ Every resolution is journaled as a kind="restore" Decision.
 
 A site's two tunable lanes reach the host in one copy. A sharded site's
 lanes are replicated over the shard axis (`ReuseEngine._site_lane`), so
-shard 0's lane is the site's.
+shard 0's lane is the site's; one shard a card, shard 0's lane reaches
+every rank.
 """
 
 from __future__ import annotations
@@ -44,9 +45,16 @@ def _differs(a: float, b: float) -> bool:
 
 
 def _lanes(engine, name: str, ctrl: dict) -> tuple[np.ndarray, np.ndarray]:
-    """(sim_threshold, min_work) per layer ([1] unstacked), f64 on the host."""
+    """(sim_threshold, min_work) per layer ([1] unstacked), f64 on the host
+    (placed, shard 0's lane reaches every rank: one collective)."""
     both = torch.stack([ctrl["sim_threshold"], ctrl["min_work"]])
-    both = both.cpu().numpy().astype(np.float64)
+    if getattr(engine, "placement", None) is not None and engine.shards.get(
+            name, 0):
+        [both] = engine.placement.host_arrays(
+            [both], [1 + shard_axis_of(engine.stacking.get(name, 0))])
+        both = both.astype(np.float64)
+    else:
+        both = both.cpu().numpy().astype(np.float64)
     if engine.shards.get(name, 0):
         both = np.take(both, 0,
                        axis=1 + shard_axis_of(engine.stacking.get(name, 0)))

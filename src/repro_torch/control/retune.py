@@ -54,12 +54,17 @@ _NP_DTYPES = {torch.int32: np.int32, torch.float32: np.float32}
 
 def snapshot_cache(cache: dict, names=None,
                    shard_axes: dict[str, int] | None = None,
-                   ) -> dict[str, dict | None]:
+                   placement=None) -> dict[str, dict | None]:
     """Host-side snapshots (see `snapshot_entry`) of the sites `names`
     (default: every entry of `cache`), all read in ONE device→host
     transfer. A site without counters maps to None. `shard_axes` names the
     shard axis of each model-sharded site, whose host copy is collapsed as
-    `snapshot_entry` says."""
+    `snapshot_entry` says. With `placement` (one shard a card,
+    `repro_torch.dist.shard.Placement`) the packed vector is all-gathered
+    over the model group before the one copy, and each sharded leaf's
+    shard axis is rebuilt from every rank's lane: the cross-card reduce
+    of the window, after which every rank collapses what the one-device
+    engine collapses."""
     names = list(cache) if names is None else list(names)
     shard_axes = shard_axes or {}
     parts: list[torch.Tensor] = []
@@ -75,13 +80,21 @@ def snapshot_cache(cache: dict, names=None,
         for key, t in leaves.items():
             parts.append(t.reshape(-1).double())
             layout.append((name, key, tuple(t.shape), _NP_DTYPES[t.dtype]))
-    flat = torch.cat(parts).cpu().numpy() if parts else np.zeros(0)
+    if placement is None:
+        rows = [torch.cat(parts).cpu().numpy() if parts else np.zeros(0)]
+    elif parts:
+        rows = list(placement.all_gather(torch.cat(parts)).cpu().numpy())
+    else:
+        rows = [np.zeros(0)]
     host: dict[str, dict] = {}
     pos = 0
     for name, key, shape, dtype in layout:
         n = math.prod(shape)
+        blocks = [r[pos:pos + n].astype(dtype).reshape(shape) for r in rows]
+        ax = shard_axes.get(name)
         host.setdefault(name, {})[key] = (
-            flat[pos:pos + n].astype(dtype).reshape(shape))
+            np.concatenate(blocks, axis=ax) if ax is not None
+            and placement is not None else blocks[0])
         pos += n
     for name, ax in shard_axes.items():
         if name in host:

@@ -44,8 +44,21 @@ ownership partition makes the sums the unsharded counters), per-shard skip
 lanes beside them, ctrl lanes from shard 0, sentinel lanes combined; its
 payload, and the ctrl lanes the host passes write to every shard, are
 metered into `ici_reduce_bytes` and `ici_write_bytes` as the reference
-meters them. Here all shards live on the serve's one device; one shard a
-card is not ported.
+meters them.
+
+Placement (`place(placement)` after `shard_sites`, under a process group:
+one process a card, `repro_torch.dist.shard.Placement`): the rank holds
+model-axis shard `rank % S`. `init_cache` builds only its lane of every
+sharded site ([L, 1, ...], [1, ...]); `apply` evaluates that shard alone,
+at the same `ShardCtx` and k split, and all-gathers the [*lead, N/S]
+panels over the model group into the [*lead, N] output, in column order
+(each panel is the one-device kernel call's, so the output is bitwise the
+one-device output); the ctrl snapshot packs the rank's lanes as above and
+rebuilds the one-device layout with one all-gather of the packed vectors
+before its one device→host copy, so every rank reads the same snapshot and
+takes the same host decisions. Host writes (ctrl syncs, mode refreshes)
+write the rank's own lane in place; the meters count every shard's lane,
+as on one device.
 """
 
 from __future__ import annotations
@@ -72,6 +85,7 @@ from repro_torch.core.reuse_cache import (
 )
 from repro_torch.core.reuse_linear import ReuseStats, reuse_linear
 from repro_torch.dist.shard import (
+    Placement,
     plan_local_spec,
     shard_axis_of,
     shard_view,
@@ -147,6 +161,56 @@ def _combine_shard_sentinels(
     return out
 
 
+def _unpack_snapshot(flat: np.ndarray, layout, cache) -> dict[str, Any]:
+    """The snapshot dict from one packed f64 vector and its layout
+    ((site, lane key, count): count 0 is a scalar sum)."""
+    snap: dict[str, Any] = {name: {} for name in cache}
+    pos = 0
+    for name, key, count in layout:
+        if count == 0:  # a scalar sum
+            snap[name][key] = int(flat[pos])
+            pos += 1
+        else:
+            snap[name][key] = flat[pos:pos + count].astype(
+                _SNAP_DTYPES.get(key, np.int32))
+            pos += count
+    return snap
+
+
+# how a placed snapshot collapses each lane across the shards' snapshots,
+# as the one-device snapshot does across its shard lanes: counters and
+# disjoint counts sum, per-shard lanes line up, health flags and the
+# quarantine lockout take the max, the ctrl range bitmask ORs; every other
+# lane is replicated and comes from shard 0
+_SHARD_MERGE = {"skipped": "sum", "computed": "sum",  # python ints
+                "skipped_shard": "cat", "computed_shard": "cat",
+                "bad_out": "sum", "skipped_l": "sum", "computed_l": "sum",
+                "quarantine": "max", "bad_sim": "max", "ctrl_bad": "or"}
+
+
+def _merge_shard_snapshots(snaps: list[dict[str, Any]],
+                           shards: dict[str, int]) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    for name, lanes in snaps[0].items():
+        out[name] = {}
+        for key, v in lanes.items():
+            how = _SHARD_MERGE.get(key) if name in shards else None
+            vals = [s[name][key] for s in snaps]
+            if how is None:
+                out[name][key] = v
+            elif isinstance(v, int):
+                out[name][key] = sum(vals)
+            elif how == "cat":
+                out[name][key] = np.concatenate(vals).astype(v.dtype)
+            elif how == "sum":
+                out[name][key] = np.sum(vals, axis=0).astype(v.dtype)
+            elif how == "max":
+                out[name][key] = np.max(vals, axis=0).astype(v.dtype)
+            else:
+                out[name][key] = np.bitwise_or.reduce(vals).astype(v.dtype)
+    return out
+
+
 def reduce_payload_bytes(lanes: int, shards: int) -> float:
     """Bytes the reference's ctrl snapshot moves for one sharded site with
     `lanes` layer lanes: sim_l, sim_threshold, min_work (f32), mode_id
@@ -182,6 +246,9 @@ class ReuseEngine:
     # where the latest `init_cache` put the cache (the guard's shadow probe
     # runs there)
     device: torch.device | None = None
+    # one shard a card: this rank's place (None: every shard lane on one
+    # device), set by place() before init_cache
+    placement: Placement | None = None
 
     def register(
         self,
@@ -228,6 +295,23 @@ class ReuseEngine:
         self.shards = {name: n_shards for name in self.sites}
         return self.shards
 
+    def place(self, placement: Placement | None) -> None:
+        """Hold only `placement.shard`'s lane of every sharded site (one
+        process a card), before `init_cache`; None: every lane here."""
+        if placement is not None and any(
+                n != placement.n_shards for n in self.shards.values()):
+            raise ValueError(
+                f"the sites are planned for {sorted(set(self.shards.values()))}"
+                f" shards but the placement's model axis is "
+                f"{placement.n_shards} wide")
+        self.placement = placement
+
+    def lanes_held(self, name: str) -> int:
+        """Shard lanes of site `name` this process holds: 0 unsharded, 1
+        placed, else every shard's."""
+        n_shards = self.shards.get(name, 0)
+        return 1 if n_shards and self.placement is not None else n_shards
+
     def init_cache(self, batch: int, *, device="cuda") -> dict[str, Any]:
         # the device with its index, as a tensor there reports it
         self.device = torch.empty(0, device=device).device
@@ -246,9 +330,10 @@ class ReuseEngine:
                                     device=device)
             if n_shards:
                 # shard axis first, the layer axis wraps it: [S, ...]
-                # unstacked, [L, S, ...] stacked; the initial state is the
-                # same on every shard (prev_out zeros at the local N)
-                entry = map_tensors(lead(n_shards), entry)
+                # unstacked, [L, S, ...] stacked ([L, 1, ...] placed); the
+                # initial state is the same on every shard (prev_out zeros
+                # at the local N)
+                entry = map_tensors(lead(self.lanes_held(name)), entry)
             n_layers = self.stacking[name]
             if n_layers:
                 entry = map_tensors(lead(n_layers), entry)
@@ -310,8 +395,8 @@ class ReuseEngine:
         """Per-layer values ([L], or [1] unstacked) in the ctrl lane's
         layout: replicated over the shard axis of a sharded site (every
         shard runs the layer's operating point). A tensor stays a tensor on
-        its device, a numpy array numpy."""
-        n_shards = self.shards.get(name, 0)
+        its device, a numpy array numpy. Placed, the rank's one lane."""
+        n_shards = self.lanes_held(name)
         if not n_shards:
             return per_layer
         if self.stacking.get(name, 0) > 0:
@@ -359,9 +444,11 @@ class ReuseEngine:
         on the shard's column panel `w[:, s·nl:(s+1)·nl]` (a view: no
         weight is copied) and its lane of the entry ([S, ...]), each
         written into its columns of one [*lead, N] output. Nothing crosses
-        shards. The layer's mode is replicated across shards and read once,
-        from the host mirror's shard 0, as the reference takes its branch
-        once outside its vmap."""
+        shards. Placed, the rank's shard alone, its panel all-gathered
+        with the others' into the output. The layer's mode is replicated
+        across shards and read once, from the host mirror's shard 0 (placed:
+        the rank's lane, which every rank writes alike), as the reference
+        takes its branch once outside its vmap."""
         spec = self.sites[name]
         n_shards = self.shards[name]
         nl = spec.out_features // n_shards
@@ -375,6 +462,18 @@ class ReuseEngine:
             mode = ("reuse" if int(np.reshape(entry["mode_host"], -1)[0]) > 0
                     else "basic")
         budget = self.budget_lane(name, x.device)
+        if self.placement is not None:
+            # this rank's shard on its panel, then the panels of the model
+            # group side by side: an activation all-gather
+            s = self.placement.shard
+            cols = slice(s * nl, (s + 1) * nl)
+            part, _, stats = reuse_linear(
+                x, w[:, cols], None if b is None else b[cols],
+                shard_view(entry, 0, 0), local, mode=mode, impl=self.impl,
+                budget=budget,
+                shard=ShardCtx(s, n_shards, spec.out_features, gn_total))
+            panels = self.placement.all_gather(part)  # [S, *lead, N/S]
+            return torch.cat(panels.unbind(0), dim=-1), entry, stats
         out = stats = None
         for s in range(n_shards):
             cols = slice(s * nl, (s + 1) * nl)
@@ -509,7 +608,8 @@ class ReuseEngine:
                 name, torch.tensor(vals, dtype=torch.float32))
             ctrl[key].copy_(lane.reshape(ctrl[key].shape))
             if name in self.shards:  # written to every shard's lane
-                self.ici_write_bytes += float(lane.numel()) * 4
+                self.ici_write_bytes += float(len(vals)) * 4 * self.shards[
+                    name]
 
     def set_budget(self, name: str, budget: int) -> bool:
         """Re-point a compacted site's k-extent budget (the online budget
@@ -585,7 +685,7 @@ class ReuseEngine:
                 sl = (sentinel_lanes(entry) if not n_shards
                       else _combine_shard_sentinels(
                           [sentinel_lanes(shard_view(entry, ax, i))
-                           for i in range(n_shards)]))
+                           for i in range(self.lanes_held(name))]))
                 for key, v in sl.items():
                     lanes.setdefault(key, v)  # quarantine is a ctrl lane
             if n_shards and ctrl is not None:
@@ -596,19 +696,51 @@ class ReuseEngine:
                 v = v.reshape(-1)
                 parts.append(v.double())
                 layout.append((name, key, 0 if scalar else v.numel()))
-        flat = torch.cat(parts).cpu().numpy() if parts else np.zeros(0)
-        snap: dict[str, Any] = {name: {} for name in cache}
-        pos = 0
-        for name, key, count in layout:
-            if count == 0:  # a scalar sum
-                snap[name][key] = int(flat[pos])
-                pos += 1
-            else:
-                snap[name][key] = flat[pos:pos + count].astype(
-                    _SNAP_DTYPES.get(key, np.int32))
-                pos += count
+        if self.placement is None:
+            flat = torch.cat(parts).cpu().numpy() if parts else np.zeros(0)
+            snap = _unpack_snapshot(flat, layout, cache)
+        else:
+            # every rank packed its own lanes (one shard each): one
+            # all-gather of the packed vectors, one copy, then the
+            # one-device collapse across the shards' unpacked lanes
+            flat = torch.cat(parts) if parts else torch.zeros(
+                0, dtype=torch.float64, device=self.device)
+            rows = self.placement.all_gather(flat).cpu().numpy()
+            snap = _merge_shard_snapshots(
+                [_unpack_snapshot(r, layout, cache) for r in rows],
+                self.shards)
         self.last_snapshot = snap
         return snap
+
+    def host_cache(self, cache: dict[str, Any],
+                   keys=("sensor", "steps", "ctrl")) -> dict[str, Any]:
+        """Placed: host copies (numpy) of the tensor leaves under `keys` of
+        every site entry, in the one-device layout, each sharded site's
+        shard axis rebuilt from every rank's lane, in one collective and
+        one device→host copy (`Placement.host_arrays`). The host readers
+        of a placed cache (the sensor report, a slot's telemetry) read
+        these, so every rank reads what the one-device engine reads."""
+        leaves, axes, paths = [], [], []
+        for name, entry in cache.items():
+            ax = (shard_axis_of(self.stacking.get(name, 0))
+                  if self.shards.get(name) else None)
+            for key in keys:
+                sub = entry.get(key)
+                items = (sub.items() if isinstance(sub, dict)
+                         else [(None, sub)] if sub is not None else [])
+                for leaf_key, t in items:
+                    if isinstance(t, torch.Tensor):
+                        leaves.append(t)
+                        axes.append(ax)
+                        paths.append((name, key, leaf_key))
+        arrays = self.placement.host_arrays(leaves, axes)
+        out: dict[str, Any] = {name: {} for name in cache}
+        for (name, key, leaf_key), a in zip(paths, arrays):
+            if leaf_key is None:
+                out[name][key] = a
+            else:
+                out[name].setdefault(key, {})[leaf_key] = a
+        return out
 
     def refresh_modes(self, cache: dict[str, Any]) -> dict[str, str]:
         """Host policy pass: one batched per-layer decide per site (hysteresis
@@ -667,7 +799,7 @@ class ReuseEngine:
                 self._site_lane(name, new_cd.astype(np.int32)).reshape(
                     tuple(ctrl["cooldown"].shape))))
             if name in self.shards:
-                self.ici_write_bytes += float(ctrl["mode_id"].numel()) * (
+                self.ici_write_bytes += float(n_lanes * self.shards[name]) * (
                     1 + 4)
         return self.refresh_exec_paths(cache, snapshot=snap)
 

@@ -15,10 +15,16 @@ the per-shard lanes disjoint slices of the dense-baseline accounting: their
 plain sum is the unsharded counter, bitwise.
 
 Placement. The reference places each shard's slice on its own device of a
-mesh (`NamedSharding`). Here a mesh of `host:N` is N shard lanes on the
-serve's one device (`launch/mesh.py`), so placement is naming: each leaf's
-shard axis, with nothing moved. One shard a card (`torch.distributed`) is
-not ported.
+mesh (`NamedSharding`, `cache_shardings`). Without a process group a mesh
+of `host:N` is N shard lanes on the serve's one device (`launch/mesh.py`),
+and `cache_shard_axes` names each leaf's shard axis, with nothing moved.
+Under a process group (`torchrun`, one process a card) rank r holds shard
+`r % S` (`Placement`): its cache keeps only its own block of the shard
+axis, of size 1 (`cache_shardings`), each site call computes its own panel
+and all-gathers the panels into the output over the model group (an
+activation collective, as the reference's GSPMD step makes), and the host
+reads that rebuild the one-device layout of the shard lanes go through one
+collective and one device→host copy (`Placement.host_arrays`).
 """
 
 from __future__ import annotations
@@ -74,6 +80,133 @@ def shard_view(tree, axis: int, index: int):
     return np.take(tree, index, axis=axis)
 
 
+# numpy dtype of a leaf's host copy (bf16 has none: its values as f32)
+_HOST_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+                torch.bfloat16: np.float32, torch.int8: np.int8,
+                torch.int16: np.int16, torch.int32: np.int32,
+                torch.int64: np.int64, torch.uint8: np.uint8,
+                torch.bool: np.bool_}
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """One rank's place on a mesh under a process group: its rank and the
+    world's size, the model axis's width, the process group of its data
+    row's model axis (None: the default group, when the model axis spans
+    the world) and its device. It holds model-axis shard `rank % n_shards`,
+    following the reference's row-major (data, model) device order."""
+
+    rank: int
+    world: int
+    n_shards: int
+    group: Any = None
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def shard(self) -> int:
+        return self.rank % self.n_shards
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """[S, *t.shape]: every shard's `t`, in shard order, from one
+        all-gather over the model group (a collective every rank of the
+        group must make, in the same order)."""
+        src = t.reshape(-1) if t.ndim == 0 else t.contiguous()
+        out = torch.empty((self.n_shards * src.shape[0], *src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        torch.distributed.all_gather_into_tensor(out, src, group=self.group)
+        return out.view(self.n_shards, *t.shape)
+
+    def gather_lanes(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        """`t` (a leaf of this rank's cache, its shard axis `axis` of size
+        1) with the shard axis rebuilt from every shard: the one-device
+        layout, on the device."""
+        return torch.cat(list(self.all_gather(t).unbind(0)), dim=axis)
+
+    def host_arrays(self, leaves: list[torch.Tensor],
+                    axes: list[int | None]) -> list[np.ndarray]:
+        """Host copies of `leaves` in the one-device layout, from ONE
+        collective and ONE device→host copy: the leaves are packed into one
+        f64 vector (exact for every cache dtype), all-gathered over the
+        model group and copied to the host once. A leaf with a shard axis
+        (`axes[i]`, of size 1 here) is rebuilt along it from every shard's
+        block; a replicated one (None) is shard 0's."""
+        if not leaves:
+            return []
+        flat = torch.cat([t.reshape(-1).double() for t in leaves])
+        host = self.all_gather(flat).cpu().numpy()
+        out, pos = [], 0
+        for t, ax in zip(leaves, axes):
+            n, shape = t.numel(), tuple(t.shape)
+            blocks = [host[s, pos:pos + n].reshape(shape)
+                      for s in range(self.n_shards)]
+            pos += n
+            a = blocks[0] if ax is None else np.concatenate(blocks, axis=ax)
+            out.append(a.astype(_HOST_DTYPES[t.dtype]))
+        return out
+
+    def world_agrees(self, data: bytes) -> bool:
+        """Whether every rank of the world holds the same `data` (32 bytes
+        or fewer, e.g. a digest): one all-gather over the default group."""
+        t = torch.zeros(32, dtype=torch.uint8, device=self.device)
+        t[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        out = torch.empty(32 * self.world, dtype=torch.uint8,
+                          device=self.device)
+        torch.distributed.all_gather_into_tensor(out, t)
+        rows = out.view(self.world, 32).cpu()
+        return bool((rows == rows[0]).all())
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardBlock:
+    """A rank's block of a leaf's shard axis, kept at size 1: the port's
+    counterpart of a `NamedSharding` whose spec puts "model" on `axis`."""
+
+    axis: int
+    index: int
+
+    def take(self, leaf):
+        """The block of `leaf` (a tensor view, or a numpy copy)."""
+        if isinstance(leaf, torch.Tensor):
+            return leaf.narrow(self.axis, self.index, 1)
+        return np.take(leaf, [self.index], axis=self.axis)
+
+
+def cache_shardings(engine, mesh, cache: dict[str, Any]) -> dict[str, Any]:
+    """The reference's `cache_shardings` on a placed mesh (one process a
+    card): for every leaf of a sharded site, the host mirror `mode_host`
+    among them, the rank's block of the shard axis (`ShardBlock`, size 1:
+    the reference's per-device local shape); None for every leaf of an
+    unsharded site (replicated). `cache` may be in the one-device layout
+    or the placed one: the blocks are named from the plan, nothing
+    moves."""
+    placement = getattr(mesh, "placement", None)
+    if placement is None:
+        raise ValueError(
+            "cache_shardings needs a placed mesh (one process a card, under "
+            "a process group); a mesh of lanes on one device names its "
+            "shard axes with cache_shard_axes")
+    model_size = int(mesh.shape["model"])
+
+    def name_blocks(tree, block):
+        if isinstance(tree, dict):
+            return {k: name_blocks(v, block) for k, v in tree.items()}
+        return block if isinstance(tree, (torch.Tensor, np.ndarray)) else None
+
+    out: dict[str, Any] = {}
+    for name, entry in cache.items():
+        n_shards = engine.shards.get(name)
+        if not n_shards:
+            out[name] = name_blocks(entry, None)
+            continue
+        if n_shards != model_size:
+            raise ValueError(
+                f"site {name!r} is planned for {n_shards} shards but the "
+                f"mesh model axis is {model_size} wide")
+        out[name] = name_blocks(entry, ShardBlock(
+            shard_axis_of(engine.stacking.get(name, 0)), placement.shard))
+    return out
+
+
 def cache_shard_axes(engine, mesh, cache: dict[str, Any]) -> dict[str, Any]:
     """The counterpart of the reference's `cache_shardings`: for every
     tensor leaf of the cache, the axis that sits on the mesh's "model" axis
@@ -112,6 +245,7 @@ def _leaves(tree):
 
 def cache_shape_signatures(
     cache: dict[str, Any], shard_axes: dict[str, Any] | None = None,
+    n_shards: int | None = None,
 ) -> set[tuple[str, tuple]]:
     """(dtype, dims) signatures of every cache leaf: its global shape and,
     for a sharded leaf (`shard_axes`, from `cache_shard_axes`), one shard's
@@ -122,7 +256,8 @@ def cache_shape_signatures(
     scale: [L, S], as small as a batch of tokens) has no signature; the
     ctrl snapshot, outside the step, is what reduces them. The no-gather
     check flags any copy, cat or gather whose operand matches one of
-    these."""
+    these. A placed cache (one shard a card, its shard axes of size 1)
+    gives its global shapes through `n_shards`, the model axis's width."""
     sigs: set[tuple[str, tuple]] = set()
 
     def add(tree, axes):
@@ -141,6 +276,8 @@ def cache_shape_signatures(
         if ax is None:
             return
         sigs.add((dt, shape[:ax] + (1,) + shape[ax + 1:]))
+        if n_shards:
+            sigs.add((dt, shape[:ax] + (n_shards,) + shape[ax + 1:]))
 
     for name, entry in cache.items():
         add(entry, (shard_axes or {}).get(name))

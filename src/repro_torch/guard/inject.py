@@ -41,6 +41,14 @@ Usage::
     inj.tear_journal(path); inj.corrupt_checkpoint(ckpt_dir)   # at exit
 
 Every fault that actually fired is appended to `.fired` for assertions.
+
+On a model-sharded engine (`bind(engine)`, as the serve does) a cache
+scenario's index is one of the one-device layout, whose shard axis sits
+inside the layer axis; `shard=S` in the spec aims it at shard S's lane
+(without it, the index reaches whichever lanes it covers). One shard a
+card, each rank writes the part of that index its own lane holds, so the
+fault lands where the one-device engine's lands; every rank records it as
+fired.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ import time
 from typing import Any
 
 import numpy as np
+
+from repro_torch.dist.shard import shard_axis_of
 
 SCENARIOS: dict[str, dict[str, Any]] = {
     "poison-nan": {
@@ -106,7 +116,8 @@ class FaultInjector:
     unconditionally."""
 
     def __init__(self, scenario: str, *, site: str | None = None,
-                 layer: int | None = None, seed: int = 0, **params: Any):
+                 layer: int | None = None, seed: int = 0,
+                 shard: int | None = None, **params: Any):
         if scenario not in SCENARIOS:
             raise ValueError(
                 f"unknown fault scenario {scenario!r}; "
@@ -122,6 +133,8 @@ class FaultInjector:
         self.site = site
         self.layer = layer
         self.seed = seed
+        self.shard = shard
+        self.engine = None
         self.params = {**defaults, **params}
         self.fired: list[dict[str, Any]] = []
 
@@ -140,14 +153,25 @@ class FaultInjector:
         site = kwargs.pop("site", None)
         layer = kwargs.pop("layer", None)
         seed = kwargs.pop("seed", 0)
-        return cls(name.strip(), site=site, layer=layer, seed=seed, **kwargs)
+        shard = kwargs.pop("shard", None)
+        return cls(name.strip(), site=site, layer=layer, seed=seed,
+                   shard=shard, **kwargs)
+
+    def bind(self, engine) -> "FaultInjector":
+        """Read the engine's layer stacking, shard plan and placement when
+        aiming a cache scenario (see the module docstring)."""
+        self.engine = engine
+        return self
 
     # ------------------------------------------------------------------ hooks
     def _pick(self, cache: dict[str, Any]) -> tuple[str, int | None]:
         site = self.site if self.site is not None else sorted(cache)[0]
         if site not in cache:
             raise KeyError(f"injector target site {site!r} not in cache")
-        stacked = cache[site]["prev_q"].ndim == 3
+        if self.engine is not None:
+            stacked = self.engine.stacking.get(site, 0) > 0
+        else:
+            stacked = cache[site]["prev_q"].ndim == 3
         layer = self.layer
         if stacked and layer is None:
             layer = 0
@@ -157,6 +181,22 @@ class FaultInjector:
 
     def _lane(self, layer: int | None) -> tuple:
         return () if layer is None else (layer,)
+
+    def _here(self, site: str, idx: tuple) -> tuple | None:
+        """`idx`, an index of the one-device layout (with `shard=`, the
+        shard's lane), as an index of this process's cache; None when it
+        lies wholly in another rank's lane."""
+        eng = self.engine
+        if eng is None or not eng.shards.get(site):
+            return idx
+        ax = shard_axis_of(eng.stacking.get(site, 0))
+        if self.shard is not None and len(idx) >= ax:
+            idx = idx[:ax] + (int(self.shard),) + idx[ax:]
+        if eng.placement is None or len(idx) <= ax:
+            return idx
+        if idx[ax] != eng.placement.shard:
+            return None
+        return idx[:ax] + (0,) + idx[ax + 1:]
 
     def on_cache_update(self, cache: dict[str, Any], step: int,
                         ) -> dict[str, Any]:
@@ -169,20 +209,28 @@ class FaultInjector:
         lane = self._lane(layer)
         entry = cache[site]
         if self.scenario == "poison-nan":
-            entry["prev_out"][lane + (0, 0)] = float("nan")
+            at = self._here(site, lane + (0, 0))
+            if at is not None:
+                entry["prev_out"][at] = float("nan")
             detail = "prev_out[...,0,0] = NaN"
         elif self.scenario == "poison-sim":
-            entry["sim_ema"][lane + (0,)] = float("nan")
+            at = self._here(site, lane + (0,))
+            if at is not None:
+                entry["sim_ema"][at] = float("nan")
             detail = "sim_ema[...,0] = NaN"
         elif self.scenario == "ctrl-garbage":
             ctrl = entry["ctrl"]
-            ctrl["mode_id"][lane] = 7
-            entry["mode_host"][lane] = 7
-            ctrl["cooldown"][lane] = -3
+            at = self._here(site, lane)
+            if at is not None:
+                ctrl["mode_id"][at] = 7
+                entry["mode_host"][at] = 7
+                ctrl["cooldown"][at] = -3
             detail = "ctrl mode_id=7, cooldown=-3"
         else:  # poison-counters
             bump = int(self.params["bump"])
-            entry["sensor"]["skipped_tiles"][lane] += bump
+            at = self._here(site, lane)
+            if at is not None:
+                entry["sensor"]["skipped_tiles"][at] += bump
             detail = f"skipped_tiles += {bump} without work"
         self.fired.append({"scenario": self.scenario, "step": step,
                            "site": site, "layer": layer, "detail": detail})

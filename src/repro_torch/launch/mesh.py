@@ -1,29 +1,46 @@
-"""Mesh specs for the sharded serve (`serve --mesh SPEC`).
+"""Mesh specs for the sharded serve (`serve --mesh SPEC`), and their
+placement on cards.
 
 The reference builds JAX meshes of real or mocked devices
 (`repro.launch.mesh`). Here a mesh is small data — its shape, its axis
-names and the one device the serve runs on — read by `mesh_axes` as the
-reference's is. `host:N` gives N model-axis shards of the reuse cache and
-the weight panels on that device (each shard runs its own kernels), the
-counterpart of the reference's N mocked host devices. One shard a card
-(one process a card, `torch.distributed`) is not ported, and the
-production pods raise.
+names, the device and, once placed, the rank's `Placement` — read by
+`mesh_axes` as the reference's is.
+
+Without a process group, `host:N` gives N model-axis shards of the reuse
+cache and the weight panels on the serve's one device (each shard runs its
+own kernels), the counterpart of the reference's N mocked host devices.
+Under a process group (`torchrun --nproc-per-node N`, one process a card:
+`start_process_group`), `place_mesh` gives rank r model-axis shard `r % S`,
+in the reference's row-major (data, model) device order, and the process
+group of its data row's model axis. The production pods (256 and 512
+cards) raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+
+import torch
+
+from repro_torch.dist.shard import Placement
+
+# the backend each device's process group runs, named explicitly: NCCL on
+# the card, gloo only on the CPU
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A device mesh as the serve reads it: axis sizes by name, in order,
-    and the device every shard lane lives on."""
+    the device its shard lanes live on, and, placed under a process group,
+    the rank's place (None: every lane on that one device)."""
 
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
     device: str = "cuda"
+    placement: Placement | None = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -31,14 +48,13 @@ class Mesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16x16 pod (256 chips) or 2x16x16 (512): not placed
-    here, which runs every shard on one device."""
+    """The reference's 16x16 pod (256 chips) or 2x16x16 (512)."""
     chips = 512 if multi_pod else 256
     raise NotImplementedError(
         f"mesh {'prod-pod' if multi_pod else 'prod'} needs {chips} cards, one "
-        "shard a card; placing shards on several cards (one process a card, "
-        "torch.distributed) is not ported — use 'host:N' for N shard lanes on "
-        "the serve's one device")
+        f"process a card under a process group of {chips} ranks — use "
+        "'host:N' with N ranks (torchrun --nproc-per-node N), or without a "
+        "process group for N shard lanes on the serve's one device")
 
 
 def make_host_mesh(n_devices: int, model_size: int | None = None, *,
@@ -63,10 +79,10 @@ def make_host_mesh(n_devices: int, model_size: int | None = None, *,
 def parse_mesh_spec(spec: str, *, device: str = "cuda") -> Mesh:
     """Mesh from a CLI spec string.
 
-    "host:N"    — N shard lanes, all on the model axis
-    "host:N@S"  — N lanes, model axis S wide (data axis N/S, replicated)
-    "prod"      — the 16x16 production pod (raises: not placed here)
-    "prod-pod"  — 2x16x16 multi-pod (raises)
+    "host:N"    — N shards, all on the model axis
+    "host:N@S"  — N shards, model axis S wide (data axis N/S, replicated)
+    "prod"      — the 16x16 production pod (raises: 256 cards)
+    "prod-pod"  — 2x16x16 multi-pod (raises: 512 cards)
     """
     s = spec.strip().lower()
     if s == "prod":
@@ -95,6 +111,69 @@ def parse_mesh_spec(spec: str, *, device: str = "cuda") -> Mesh:
         f"unknown mesh spec {spec!r} — expected 'host:N', 'host:N@S', "
         "'prod', or 'prod-pod'"
     )
+
+
+def start_process_group(device: str) -> tuple[int, int, torch.device] | None:
+    """The process group of a launch by `torchrun` (RANK, WORLD_SIZE and
+    LOCAL_RANK in the environment), started unless a caller started it:
+    NCCL for `device` "cuda", with each rank on `cuda:LOCAL_RANK`; gloo for
+    "cpu". Returns (rank, world size, the rank's device), or None when no
+    group is up and no launcher set the environment. A rank that finds no
+    card of its own raises, and so does a group already up on another
+    backend than the device's: nothing changes backend on its own."""
+    import torch.distributed as dist
+
+    backend = BACKENDS[device]
+    started = dist.is_available() and dist.is_initialized()
+    if started:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if dist.get_backend() != backend:
+            raise RuntimeError(
+                f"the process group runs {dist.get_backend()!r} but --device "
+                f"{device} needs {backend!r}")
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    else:
+        return None
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    if device == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if local >= cards:
+            raise RuntimeError(
+                f"rank {rank} (local rank {local}) finds no card cuda:{local}:"
+                f" {cards} visible")
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    if not started:
+        dist.init_process_group(backend=backend, rank=rank, world_size=world)
+    return rank, world, dev
+
+
+def place_mesh(mesh: Mesh, rank: int, world: int,
+               device: torch.device) -> Mesh:
+    """`mesh` placed one process a card: rank `rank` of `world` holds
+    model-axis shard `rank % S` of data row `rank // S`, and all-gathers
+    over that row's model group (made here, by every rank, in row order;
+    the default group when the model axis spans the world)."""
+    import torch.distributed as dist
+
+    n = math.prod(mesh.sizes)
+    if world != n:
+        raise RuntimeError(
+            f"mesh wants {n} devices but the process group has {world} "
+            f"ranks — launch one process a card with torchrun "
+            f"--nproc-per-node {n}")
+    model = mesh.shape["model"]
+    group = None
+    if model != world:
+        for row in range(world // model):
+            g = dist.new_group(list(range(row * model, (row + 1) * model)))
+            if row == rank // model:
+                group = g
+    return dataclasses.replace(mesh, device=str(device), placement=Placement(
+        rank=rank, world=world, n_shards=model, group=group, device=device))
 
 
 def mesh_axes(mesh: Mesh) -> dict:

@@ -70,7 +70,20 @@ axis` and the no-gather line (one eager decode step on a copy of the state,
 checked by `repro_torch.roofline.collectives`; a violation raises); at the
 end `shard skip <site>: s0=... ` per site and `ici traffic: reduce=...
 ctrl-writes=...`, the interconnect bytes the reference's mesh would move.
-Placing shards on several cards is not ported (`--mesh prod` raises).
+
+One shard a card: launched by `torchrun --nproc-per-node N -m
+repro_torch.launch.serve ... --reuse --mesh host:N` (a process group up,
+`launch/mesh.start_process_group`: NCCL on the card, each rank on
+`cuda:LOCAL_RANK`; gloo with `--device cpu`), rank r holds model-axis
+shard `r % S` of the reuse cache (`dist.shard.cache_shardings`), the
+parameters and the decode state replicated, as the reference's
+`device_put` places them; each sharded site call computes the rank's
+panel and all-gathers the panels (`ReuseEngine.place`). A world size other
+than N raises. Rank 0 alone prints, writes the control journal, the
+sensor JSONL and the checkpoint; at exit every rank must have decoded the
+same tokens. `--inject ...,shard=S` aims a cache fault at shard S's lane,
+which rank S holds. `--obs-dir` and `--profile-dir` are not placed.
+`--mesh prod` and `prod-pod` raise: they need 256 and 512 cards.
 
 Checkpointing (`repro_torch.ckpt`): `--cache-ckpt DIR` (with `--reuse`)
 restores the reuse cache from DIR's latest COMPLETE step at startup, in
@@ -81,7 +94,9 @@ lanes and resolves the ctrl lanes against the tuned table
 controller, each resolution printed and journaled as `kind="restore"`).
 At exit it saves the final cache at the batcher's step count, in the
 reference's on-disk format; a sharded cache keeps its `[L, S, ...]`
-layout. A corrupt newest step raises `CorruptCheckpointError` at startup.
+layout (placed, rank 0 gathers the lanes outside the step and writes;
+each rank restores its own lane in place). A corrupt newest step raises
+`CorruptCheckpointError` at startup.
 
 `run(cfg, args)` is the callable entry (chip_smoke.py drives it with a config
 cut in depth); `main()` parses the flags and calls it.
@@ -90,6 +105,8 @@ cut in depth); `main()` parses the flags and calls it.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import os
 import time
 from typing import Callable
@@ -187,12 +204,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None, metavar="SPEC",
                     help="shard the reuse serve along the model axis "
                     "(repro_torch.launch.mesh specs: 'host:N' makes N shards "
-                    "of every site's cache and weight panel on the serve's "
-                    "one device, 'host:N@S' an S-wide model axis); each "
-                    "shard runs its own kernels, nothing crosses shards in "
-                    "a step (checked at startup) and the sensor counters "
-                    "cross the mesh once per control window; requires "
-                    "--reuse")
+                    "of every site's cache and weight panel, on the serve's "
+                    "one device, or one a card under torchrun "
+                    "--nproc-per-node N; 'host:N@S' an S-wide model axis); "
+                    "each shard runs its own kernels, no cache state crosses "
+                    "shards in a step (checked at startup) and the sensor "
+                    "counters cross the mesh once per control window; "
+                    "requires --reuse")
     ap.add_argument("--inject", default=None, metavar="SCENARIO[:k=v,...]",
                     help="arm a deterministic fault scenario "
                     "(repro_torch.guard.inject.SCENARIOS) at the production "
@@ -231,10 +249,23 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         raise ValueError("--control-journal requires --control-every")
     if args.latency_table and not args.control_every:
         raise ValueError("--latency-table requires --control-every")
+    placed = None
+    if args.mesh:
+        from repro_torch.launch.mesh import start_process_group
+
+        # under torchrun: one process a card (None: every shard here)
+        placed = start_process_group(args.device)
+        if placed is not None and (args.obs_dir or args.profile_dir):
+            raise ValueError("--obs-dir and --profile-dir are not placed one "
+                             "process a card: run them without torchrun")
     was_tracing = obs_trace.is_enabled()
     saved_ids = events.current_ids()
     try:
-        return _run(cfg, args, after_step)
+        with contextlib.ExitStack() as quiet:
+            if placed is not None and placed[0] != 0:  # rank 0 alone prints
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            return _run(cfg, args, after_step, placed)
     finally:
         if not was_tracing:
             obs_trace.disable()
@@ -244,7 +275,7 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
 
 
 def _run(cfg: ModelConfig, args: argparse.Namespace,
-         after_step: Callable | None) -> dict:
+         after_step: Callable | None, placed: tuple | None) -> dict:
     if args.control_every and args.refresh_every:
         print("--control-every supersedes --refresh-every "
               "(the controller runs the mode refresh itself)")
@@ -265,10 +296,13 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
         events.set_ids(replica=args.replica_id)
         print(f"obs: replica={args.replica_id}")
     device = backend.require_device(args.device)
+    lead = placed is None or placed[0] == 0  # writes the run's files
+    if placed is not None:
+        device = placed[2]  # cuda:LOCAL_RANK
     # One shared journal: the restore-precedence pass (below) and the online
     # controller append to the same audit stream.
     journal = None
-    if args.control_journal:
+    if args.control_journal and lead:
         from repro_torch.control import DecisionJournal
 
         journal = DecisionJournal(args.control_journal)
@@ -300,6 +334,14 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
             planned = engine.shard_sites(ax["model_size"])
             print(f"mesh: {mesh.shape} — {len(planned)} sites sharded "
                   f"{ax['model_size']}-way on the model axis")
+            if placed is not None:
+                from repro_torch.launch.mesh import BACKENDS, place_mesh
+
+                mesh = place_mesh(mesh, *placed)
+                engine.place(mesh.placement)
+                print(f"mesh placement: {placed[1]} ranks, one shard a card "
+                      f"({BACKENDS[device.type]}); rank r holds shard r % "
+                      f"{ax['model_size']} on {device.type}:LOCAL_RANK")
         rcache = engine.init_cache(args.batch_slots, device=device)
         print(f"reuse cache: {cache_bytes(rcache)/1e6:.2f} MB "
               f"({len(engine.sites)} sites)")
@@ -310,7 +352,8 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
                   f"dataflow={spec.dataflow} exec={spec.exec_path}{budget} "
                   f"block_k={spec.block_k}")
         if args.cache_ckpt:
-            restore_cache_ckpt(args.cache_ckpt, engine, rcache, journal)
+            restore_cache_ckpt(args.cache_ckpt, engine, rcache, journal,
+                               mesh=mesh)
         if args.tuned_policy:
             # tuned-vs-default delta: each site probed at full similarity
             # (the min-work admission decision), and the knobs that moved
@@ -342,6 +385,8 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
         from repro_torch.guard import FaultInjector
 
         injector = FaultInjector.from_spec(args.inject)
+        if engine is not None:
+            injector.bind(engine)
         print(f"fault injection armed: {injector.scenario} "
               f"{injector.params} site={injector.site} "
               f"layer={injector.layer}")
@@ -609,7 +654,7 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
             print(f"ici traffic: reduce={engine.ici_reduce_bytes/1e3:.1f} KB "
                   f"ctrl-writes={engine.ici_write_bytes/1e3:.1f} KB "
                   f"(priced at E_ICI in the sensor energy report)")
-        if args.sensor_jsonl:
+        if args.sensor_jsonl and lead:
             report.write_jsonl(args.sensor_jsonl)
             print(f"sensor report appended to {args.sensor_jsonl}")
     if controller is not None:
@@ -630,17 +675,32 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
               f"{breaker.quarantined_lanes()} lanes quarantined"
               + (f" [{lanes}]" if lanes else ""))
     if args.cache_ckpt and engine is not None:
-        from repro_torch.ckpt.checkpoint import save_cache
+        from repro_torch.ckpt.checkpoint import gather_cache, save_cache
 
-        # the step's live buffers: rcache is the cache the graphs write
-        save_cache(args.cache_ckpt, batcher.stats["steps"], step.rcache)
+        # the step's live buffers: rcache is the cache the graphs write;
+        # placed, every rank's lanes gathered outside the step
+        whole = gather_cache(engine, step.rcache)
+        if lead:
+            save_cache(args.cache_ckpt, batcher.stats["steps"], whole)
         print(f"cache checkpoint: saved step {batcher.stats['steps']} "
               f"to {args.cache_ckpt}")
+        del whole
+    if placed is not None:
+        # every rank decoded the same tokens (and rank 0 has saved before
+        # any rank's at-rest fault touches its files)
+        digest = hashlib.sha256(repr(sorted(
+            (r.rid, list(map(int, r.output))) for r in done)).encode()
+        ).digest()
+        if not engine.placement.world_agrees(digest):
+            raise RuntimeError("the ranks of the placed serve decoded "
+                               "different tokens")
+        print(f"mesh placement: all {placed[1]} ranks decoded the same "
+              "tokens")
     if injector is not None:
         # at-rest scenarios fire at exit, against the artifacts just written
-        if args.control_journal:
+        if args.control_journal and lead:
             injector.tear_journal(args.control_journal)
-        if args.cache_ckpt:
+        if args.cache_ckpt and lead:
             injector.corrupt_checkpoint(args.cache_ckpt)
         print(f"fault injection: {len(injector.fired)} fault(s) fired")
         for ev in injector.fired:
@@ -690,20 +750,26 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
 
 
 def restore_cache_ckpt(directory: str, engine, rcache: dict,
-                      journal) -> None:
+                      journal, *, mesh=None) -> None:
     """`--cache-ckpt` at startup, as the reference: restore the latest
     COMPLETE step (`latest_step`: a corrupt newest step raises
     `CorruptCheckpointError`, it is not walked past) into the tensors
     `init_cache` built, rebuild the mode mirrors from the restored mode
     lanes, then resolve the ctrl precedence (journaled to `journal`).
-    Nothing without a checkpoint."""
+    Placed (`mesh` placed one shard a card), each rank copies in its own
+    lane of the one-device layout. Nothing without a checkpoint."""
     from repro_torch.ckpt.checkpoint import latest_step, restore_cache
     from repro_torch.control.restore import resolve_restored_ctrl
 
     ck_step = latest_step(directory)
     if ck_step is None:
         return
-    restore_cache(directory, ck_step, rcache)
+    shardings = None
+    if mesh is not None and mesh.placement is not None:
+        from repro_torch.dist.shard import cache_shardings
+
+        shardings = cache_shardings(engine, mesh, rcache)
+    restore_cache(directory, ck_step, rcache, shardings=shardings)
     resolutions = resolve_restored_ctrl(engine, rcache, journal=journal,
                                         step=0)
     print(f"cache checkpoint: restored step {ck_step} from {directory}; "
@@ -718,16 +784,20 @@ def no_gather_check(params, cfg: ModelConfig, state: dict, engine, rcache,
                     mesh, batch: int) -> dict:
     """The sharded serve's hot-path invariant, checked once at startup: one
     eager decode step, on copies of the decode state and the reuse cache,
-    moves no reuse-cache state across shards — no collective, and no copy,
-    cat or gather of a cache leaf's signature
-    (`repro_torch.roofline.collectives`). Raises on a violation; prints the
-    line the reference prints for its HLO check."""
+    moves no reuse-cache state across shards — no collective on a cache
+    leaf's signature or storage, and no copy, cat or gather of a signature
+    (`repro_torch.roofline.collectives`); placed one shard a card, the
+    step's all-gathers of output panels pass, as the reference's do.
+    Raises on a violation; prints the line the reference prints for its
+    HLO check, with the collectives and the KB a card gathers."""
     from repro_torch.dist.shard import (
         cache_shape_signatures,
         cache_shard_axes,
     )
     from repro_torch.roofline.collectives import (
         cache_collective_violations,
+        cache_storages,
+        collective_bytes,
         collective_count,
         trace_step,
     )
@@ -743,17 +813,21 @@ def no_gather_check(params, cfg: ModelConfig, state: dict, engine, rcache,
     trace = trace_step(lambda: decode_step(
         params, cfg, tokens, probe_state, engine=engine,
         reuse_cache=probe_cache))
-    del probe_cache, probe_state
+    placed = mesh.placement is not None
     violations = cache_collective_violations(
         trace, cache_shape_signatures(
-            rcache, cache_shard_axes(engine, mesh, rcache)))
+            rcache, cache_shard_axes(engine, mesh, rcache),
+            n_shards=mesh.shape["model"] if placed else None),
+        cache_storages(probe_cache))
+    del probe_cache, probe_state
     if violations:
         raise RuntimeError(
             "sharded serve step gathers reuse-cache state across the mesh — "
             f"hot-path invariant violated: {violations}")
     print(f"profiler no-gather check: OK — 0 cache-touching gathers "
-          f"({collective_count(trace)} collectives, {len(trace['moves'])} "
-          f"copies and gathers in one eager decode step)")
+          f"({collective_count(trace)} collectives, "
+          f"{collective_bytes(trace)/1e3:.1f} KB/card in one eager decode "
+          f"step; {len(trace['moves'])} copies and gathers)")
     return trace
 
 
@@ -762,7 +836,11 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    run(cfg, args)
+    res = run(cfg, args)
+    if args.mesh and torch.distributed.is_initialized():
+        # the captured graphs hold NCCL work: released before the group
+        res["step"].release()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

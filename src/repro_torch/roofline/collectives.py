@@ -2,20 +2,26 @@
 move reuse-cache state across shards.
 
 The reference proves it on the compiled step's HLO
-(`repro.roofline.hlo_parse.cache_collective_violations`: no all-gather or
-all-to-all whose operand has a cache leaf's shape). The port has no HLO, so
-it runs one eager decode step under `torch.profiler` and, for the operands'
-dtypes and shapes, under a dispatch recorder, and flags two kinds of event:
+(`repro.roofline.hlo_parse.cache_collective_violations`: an all-gather or
+all-to-all is a violation only when an operand or result has a cache
+leaf's shape; activation collectives pass). The port has no HLO, so it runs
+one eager decode step under `torch.profiler` and a dispatch recorder, which
+sees every tensor op, the process group's collectives (`c10d.*`) among
+them, with its operands' dtypes, shapes and storages. It flags:
 
-* any collective, by the name of an op or kernel (`nccl`, `all_gather`,
-  `all_to_all`);
-* any copy, cat, stack or gather whose input or output has the dtype and
-  shape of a cache leaf's signature (`repro_torch.dist.shard.
-  cache_shape_signatures`): the cache gathered across shards, or one
-  shard's whole lane moved.
+* a collective with an operand or result of a cache leaf's signature
+  (`repro_torch.dist.shard.cache_shape_signatures`: its global shape and
+  one shard's block), or whose storage is a cache leaf's (`storages`, from
+  `cache_storages`: a lane of prev_out can share a shape with an output
+  panel, never its storage);
+* any copy, cat, stack or gather whose input or output has a cache leaf's
+  signature: the cache gathered across shards, or one shard's whole lane
+  moved.
 
 A step's own per-layer, per-shard reads and writes (a [M, N/S] prev_out
-lane, say) carry no signature and pass.
+lane, say) carry no signature and pass, and so do the placed step's
+all-gathers of output panels (one shard a card), which the reference's
+GSPMD step also makes.
 """
 
 from __future__ import annotations
@@ -36,24 +42,34 @@ def _is_move(name: str) -> bool:
     return any(m in name for m in _MOVES)
 
 
+def _is_collective(name: str) -> bool:
+    return name.startswith("c10d.")
+
+
 class _MoveRecorder(TorchDispatchMode):
     """Records (op, [(dtype, shape) of each tensor operand and result]) of
-    every data-moving op dispatched while it is active."""
+    every data-moving op dispatched while it is active, and of every
+    collective also the storages and the bytes of its largest tensor (what
+    a card holds after it)."""
 
     def __init__(self):
         super().__init__()
         self.ops: list[tuple[str, list[tuple[str, tuple]]]] = []
+        self.collectives: list[tuple[str, list, list[int], int]] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         name = str(func)
-        if _is_move(name):
-            tensors = []
+        collective = _is_collective(name)
+        if collective or _is_move(name):
+            tensors, ptrs, sizes = [], [], []
 
             def note(x):
                 if isinstance(x, torch.Tensor):
                     tensors.append((str(x.dtype).removeprefix("torch."),
                                     tuple(int(d) for d in x.shape)))
+                    ptrs.append(x.untyped_storage().data_ptr())
+                    sizes.append(x.numel() * x.element_size())
                 elif isinstance(x, (list, tuple)):
                     for y in x:
                         note(y)
@@ -61,14 +77,19 @@ class _MoveRecorder(TorchDispatchMode):
             note(list(args))
             note(list((kwargs or {}).values()))
             note(out)
-            self.ops.append((name, tensors))
+            if collective:
+                self.collectives.append((name, tensors, ptrs,
+                                         max(sizes, default=0)))
+            else:
+                self.ops.append((name, tensors))
         return out
 
 
 def trace_step(fn: Callable[[], object]) -> dict:
     """Run `fn` (one eager decode step) once under `torch.profiler` and the
     move recorder. Returns {"events": op and kernel names the profiler saw,
-    "moves": the recorder's (op, operands)}."""
+    "moves": the recorder's (op, operands), "collectives": its (op,
+    operands, storages, bytes) of each collective}."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -79,17 +100,43 @@ def trace_step(fn: Callable[[], object]) -> dict:
         fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    return {"events": [e.name for e in prof.events()], "moves": rec.ops}
+    return {"events": [e.name for e in prof.events()], "moves": rec.ops,
+            "collectives": rec.collectives}
 
 
-def cache_collective_violations(trace: dict, signatures: set) -> list[dict]:
+def cache_storages(cache) -> set[int]:
+    """The storages of every tensor leaf of a cache (nested dicts)."""
+    out: set[int] = set()
+
+    def add(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                add(v)
+        elif isinstance(tree, torch.Tensor):
+            out.add(tree.untyped_storage().data_ptr())
+
+    add(cache)
+    return out
+
+
+def cache_collective_violations(trace: dict, signatures: set,
+                                storages: set[int] | None = None
+                                ) -> list[dict]:
     """The events of `trace` (from `trace_step`) that break the no-gather
-    invariant: collectives by name, and moves with an operand of a cache
-    leaf's signature. Empty when the invariant holds."""
+    invariant: collectives with an operand or result of a cache leaf's
+    signature or on a cache leaf's storage (`storages`), and moves with an
+    operand of a signature. Empty when the invariant holds. A collective
+    the profiler names but the recorder did not see (no operands) is
+    counted (`collective_count`), not flagged, as the reference passes
+    every collective whose shapes are not the cache's."""
     out = []
-    for name in sorted(set(trace["events"])):
-        if any(m in name.lower() for m in COLLECTIVE_MARKS):
-            out.append({"op": name, "kind": "collective"})
+    for name, operands, ptrs, _ in trace.get("collectives", []):
+        hits = [(dt, dims) for dt, dims in operands
+                if (dt, dims) in signatures]
+        aliased = bool(storages) and any(p in storages for p in ptrs)
+        if hits or aliased:
+            out.append({"op": name, "kind": "collective", "operands": hits,
+                        "aliases_cache": aliased})
     for name, operands in trace["moves"]:
         hits = [(dt, dims) for dt, dims in operands
                 if (dt, dims) in signatures]
@@ -99,6 +146,15 @@ def cache_collective_violations(trace: dict, signatures: set) -> list[dict]:
 
 
 def collective_count(trace: dict) -> int:
-    """Collective ops and kernels in the trace (by name)."""
+    """Collectives in the trace: the recorder's, or where it saw none, the
+    ops and kernels the profiler names as collectives."""
+    if trace.get("collectives"):
+        return len(trace["collectives"])
     return sum(1 for name in trace["events"]
                if any(m in name.lower() for m in COLLECTIVE_MARKS))
+
+
+def collective_bytes(trace: dict) -> int:
+    """Bytes a card holds after the trace's collectives (each one's largest
+    tensor: an all-gather's result)."""
+    return sum(size for *_, size in trace.get("collectives", []))

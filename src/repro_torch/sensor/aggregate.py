@@ -289,6 +289,10 @@ def build_report(engine, cache: dict[str, Any]) -> SensorReport:
     model-sharded sites are collapsed first, and the model row of a sharded
     engine carries the mesh and interconnect keys)."""
     per_site, per_layer = [], []
+    if getattr(engine, "placement", None) is not None:
+        # one shard a card: the counters of every shard, on the host, in
+        # the one-device layout (one collective)
+        cache = engine.host_cache(cache)
     impl = getattr(engine, "impl", "cuda")
     shards = getattr(engine, "shards", None) or {}
     stacking = getattr(engine, "stacking", None) or {}
@@ -342,7 +346,10 @@ def build_report(engine, cache: dict[str, Any]) -> SensorReport:
 
 def slot_telemetry(engine, cache: dict[str, Any], slot: int) -> dict[str, Any]:
     """Per-request telemetry for one serving slot, read at retirement: only
-    the slot's per-site hit-rate lanes."""
+    the slot's per-site hit-rate lanes (placed: every shard's, in the
+    one-device layout)."""
+    if getattr(engine, "placement", None) is not None:
+        cache = engine.host_cache(cache, keys=("sensor",))
     hit_sums, steps = [], 0
     for name in engine.sites:
         sensor = cache[name].get("sensor")

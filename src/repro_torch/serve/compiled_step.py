@@ -42,6 +42,17 @@ pool: variants replay in any order, and one's logits must not live in
 another's blocks. A failed capture raises and nothing falls back to the
 eager step; a replay under another key than its graph's raises.
 
+Placed one shard a card (`ReuseEngine.placement`), each rank captures its
+own graphs, and the decode graph holds the step's NCCL all-gathers of
+output panels: every rank builds and replays the same keys in the same
+order (their host decisions come from the same snapshot), so the captured
+collectives pair up. NCCL's communicators start lazily, so one collective
+runs on the capture stream before the first capture, and the capture uses
+that stream, in CUDA's thread-local capture mode: the process group's
+watchdog thread queries its CUDA events while this thread captures, which
+the global mode forbids to every thread. A capture that fails raises here
+too.
+
 Launch accounting: the wrappers count in Python, so a capture's counts are
 taken back out and added once per replay (`backend.recorded_launches`,
 `backend.count_replay`); `backend.launch_counts()` stays the kernels the
@@ -123,6 +134,7 @@ class CompiledStep:
         # evicted ones included
         self.built: list[tuple[str, float, int]] = []
         self._side = torch.cuda.Stream(self.device) if graphs else None
+        self._collectives_ready = False
 
     # ------------------------------------------------------------- the keys
 
@@ -259,6 +271,16 @@ class CompiledStep:
         with torch.cuda.stream(self._side):
             out = fn()  # the real step, and the warm-up of the capture
         cur.wait_stream(self._side)
+        placement = getattr(self.engine, "placement", None)
+        capture = {}
+        if placement is not None:
+            capture.update(stream=self._side,
+                           capture_error_mode="thread_local")
+            if not self._collectives_ready:
+                # the communicators up before any capture records them
+                with torch.cuda.stream(self._side):
+                    placement.all_gather(torch.zeros(1, device=self.device))
+                self._collectives_ready = True
         torch.cuda.synchronize(self.device)
         gc.collect()
         torch.cuda.empty_cache()
@@ -266,7 +288,8 @@ class CompiledStep:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with backend.recorded_launches() as rec, torch.cuda.graph(graph):
+            with backend.recorded_launches() as rec, torch.cuda.graph(
+                    graph, **capture):
                 gout = fn()
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the {kind} step "
@@ -280,6 +303,16 @@ class CompiledStep:
                  f"{pool / 1e6:.1f} MB, {sum(rec.values())} kernel launches "
                  f"(captures: {self.captures})")
         return out
+
+    def release(self) -> None:
+        """Drop every variant and reset its graph (a placed step's graphs
+        hold NCCL work, which must be released before the process group
+        is destroyed)."""
+        for v in self.variants.values():
+            if v.graph is not None:
+                v.graph.reset()
+            v.graph = v.out = None
+        self.variants.clear()
 
     def _n_built(self, kind: str) -> int:
         return sum(1 for k, _, _ in self.built if k == kind)

@@ -9,6 +9,10 @@ This file imports no JAX (the machine with the card has none):
 import dataclasses
 import json
 import math
+import os
+import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -1345,3 +1349,114 @@ def test_graph_probe_equals_eager_probe_on_card(card):
             assert torch.equal(got[leaf], want[leaf]), (key, leaf)
         for name, t in got["sensor"].items():
             assert torch.equal(t, want["sensor"][name]), (key, name)
+
+
+# two ranks, one card each: the placed engine's decode site call (its
+# panel, then NCCL's all-gather of the panels) captured in a CUDA graph and
+# replayed, against the one-device sharded engine on the same inputs
+_NCCL_RANKS = r"""
+import faulthandler, json, sys
+import torch
+faulthandler.dump_traceback_later(120, repeat=True)
+from repro_torch.core.engine import ReuseEngine
+from repro_torch.launch.mesh import parse_mesh_spec, place_mesh, \
+    start_process_group
+
+rank, world, dev = start_process_group("cuda")
+mesh = place_mesh(parse_mesh_spec("host:2"), rank, world, dev)
+
+
+def build(placement):
+    eng = ReuseEngine(impl="cuda")
+    eng.register("site", 4096, 1536, block_m=8, block_k=256)
+    eng.shard_sites(2)
+    eng.place(placement)
+    cache = eng.init_cache(8, device=dev)
+    eng.set_mode(cache, "site", "reuse")
+    return eng, cache
+
+
+gen = torch.Generator(device=dev).manual_seed(0)
+w = (torch.randn((4096, 1536), generator=gen, device=dev) / 64).to(
+    torch.bfloat16)
+xs = [torch.randn((8, 4096), generator=gen, device=dev).to(torch.bfloat16)
+      for _ in range(5)]
+for x in xs[1:]:  # correlated steps: most tiles skip
+    x[:, :3072] = xs[0][:, :3072]
+one, c1 = build(None)
+placed, c2 = build(mesh.placement)
+want = [one.apply("site", x, w, None, c1["site"])[0].clone() for x in xs]
+x_buf = xs[0].clone()
+side = torch.cuda.Stream(dev)
+side.wait_stream(torch.cuda.current_stream(dev))
+with torch.cuda.stream(side):
+    got = [placed.apply("site", x_buf, w, None, c2["site"])[0].clone()]
+    placed.placement.all_gather(torch.zeros(1, device=dev))
+torch.cuda.synchronize(dev)
+graph = torch.cuda.CUDAGraph()
+# as CompiledStep captures a placed step
+with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+    out = placed.apply("site", x_buf, w, None, c2["site"])[0]
+for x in xs[1:]:
+    x_buf.copy_(x)
+    graph.replay()
+    got.append(out.clone())
+torch.cuda.synchronize(dev)
+lane = {k: c2["site"][k] for k in ("prev_q", "prev_out", "sim_ema")}
+res = {"rank": rank,
+       "outputs_equal": [torch.equal(a, b) for a, b in zip(got, want)],
+       "lane_equal": {k: torch.equal(v, c1["site"][k].narrow(
+           0, mesh.placement.shard, 1)) for k, v in lane.items()}}
+with open(f"{sys.argv[1]}/rank{rank}.json", "w") as f:
+    json.dump(res, f)
+# the graph holds the group's NCCL work: released before the group
+graph.reset()
+torch.cuda.synchronize(dev)
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_placed_panels_all_gathered_in_a_graph_on_two_cards(card, tmp_path):
+    """Two ranks (torchrun, NCCL), each holding one shard: the site call
+    captured with its NCCL all-gather and replayed gives, at every step,
+    the one-device sharded engine's output bitwise, and each rank's cache
+    lane is that lane of the one-device cache."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    import signal
+    import socket
+
+    script = tmp_path / "ranks.py"
+    script.write_text(_NCCL_RANKS)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), NCCL_DEBUG="WARN")
+    # a static rendezvous at 127.0.0.1: the card's machine resolves no
+    # host name
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log = tmp_path / "ranks.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+             "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+             "--master-port", str(port), str(script), str(tmp_path)],
+            env=env, stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            proc.wait(timeout=240)
+        except subprocess.TimeoutExpired:
+            # torchrun passes SIGTERM to its ranks
+            os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            pytest.fail(f"the ranks hung: {log.read_text()[-4000:]}")
+    assert proc.returncode == 0, log.read_text()[-4000:]
+    for rank in range(2):
+        res = json.loads((tmp_path / f"rank{rank}.json").read_text())
+        assert all(res["outputs_equal"]), res
+        assert all(res["lane_equal"].values()), res
