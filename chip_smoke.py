@@ -3754,14 +3754,9 @@ def placed_rank(spec_path: str) -> None:
             peak_mb=torch.cuda.max_memory_allocated(dev) / 1e6,
             summary=step.summary())
     (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    # the serve CLI's own teardown: the graphs released, then the group
+    serve.close(res)
     faulthandler.cancel_dump_traceback_later()
-    # the graphs hold the process group's NCCL work: release them first,
-    # then leave without the group's teardown (on the card it waited on
-    # that work past a captured graph's life)
-    step.release()
-    torch.cuda.synchronize(dev)
-    sys.stdout.flush()
-    os._exit(0)
 
 
 def torchrun(n: int, *args: str) -> list:

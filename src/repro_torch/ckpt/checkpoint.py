@@ -355,13 +355,16 @@ def restore_cache(directory: str | Path, step: int, cache: dict, *,
     """Restore a reuse cache in place (`restore_into`; with `shardings`,
     from `cache_shardings`, each rank's own lane of the one-device layout),
     then rebuild each entry's `mode_host` in place from its restored
-    `ctrl["mode_id"]` lanes (one device-to-host copy a site). Returns
-    `cache`."""
+    `ctrl["mode_id"]` lanes (one device-to-host copy a site). Placed (with
+    `shardings`) a rank's mirror holds every shard's lane, so the caller
+    rebuilds it from every rank's lanes (`ReuseEngine.sync_mode_mirror`,
+    a collective). Returns `cache`."""
     restore_into(directory, step, cache_state(cache),
                  shardings=None if shardings is None
                  else cache_state(shardings))
-    for entry in cache.values():
-        entry["mode_host"][...] = entry["ctrl"]["mode_id"].cpu().numpy()
+    if shardings is None:
+        for entry in cache.values():
+            entry["mode_host"][...] = entry["ctrl"]["mode_id"].cpu().numpy()
     return cache
 
 

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.control.report import ControlReport, Decision, DecisionJournal
 from repro_torch.core.policy import layer_key
-from repro_torch.dist.shard import shard_axis_of
+from repro_torch.dist.shard import host_arrays, shard_axis_of
 
 _REL_TOL = 1e-5
 
@@ -48,16 +48,12 @@ def _lanes(engine, name: str, ctrl: dict) -> tuple[np.ndarray, np.ndarray]:
     """(sim_threshold, min_work) per layer ([1] unstacked), f64 on the host
     (placed, shard 0's lane reaches every rank: one collective)."""
     both = torch.stack([ctrl["sim_threshold"], ctrl["min_work"]])
-    if getattr(engine, "placement", None) is not None and engine.shards.get(
-            name, 0):
-        [both] = engine.placement.host_arrays(
-            [both], [1 + shard_axis_of(engine.stacking.get(name, 0))])
-        both = both.astype(np.float64)
-    else:
-        both = both.cpu().numpy().astype(np.float64)
-    if engine.shards.get(name, 0):
-        both = np.take(both, 0,
-                       axis=1 + shard_axis_of(engine.stacking.get(name, 0)))
+    ax = (1 + shard_axis_of(engine.stacking.get(name, 0))
+          if engine.shards.get(name, 0) else None)
+    [both] = host_arrays([both], [ax], getattr(engine, "placement", None))
+    both = both.astype(np.float64)
+    if ax is not None:
+        both = np.take(both, 0, axis=ax)
     return np.atleast_1d(both[0]), np.atleast_1d(both[1])
 
 

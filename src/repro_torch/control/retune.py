@@ -30,12 +30,10 @@ reference's bit for bit.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
-import torch
 
 from repro_torch.core.policy import SiteTunables
+from repro_torch.dist.shard import host_arrays
 from repro_torch.sensor.aggregate import collapse_shard_sensor
 from repro_torch.tune.harvest import BLOCK_K_CHOICES
 from repro_torch.tune.trace import SiteTraceRecord
@@ -49,7 +47,6 @@ _COUNTER_KEYS = (
 # the sensor leaves a snapshot reads beyond _COUNTER_KEYS
 _SNAP_EXTRA = ("overflow_fallbacks", "suppressed_flips", "slot_hit_sum",
                "slot_steps")
-_NP_DTYPES = {torch.int32: np.int32, torch.float32: np.float32}
 
 
 def snapshot_cache(cache: dict, names=None,
@@ -60,42 +57,28 @@ def snapshot_cache(cache: dict, names=None,
     transfer. A site without counters maps to None. `shard_axes` names the
     shard axis of each model-sharded site, whose host copy is collapsed as
     `snapshot_entry` says. With `placement` (one shard a card,
-    `repro_torch.dist.shard.Placement`) the packed vector is all-gathered
-    over the model group before the one copy, and each sharded leaf's
-    shard axis is rebuilt from every rank's lane: the cross-card reduce
-    of the window, after which every rank collapses what the one-device
-    engine collapses."""
+    `repro_torch.dist.shard.Placement`) the copy rebuilds each sharded
+    leaf's shard axis from every rank's lane (`host_arrays`: one
+    collective): the cross-card reduce of the window, after which every
+    rank collapses what the one-device engine collapses."""
     names = list(cache) if names is None else list(names)
     shard_axes = shard_axes or {}
-    parts: list[torch.Tensor] = []
-    layout: list[tuple[str, str, tuple, np.dtype]] = []
+    leaves, axes, paths = [], [], []
     for name in names:
         entry = cache[name]
         sensor = entry.get("sensor")
         if sensor is None:
             continue
-        leaves = {k: sensor[k] for k in _COUNTER_KEYS + _SNAP_EXTRA
-                  if k in sensor}
-        leaves["steps"] = entry["steps"]
-        for key, t in leaves.items():
-            parts.append(t.reshape(-1).double())
-            layout.append((name, key, tuple(t.shape), _NP_DTYPES[t.dtype]))
-    if placement is None:
-        rows = [torch.cat(parts).cpu().numpy() if parts else np.zeros(0)]
-    elif parts:
-        rows = list(placement.all_gather(torch.cat(parts)).cpu().numpy())
-    else:
-        rows = [np.zeros(0)]
+        found = {k: sensor[k] for k in _COUNTER_KEYS + _SNAP_EXTRA
+                 if k in sensor}
+        found["steps"] = entry["steps"]
+        for key, t in found.items():
+            leaves.append(t)
+            axes.append(shard_axes.get(name))
+            paths.append((name, key))
     host: dict[str, dict] = {}
-    pos = 0
-    for name, key, shape, dtype in layout:
-        n = math.prod(shape)
-        blocks = [r[pos:pos + n].astype(dtype).reshape(shape) for r in rows]
-        ax = shard_axes.get(name)
-        host.setdefault(name, {})[key] = (
-            np.concatenate(blocks, axis=ax) if ax is not None
-            and placement is not None else blocks[0])
-        pos += n
+    for (name, key), a in zip(paths, host_arrays(leaves, axes, placement)):
+        host.setdefault(name, {})[key] = a
     for name, ax in shard_axes.items():
         if name in host:
             host[name] = collapse_shard_sensor(host[name], ax)

@@ -86,6 +86,7 @@ from repro_torch.core.reuse_cache import (
 from repro_torch.core.reuse_linear import ReuseStats, reuse_linear
 from repro_torch.dist.shard import (
     Placement,
+    host_arrays,
     plan_local_spec,
     shard_axis_of,
     shard_view,
@@ -158,56 +159,6 @@ def _combine_shard_sentinels(
         for key in ("skipped_l", "computed_l"):
             out[key] = torch.stack([ln[key] for ln in lanes]).sum(
                 dim=0, dtype=torch.int32)
-    return out
-
-
-def _unpack_snapshot(flat: np.ndarray, layout, cache) -> dict[str, Any]:
-    """The snapshot dict from one packed f64 vector and its layout
-    ((site, lane key, count): count 0 is a scalar sum)."""
-    snap: dict[str, Any] = {name: {} for name in cache}
-    pos = 0
-    for name, key, count in layout:
-        if count == 0:  # a scalar sum
-            snap[name][key] = int(flat[pos])
-            pos += 1
-        else:
-            snap[name][key] = flat[pos:pos + count].astype(
-                _SNAP_DTYPES.get(key, np.int32))
-            pos += count
-    return snap
-
-
-# how a placed snapshot collapses each lane across the shards' snapshots,
-# as the one-device snapshot does across its shard lanes: counters and
-# disjoint counts sum, per-shard lanes line up, health flags and the
-# quarantine lockout take the max, the ctrl range bitmask ORs; every other
-# lane is replicated and comes from shard 0
-_SHARD_MERGE = {"skipped": "sum", "computed": "sum",  # python ints
-                "skipped_shard": "cat", "computed_shard": "cat",
-                "bad_out": "sum", "skipped_l": "sum", "computed_l": "sum",
-                "quarantine": "max", "bad_sim": "max", "ctrl_bad": "or"}
-
-
-def _merge_shard_snapshots(snaps: list[dict[str, Any]],
-                           shards: dict[str, int]) -> dict[str, Any]:
-    out: dict[str, Any] = {}
-    for name, lanes in snaps[0].items():
-        out[name] = {}
-        for key, v in lanes.items():
-            how = _SHARD_MERGE.get(key) if name in shards else None
-            vals = [s[name][key] for s in snaps]
-            if how is None:
-                out[name][key] = v
-            elif isinstance(v, int):
-                out[name][key] = sum(vals)
-            elif how == "cat":
-                out[name][key] = np.concatenate(vals).astype(v.dtype)
-            elif how == "sum":
-                out[name][key] = np.sum(vals, axis=0).astype(v.dtype)
-            elif how == "max":
-                out[name][key] = np.max(vals, axis=0).astype(v.dtype)
-            else:
-                out[name][key] = np.bitwise_or.reduce(vals).astype(v.dtype)
     return out
 
 
@@ -332,8 +283,11 @@ class ReuseEngine:
                 # shard axis first, the layer axis wraps it: [S, ...]
                 # unstacked, [L, S, ...] stacked ([L, 1, ...] placed); the
                 # initial state is the same on every shard (prev_out zeros
-                # at the local N)
+                # at the local N). The host mirror of the mode lanes keeps
+                # every shard's lane on every rank: each reads shard 0's
+                mirror = lead(n_shards)(entry.pop("mode_host"))
                 entry = map_tensors(lead(self.lanes_held(name)), entry)
+                entry["mode_host"] = mirror
             n_layers = self.stacking[name]
             if n_layers:
                 entry = map_tensors(lead(n_layers), entry)
@@ -391,12 +345,14 @@ class ReuseEngine:
             self.sync_budgets()
         return lane
 
-    def _site_lane(self, name: str, per_layer):
+    def _site_lane(self, name: str, per_layer, *, every_shard=False):
         """Per-layer values ([L], or [1] unstacked) in the ctrl lane's
         layout: replicated over the shard axis of a sharded site (every
         shard runs the layer's operating point). A tensor stays a tensor on
-        its device, a numpy array numpy. Placed, the rank's one lane."""
-        n_shards = self.lanes_held(name)
+        its device, a numpy array numpy. Placed, the rank's one lane, or
+        with `every_shard` every shard's (the mode mirror's layout)."""
+        n_shards = (self.shards.get(name, 0) if every_shard
+                    else self.lanes_held(name))
         if not n_shards:
             return per_layer
         if self.stacking.get(name, 0) > 0:
@@ -446,9 +402,9 @@ class ReuseEngine:
         written into its columns of one [*lead, N] output. Nothing crosses
         shards. Placed, the rank's shard alone, its panel all-gathered
         with the others' into the output. The layer's mode is replicated
-        across shards and read once, from the host mirror's shard 0 (placed:
-        the rank's lane, which every rank writes alike), as the reference
-        takes its branch once outside its vmap."""
+        across shards and read once, from the host mirror's shard 0 (every
+        rank's mirror holds every shard's lane), as the reference takes its
+        branch once outside its vmap."""
         spec = self.sites[name]
         n_shards = self.shards[name]
         nl = spec.out_features // n_shards
@@ -523,13 +479,29 @@ class ReuseEngine:
 
     # ------------------------------------------------------- kernelMode writes
 
-    @staticmethod
-    def _write_modes(entry: dict[str, Any], mode_ids: np.ndarray) -> None:
-        """Write a site's mode ids (in the lane's layout) to the device lane
-        and its host mirror."""
+    def _write_modes(self, name: str, entry: dict[str, Any],
+                     mode_ids: np.ndarray) -> None:
+        """Write a site's mode ids (in the mirror's layout: every shard's
+        lane) to its host mirror and the device lane (placed: the rank's
+        lane of them)."""
         new = np.asarray(mode_ids, np.int8).reshape(entry["mode_host"].shape)
-        entry["ctrl"]["mode_id"].copy_(torch.from_numpy(new.copy()))
         entry["mode_host"][...] = new
+        if self.shards.get(name) and self.placement is not None:
+            new = np.take(new, [self.placement.shard], axis=shard_axis_of(
+                self.stacking.get(name, 0)))
+        entry["ctrl"]["mode_id"].copy_(torch.from_numpy(new.copy()))
+
+    def sync_mode_mirror(self, cache: dict[str, Any]) -> None:
+        """Rebuild every site's host mirror from its device mode lanes, in
+        one copy (placed: every rank's lanes, one collective), as after a
+        restore into the lanes."""
+        names = [n for n, e in cache.items() if "ctrl" in e]
+        lanes = host_arrays(
+            [cache[n]["ctrl"]["mode_id"] for n in names],
+            [shard_axis_of(self.stacking.get(n, 0)) if self.shards.get(n)
+             else None for n in names], self.placement)
+        for n, a in zip(names, lanes):
+            cache[n]["mode_host"][...] = a
 
     def set_mode(
         self, cache: dict[str, Any], name: str, mode: str,
@@ -543,7 +515,7 @@ class ReuseEngine:
             new[...] = mid
         else:
             new[layer] = mid
-        self._write_modes(entry, new)
+        self._write_modes(name, entry, new)
 
     # ------------------------------------------------------- live write paths
 
@@ -653,62 +625,81 @@ class ReuseEngine:
         sites is metered into `ici_reduce_bytes`."""
         from repro_torch.guard.sentinel import sentinel_lanes
 
-        parts: list[torch.Tensor] = []
-        layout: list[tuple[str, str, int]] = []
+        # every lane with its shard axis kept (placed: this rank's lane of
+        # it), reduced on the device; then one copy of them all in the
+        # one-device layout (`host_arrays`), collapsed on the host
+        lanes: dict[str, dict[Any, torch.Tensor]] = {}
+        leaves, axes, paths = [], [], []
         for name, entry in cache.items():
             ctrl = entry.get("ctrl")
             n_shards = self.shards.get(name, 0)
-            ax = shard_axis_of(self.stacking.get(name, 0))
-            lanes = {}
+            ax = shard_axis_of(self.stacking.get(name, 0)) if n_shards \
+                else None
+            site: dict[Any, tuple[torch.Tensor, int | None]] = {}
             if ctrl is not None:
                 sim = entry["sim_ema"]
-                lane0 = {k: ctrl[k] for k in _SNAP_LANES[1:]}
-                if n_shards:  # replicated across shards: lane 0
-                    sim = sim.select(ax, 0)
-                    lane0 = {k: v.select(ax, 0) for k, v in lane0.items()}
-                    lane0["quarantine"] = ctrl["quarantine"].amax(dim=ax)
-                lanes = {"sim_l": sim if sim.ndim == 0 else lane_mean(sim),
-                         **lane0}
+                site["sim_l"] = (sim if sim.ndim == 0 else lane_mean(sim), ax)
+                for key in _SNAP_LANES[1:]:
+                    site[key] = (ctrl[key], ax)
             sensor = entry.get("sensor")
             if sensor is not None:
                 for key, src in (("skipped", "skipped_tiles"),
                                  ("computed", "computed_tiles")):
                     # the ownership partition: the plain sum over layers
                     # and shards is the global count
-                    lanes[key] = sensor[src].sum()
-                    if n_shards:
-                        t = sensor[src]
-                        other = tuple(i for i in range(t.ndim) if i != ax)
-                        lanes[key + "_shard"] = t.sum(dim=other) if other \
-                            else t
+                    t = sensor[src]
+                    other = tuple(i for i in range(t.ndim) if i != ax)
+                    site[key] = ((t.sum(dim=other) if other else t, 0)
+                                 if n_shards else (t.sum(), None))
             if sentinels and ctrl is not None:
-                sl = (sentinel_lanes(entry) if not n_shards
-                      else _combine_shard_sentinels(
-                          [sentinel_lanes(shard_view(entry, ax, i))
-                           for i in range(self.lanes_held(name))]))
-                for key, v in sl.items():
-                    lanes.setdefault(key, v)  # quarantine is a ctrl lane
+                if n_shards:  # [L, S]: one [L] set a shard lane, side by side
+                    per = [sentinel_lanes(shard_view(entry, ax, i))
+                           for i in range(self.lanes_held(name))]
+                    for k in per[0]:
+                        site["sentinel", k] = (
+                            torch.stack([p[k] for p in per], dim=1), 1)
+                else:
+                    for k, v in sentinel_lanes(entry).items():
+                        site["sentinel", k] = (v, None)
             if n_shards and ctrl is not None:
                 self.ici_reduce_bytes += reduce_payload_bytes(
                     max(1, self.stacking.get(name, 0)), n_shards)
-            for key, v in lanes.items():
-                scalar = key in ("skipped", "computed")
-                v = v.reshape(-1)
-                parts.append(v.double())
-                layout.append((name, key, 0 if scalar else v.numel()))
-        if self.placement is None:
-            flat = torch.cat(parts).cpu().numpy() if parts else np.zeros(0)
-            snap = _unpack_snapshot(flat, layout, cache)
-        else:
-            # every rank packed its own lanes (one shard each): one
-            # all-gather of the packed vectors, one copy, then the
-            # one-device collapse across the shards' unpacked lanes
-            flat = torch.cat(parts) if parts else torch.zeros(
-                0, dtype=torch.float64, device=self.device)
-            rows = self.placement.all_gather(flat).cpu().numpy()
-            snap = _merge_shard_snapshots(
-                [_unpack_snapshot(r, layout, cache) for r in rows],
-                self.shards)
+            for key, (t, a) in site.items():
+                leaves.append(t)
+                axes.append(a)
+                paths.append((name, key))
+        for (name, key), a in zip(paths, host_arrays(leaves, axes,
+                                                     self.placement)):
+            lanes.setdefault(name, {})[key] = torch.from_numpy(a)
+        snap: dict[str, Any] = {name: {} for name in cache}
+        for name, site in lanes.items():
+            n_shards = self.shards.get(name, 0)
+            ax = shard_axis_of(self.stacking.get(name, 0))
+            out: dict[str, Any] = {}
+            for key in _SNAP_LANES:
+                if key not in site:
+                    continue
+                v = site[key]
+                if n_shards:  # replicated across shards: lane 0, but the
+                    # quarantine lockout takes the max over shards
+                    v = v.amax(dim=ax) if key == "quarantine" else v.select(
+                        ax, 0)
+                out[key] = v
+            for key in ("skipped", "computed"):
+                if key in site:
+                    out[key] = int(site[key].sum())
+                    if n_shards:
+                        out[key + "_shard"] = site[key]
+            sent = {k[1]: v for k, v in site.items() if isinstance(k, tuple)}
+            if sent and n_shards:  # combined across the shard lanes
+                sent = _combine_shard_sentinels(
+                    [{k: v[:, i] for k, v in sent.items()}
+                     for i in range(n_shards)])
+            for k, v in sent.items():
+                out.setdefault(k, v)  # quarantine is a ctrl lane
+            snap[name] = {key: v if isinstance(v, int) else v.reshape(
+                -1).numpy().astype(_SNAP_DTYPES.get(key, np.int32))
+                for key, v in out.items()}
         self.last_snapshot = snap
         return snap
 
@@ -717,7 +708,7 @@ class ReuseEngine:
         """Placed: host copies (numpy) of the tensor leaves under `keys` of
         every site entry, in the one-device layout, each sharded site's
         shard axis rebuilt from every rank's lane, in one collective and
-        one device→host copy (`Placement.host_arrays`). The host readers
+        one device→host copy (`host_arrays`). The host readers
         of a placed cache (the sensor report, a slot's telemetry) read
         these, so every rank reads what the one-device engine reads."""
         leaves, axes, paths = [], [], []
@@ -733,7 +724,7 @@ class ReuseEngine:
                         leaves.append(t)
                         axes.append(ax)
                         paths.append((name, key, leaf_key))
-        arrays = self.placement.host_arrays(leaves, axes)
+        arrays = host_arrays(leaves, axes, self.placement)
         out: dict[str, Any] = {name: {} for name in cache}
         for (name, key, leaf_key), a in zip(paths, arrays):
             if leaf_key is None:
@@ -794,7 +785,8 @@ class ReuseEngine:
                     self.exec_cooldown.get(name, 0), int(hyst[applied].max()))
             # decided per layer; a sharded site's lanes take the decision
             # on every shard (metered as the reference meters the fan-out)
-            self._write_modes(entry, self._site_lane(name, new_mode))
+            self._write_modes(name, entry, self._site_lane(
+                name, new_mode, every_shard=True))
             ctrl["cooldown"].copy_(torch.from_numpy(
                 self._site_lane(name, new_cd.astype(np.int32)).reshape(
                     tuple(ctrl["cooldown"].shape))))

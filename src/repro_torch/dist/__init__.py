@@ -14,6 +14,7 @@ from repro_torch.dist.shard import (  # noqa: F401
     cache_shape_signatures,
     cache_shard_axes,
     cache_shardings,
+    host_arrays,
     plan_local_spec,
     shard_axis_of,
     shard_view,

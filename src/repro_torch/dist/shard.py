@@ -24,7 +24,7 @@ axis, of size 1 (`cache_shardings`), each site call computes its own panel
 and all-gathers the panels into the output over the model group (an
 activation collective, as the reference's GSPMD step makes), and the host
 reads that rebuild the one-device layout of the shard lanes go through one
-collective and one device→host copy (`Placement.host_arrays`).
+collective and one device→host copy (`host_arrays`).
 """
 
 from __future__ import annotations
@@ -122,28 +122,6 @@ class Placement:
         layout, on the device."""
         return torch.cat(list(self.all_gather(t).unbind(0)), dim=axis)
 
-    def host_arrays(self, leaves: list[torch.Tensor],
-                    axes: list[int | None]) -> list[np.ndarray]:
-        """Host copies of `leaves` in the one-device layout, from ONE
-        collective and ONE device→host copy: the leaves are packed into one
-        f64 vector (exact for every cache dtype), all-gathered over the
-        model group and copied to the host once. A leaf with a shard axis
-        (`axes[i]`, of size 1 here) is rebuilt along it from every shard's
-        block; a replicated one (None) is shard 0's."""
-        if not leaves:
-            return []
-        flat = torch.cat([t.reshape(-1).double() for t in leaves])
-        host = self.all_gather(flat).cpu().numpy()
-        out, pos = [], 0
-        for t, ax in zip(leaves, axes):
-            n, shape = t.numel(), tuple(t.shape)
-            blocks = [host[s, pos:pos + n].reshape(shape)
-                      for s in range(self.n_shards)]
-            pos += n
-            a = blocks[0] if ax is None else np.concatenate(blocks, axis=ax)
-            out.append(a.astype(_HOST_DTYPES[t.dtype]))
-        return out
-
     def world_agrees(self, data: bytes) -> bool:
         """Whether every rank of the world holds the same `data` (32 bytes
         or fewer, e.g. a digest): one all-gather over the default group."""
@@ -154,6 +132,31 @@ class Placement:
         torch.distributed.all_gather_into_tensor(out, t)
         rows = out.view(self.world, 32).cpu()
         return bool((rows == rows[0]).all())
+
+
+def host_arrays(leaves: list[torch.Tensor], axes: list[int | None],
+                placement: Placement | None = None) -> list[np.ndarray]:
+    """Host copies of `leaves` in the one-device layout, from ONE
+    device→host copy: the leaves are packed into one f64 vector (exact for
+    every cache dtype) and copied once. With `placement` (one shard a card)
+    the vector is first all-gathered over the model group, and a leaf with
+    a shard axis (`axes[i]`, of size 1 here) is rebuilt along it from every
+    shard's block; a replicated one (None) is shard 0's. Without it every
+    shard lane is already here and `axes` changes nothing."""
+    if not leaves:
+        return []
+    flat = torch.cat([t.reshape(-1).double() for t in leaves])
+    rows = (flat.cpu().numpy()[None] if placement is None
+            else placement.all_gather(flat).cpu().numpy())
+    out, pos = [], 0
+    for t, ax in zip(leaves, axes):
+        n, shape = t.numel(), tuple(t.shape)
+        blocks = [r[pos:pos + n].reshape(shape) for r in rows]
+        pos += n
+        a = blocks[0] if ax is None or len(blocks) == 1 else np.concatenate(
+            blocks, axis=ax)
+        out.append(a.astype(_HOST_DTYPES[t.dtype]))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,12 +176,12 @@ class ShardBlock:
 
 def cache_shardings(engine, mesh, cache: dict[str, Any]) -> dict[str, Any]:
     """The reference's `cache_shardings` on a placed mesh (one process a
-    card): for every leaf of a sharded site, the host mirror `mode_host`
-    among them, the rank's block of the shard axis (`ShardBlock`, size 1:
-    the reference's per-device local shape); None for every leaf of an
-    unsharded site (replicated). `cache` may be in the one-device layout
-    or the placed one: the blocks are named from the plan, nothing
-    moves."""
+    card): for every tensor leaf of a sharded site, the rank's block of the
+    shard axis (`ShardBlock`, size 1: the reference's per-device local
+    shape); None for every leaf of an unsharded site, and for the host
+    mirror `mode_host`, which every rank keeps whole (replicated).
+    `cache` may be in the one-device layout or the placed one: the blocks
+    are named from the plan, nothing moves."""
     placement = getattr(mesh, "placement", None)
     if placement is None:
         raise ValueError(
@@ -204,6 +207,8 @@ def cache_shardings(engine, mesh, cache: dict[str, Any]) -> dict[str, Any]:
                 f"mesh model axis is {model_size} wide")
         out[name] = name_blocks(entry, ShardBlock(
             shard_axis_of(engine.stacking.get(name, 0)), placement.shard))
+        if "mode_host" in entry:
+            out[name]["mode_host"] = None
     return out
 
 

@@ -47,8 +47,9 @@ scenario's index is one of the one-device layout, whose shard axis sits
 inside the layer axis; `shard=S` in the spec aims it at shard S's lane
 (without it, the index reaches whichever lanes it covers). One shard a
 card, each rank writes the part of that index its own lane holds, so the
-fault lands where the one-device engine's lands; every rank records it as
-fired.
+fault lands where the one-device engine's lands (the host mirror of the
+mode lanes, which holds every shard's lane on every rank, is written on
+every rank); every rank records it as fired.
 """
 
 from __future__ import annotations
@@ -182,17 +183,26 @@ class FaultInjector:
     def _lane(self, layer: int | None) -> tuple:
         return () if layer is None else (layer,)
 
-    def _here(self, site: str, idx: tuple) -> tuple | None:
-        """`idx`, an index of the one-device layout (with `shard=`, the
-        shard's lane), as an index of this process's cache; None when it
-        lies wholly in another rank's lane."""
+    def _aim(self, site: str, idx: tuple) -> tuple:
+        """`idx`, an index of the one-device layout, with `shard=` put on
+        the shard axis."""
         eng = self.engine
-        if eng is None or not eng.shards.get(site):
+        if eng is None or not eng.shards.get(site) or self.shard is None:
             return idx
         ax = shard_axis_of(eng.stacking.get(site, 0))
-        if self.shard is not None and len(idx) >= ax:
+        if len(idx) >= ax:
             idx = idx[:ax] + (int(self.shard),) + idx[ax:]
-        if eng.placement is None or len(idx) <= ax:
+        return idx
+
+    def _here(self, site: str, idx: tuple) -> tuple | None:
+        """`_aim(site, idx)` as an index of this process's cache; None when
+        it lies wholly in another rank's lane."""
+        idx = self._aim(site, idx)
+        eng = self.engine
+        if eng is None or not eng.shards.get(site) or eng.placement is None:
+            return idx
+        ax = shard_axis_of(eng.stacking.get(site, 0))
+        if len(idx) <= ax:
             return idx
         if idx[ax] != eng.placement.shard:
             return None
@@ -223,8 +233,9 @@ class FaultInjector:
             at = self._here(site, lane)
             if at is not None:
                 ctrl["mode_id"][at] = 7
-                entry["mode_host"][at] = 7
                 ctrl["cooldown"][at] = -3
+            # the host mirror holds every shard's lane on every rank
+            entry["mode_host"][self._aim(site, lane)] = 7
             detail = "ctrl mode_id=7, cooldown=-3"
         else:  # poison-counters
             bump = int(self.params["bump"])

@@ -770,6 +770,8 @@ def restore_cache_ckpt(directory: str, engine, rcache: dict,
 
         shardings = cache_shardings(engine, mesh, rcache)
     restore_cache(directory, ck_step, rcache, shardings=shardings)
+    if shardings is not None:
+        engine.sync_mode_mirror(rcache)
     resolutions = resolve_restored_ctrl(engine, rcache, journal=journal,
                                         step=0)
     print(f"cache checkpoint: restored step {ck_step} from {directory}; "
@@ -808,6 +810,10 @@ def no_gather_check(params, cfg: ModelConfig, state: dict, engine, rcache,
 
     probe_cache = map_tensors(copy, rcache)
     probe_state = map_tensors(copy, state)
+    if mesh.placement is not None:
+        # NCCL starts a communicator at its first collective: that one
+        # runs here, outside the trace, which counts the step's own
+        mesh.placement.all_gather(torch.zeros(1, device=state["len"].device))
     tokens = torch.zeros((batch, 1), dtype=torch.int32,
                          device=state["len"].device)
     trace = trace_step(lambda: decode_step(
@@ -831,16 +837,23 @@ def no_gather_check(params, cfg: ModelConfig, state: dict, engine, rcache,
     return trace
 
 
+def close(res: dict) -> None:
+    """End a serve that ran under a process group: its captured graphs,
+    which hold the group's NCCL work, released first, then the group
+    destroyed. Nothing without a group."""
+    if torch.distributed.is_initialized():
+        res["step"].release()
+        torch.distributed.destroy_process_group()
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     res = run(cfg, args)
-    if args.mesh and torch.distributed.is_initialized():
-        # the captured graphs hold NCCL work: released before the group
-        res["step"].release()
-        torch.distributed.destroy_process_group()
+    if args.mesh:
+        close(res)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,11 @@ them, with its operands' dtypes, shapes and storages. It flags:
   panel, never its storage);
 * any copy, cat, stack or gather whose input or output has a cache leaf's
   signature: the cache gathered across shards, or one shard's whole lane
-  moved.
+  moved;
+* collectives the recorder did not see: more collective kernels named by
+  the profiler than collectives dispatched (one issued from C++ or an
+  extension), whose operands are unknown, as the reference sees the
+  operands of every collective in its HLO.
 
 A step's own per-layer, per-shard reads and writes (a [M, N/S] prev_out
 lane, say) carry no signature and pass, and so do the placed step's
@@ -88,8 +92,9 @@ class _MoveRecorder(TorchDispatchMode):
 def trace_step(fn: Callable[[], object]) -> dict:
     """Run `fn` (one eager decode step) once under `torch.profiler` and the
     move recorder. Returns {"events": op and kernel names the profiler saw,
-    "moves": the recorder's (op, operands), "collectives": its (op,
-    operands, storages, bytes) of each collective}."""
+    "kernels": the device kernels among them, "moves": the recorder's (op,
+    operands), "collectives": its (op, operands, storages, bytes) of each
+    collective}."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -100,8 +105,14 @@ def trace_step(fn: Callable[[], object]) -> dict:
         fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    return {"events": [e.name for e in prof.events()], "moves": rec.ops,
-            "collectives": rec.collectives}
+    events = prof.events()
+    return {"events": [e.name for e in events],
+            # the device's kernels, without the profiler's annotations of
+            # the ranges that launched them ("nccl:_all_gather_base")
+            "kernels": [e.name for e in events
+                        if str(e.device_type).endswith("CUDA")
+                        and not getattr(e, "is_user_annotation", False)],
+            "moves": rec.ops, "collectives": rec.collectives}
 
 
 def cache_storages(cache) -> set[int]:
@@ -125,10 +136,9 @@ def cache_collective_violations(trace: dict, signatures: set,
     """The events of `trace` (from `trace_step`) that break the no-gather
     invariant: collectives with an operand or result of a cache leaf's
     signature or on a cache leaf's storage (`storages`), and moves with an
-    operand of a signature. Empty when the invariant holds. A collective
-    the profiler names but the recorder did not see (no operands) is
-    counted (`collective_count`), not flagged, as the reference passes
-    every collective whose shapes are not the cache's."""
+    operand of a signature, and collectives the profiler names beyond
+    those the recorder saw (`named_collectives`: their operands are
+    unknown). Empty when the invariant holds."""
     out = []
     for name, operands, ptrs, _ in trace.get("collectives", []):
         hits = [(dt, dims) for dt, dims in operands
@@ -137,6 +147,11 @@ def cache_collective_violations(trace: dict, signatures: set,
         if hits or aliased:
             out.append({"op": name, "kind": "collective", "operands": hits,
                         "aliases_cache": aliased})
+    unseen = named_collectives(trace) - len(trace.get("collectives", []))
+    if unseen > 0:
+        out.append({"op": ", ".join(sorted(set(_collective_names(trace)))),
+                    "kind": "collective", "operands": [], "unseen": unseen,
+                    "aliases_cache": False})
     for name, operands in trace["moves"]:
         hits = [(dt, dims) for dt, dims in operands
                 if (dt, dims) in signatures]
@@ -145,13 +160,22 @@ def cache_collective_violations(trace: dict, signatures: set,
     return out
 
 
+def _collective_names(trace: dict) -> list[str]:
+    names = trace["kernels"] if "kernels" in trace else trace["events"]
+    return [n for n in names if any(m in n.lower() for m in COLLECTIVE_MARKS)]
+
+
+def named_collectives(trace: dict) -> int:
+    """Collectives the profiler names: its collective kernels on the card
+    (NCCL launches one a collective), none on the CPU; for a trace without
+    a kernel list, every event so named."""
+    return len(_collective_names(trace))
+
+
 def collective_count(trace: dict) -> int:
-    """Collectives in the trace: the recorder's, or where it saw none, the
-    ops and kernels the profiler names as collectives."""
-    if trace.get("collectives"):
-        return len(trace["collectives"])
-    return sum(1 for name in trace["events"]
-               if any(m in name.lower() for m in COLLECTIVE_MARKS))
+    """Collectives in the trace: the recorder's, or the profiler's where it
+    names more."""
+    return max(len(trace.get("collectives", [])), named_collectives(trace))
 
 
 def collective_bytes(trace: dict) -> int:

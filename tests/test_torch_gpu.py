@@ -1357,7 +1357,7 @@ def test_graph_probe_equals_eager_probe_on_card(card):
 _NCCL_RANKS = r"""
 import faulthandler, json, sys
 import torch
-faulthandler.dump_traceback_later(120, repeat=True)
+faulthandler.dump_traceback_later(60, repeat=True)
 from repro_torch.core.engine import ReuseEngine
 from repro_torch.launch.mesh import parse_mesh_spec, place_mesh, \
     start_process_group
@@ -1445,7 +1445,7 @@ def test_placed_panels_all_gathered_in_a_graph_on_two_cards(card, tmp_path):
             env=env, stdout=f, stderr=subprocess.STDOUT,
             start_new_session=True)
         try:
-            proc.wait(timeout=240)
+            proc.wait(timeout=150)
         except subprocess.TimeoutExpired:
             # torchrun passes SIGTERM to its ranks
             os.killpg(proc.pid, signal.SIGTERM)

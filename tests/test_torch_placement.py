@@ -4,16 +4,23 @@ the CPU) against the port's one-process sharded serve, on the CPU.
 `serve --mesh host:2` under a process group of 2 ranks (rank r holds
 model-axis shard r, its cache only that lane, `repro_torch.dist.shard.
 cache_shardings`; each site call all-gathers the output panels) must be
-bitwise the one-process `host:2` serve, which `tests/test_torch_shard.py`
-holds against the reference: tokens, every line the reference prints
-(timings, paths and the lines only one of the two prints set aside), the
-control journal row for row, and each rank's final cache equal to that
-lane of the one-process cache. After the serve, each run reads the ctrl
-snapshot (dict-equal, with equal `ici_reduce_bytes`) and counts the
-device→host copies one `Controller.step` makes (2, 3 with the guard).
-Then: a NaN in shard 1's lane trips the breaker at the same step; a
-checkpoint saved placed restores into the one-process serve and the
-reverse; `host:4@2` (a data axis of 2) on 4 ranks; the errors.
+bitwise the one-process `host:2` serve: tokens, every line the reference
+prints (timings, paths and the lines only one of the two prints set
+aside), the control journal row for row, and each rank's final cache
+equal to that lane of the one-process cache. Every run loads the
+reference's weights (`repro.models.init_params`, as
+`tests/test_torch_shard.py` does), and the placed serve is also held
+against the reference's own `serve --mesh host:2` (two XLA host devices,
+`device_put` placement) on the same inputs: journal rows and the mesh,
+SensorReport, shard skip and ici traffic lines. After the serve, each run
+reads the ctrl snapshot (dict-equal, with equal `ici_reduce_bytes`) and
+counts the device→host copies one `Controller.step` makes (2, 3 with the
+guard).
+Then: a NaN in shard 1's lane trips the breaker at the same step; garbage
+in shard 1's ctrl lanes (its mode 7) leaves every rank on shard 0's mode,
+as on one device; a checkpoint saved placed restores into the one-process
+serve and the reverse; `host:4@2` (a data axis of 2) on 4 ranks; the
+errors.
 
 Every run is a subprocess of one worker script (`_WORKER`): the placed
 ones under `python -m torch.distributed.run --standalone` (a rendezvous on
@@ -36,6 +43,8 @@ import pytest
 import torch
 
 from repro.dist.shard import cache_shardings as jcache_shardings
+from test_torch_shard import SERVE as REF_SERVE
+from test_torch_shard import _REFERENCE, _lines
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SERVE = ["--reduced", "--requests", "4", "--batch-slots", "2",
@@ -45,6 +54,9 @@ ARCHS = ("qwen3-32b", "mixtral-8x7b")
 # a NaN written into shard 1's lane of layer 1's mlp_out prev_out after
 # decode step 3
 NAN = "poison-nan:at_step=3,site=mlp_out,layer=1,shard=1"
+# mode 7 and cooldown -3 written into shard 1's ctrl lanes of layer 1's
+# mlp_out after decode step 7, once every layer has flipped to basic (step 6)
+GARBAGE = "ctrl-garbage:at_step=7,site=mlp_out,layer=1,shard=1"
 
 _WORKER = r'''
 import contextlib, io, json, os, pickle, sys
@@ -61,6 +73,12 @@ build = serve.build_reuse_engine
 serve.build_reuse_engine = lambda cfg, *, impl, policy=None: build(
     cfg, impl=impl, policy=policy, block_k=64)
 spec = json.loads(sys.argv[1])
+if spec.get("params"):  # the reference's weights
+    from repro_torch.models import params_from_numpy
+    with open(spec["params"], "rb") as f:
+        tree = pickle.load(f)
+    serve.init_params = lambda cfg, seed, device: params_from_numpy(
+        tree, cfg, device)
 rank = int(os.environ.get("RANK", 0))
 out = {"rank": rank}
 restore = serve.restore_cache_ckpt
@@ -180,11 +198,13 @@ with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
 def _launch(tmp: pathlib.Path, name: str, arch: str, argv: list,
             ranks: int = 0, script: str = "worker.py") -> tuple:
     """Start one run of `script` (the worker unless named; `ranks` 0: one
-    process, no group)."""
+    process, no group), on the reference's weights of `arch`."""
     out = tmp / name
     out.mkdir()
+    params = tmp / f"params-{arch}.pkl"
     spec = json.dumps({"arch": arch, "out": str(out),
-                       "argv": ["--arch", arch, *argv]})
+                       "argv": ["--arch", arch, *argv],
+                       "params": str(params) if params.exists() else None})
     cmd = [sys.executable]
     if ranks:
         cmd += ["-m", "torch.distributed.run", "--standalone",
@@ -221,11 +241,39 @@ def _collect(job) -> list[dict]:
     return runs
 
 
+def _reference(tmp: pathlib.Path) -> subprocess.Popen:
+    """The reference's `serve --mesh host:2` of each arch (two XLA host
+    devices), started in the background: `tests/test_torch_shard.py`'s
+    runner, with the journals under `tmp`."""
+    runs = [(arch, str(tmp / f"{arch}-ref.jsonl"), REF_SERVE)
+            for arch in ARCHS]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2 "
+               "--xla_cpu_multi_thread_eigen=false "
+               "intra_op_parallelism_threads=1",
+               PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", _REFERENCE,
+                             json.dumps(runs)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    import jax
+
+    from repro.configs import ARCHS as JARCHS
+    from repro.models import init_params as jinit_params
+
     tmp = tmp_path_factory.mktemp("placement")
     (tmp / "worker.py").write_text(_WORKER)
     (tmp / "gather.py").write_text(_GATHER)
+    for arch in ARCHS:
+        tree = jax.tree.map(np.asarray, jinit_params(
+            JARCHS[arch].reduced(), jax.random.PRNGKey(0)))
+        with open(tmp / f"params-{arch}.pkl", "wb") as f:
+            pickle.dump(tree, f)
+    ref = _reference(tmp)
     journal = ["--mesh", "host:2", "--control-journal"]
     jobs = []
     for arch in ARCHS:
@@ -241,6 +289,10 @@ def runs(tmp_path_factory):
             tmp, f"nan-{how}", "qwen3-32b",
             SERVE + journal + [str(tmp / f"nan-{how}.jsonl"), "--inject",
                                NAN], ranks))
+        jobs.append(_launch(
+            tmp, f"garbage-{how}", "qwen3-32b",
+            SERVE + journal + [str(tmp / f"garbage-{how}.jsonl"), "--inject",
+                               GARBAGE], ranks))
         jobs.append(_launch(
             tmp, f"data-{how}", "qwen3-32b",
             SERVE + ["--mesh", "host:4@2", "--control-journal",
@@ -261,6 +313,13 @@ def runs(tmp_path_factory):
                              SERVE + ["--mesh", "host:2", "--cache-ckpt",
                                       str(dst)], ranks))
     got.update({job[0]: _collect(job) for job in again})
+    try:
+        stdout, stderr = ref.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(ref.pid, signal.SIGKILL)
+        raise AssertionError("the reference's serves hung") from None
+    assert ref.returncode == 0, stderr[-3000:]
+    got["reference"] = json.loads(stdout.strip().splitlines()[-1])
     return tmp, got
 
 
@@ -345,6 +404,24 @@ def test_placed_serve_is_the_one_process_serve(runs, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_placed_serve_matches_the_reference(runs, arch):
+    """On the reference's weights, the placed serve's journal (per-shard
+    rows among them) and its mesh, SensorReport, shard skip and ici
+    traffic lines are the reference's `serve --mesh host:2`, whose cache
+    sits one shard a device (`device_put` with `cache_shardings`)."""
+    tmp, got = runs
+    ref = got["reference"][arch]
+    text = got[f"{arch}-placed"][0]["text"]
+    rows = _rows(tmp / f"{arch}-placed.jsonl")
+    assert rows == _rows(tmp / f"{arch}-ref.jsonl")
+    assert {r["shard"] for r in rows
+            if r.get("decision_kind") == "shard"} == {0, 1}
+    assert _lines(text) == _lines(ref)
+    assert any(ln.startswith("SensorReport rid=") for ln in _lines(text))
+    assert "hlo no-gather check: OK" in ref
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_placed_snapshot_and_copies(runs, arch):
     """The ctrl snapshot (with the sentinel lanes) is dict-equal to the
     one-process one on every rank, with equal interconnect meters, and one
@@ -401,6 +478,23 @@ def test_nan_in_shard_one_trips_at_the_same_step(runs):
     _assert_lanes(one, placed)
 
 
+def test_ctrl_garbage_in_shard_one_keeps_shard_zeros_mode(runs):
+    """Mode 7 written into shard 1's ctrl lane (rank 1's card, and every
+    rank's host mirror): every rank takes shard 0's mode, as the
+    one-process serve does, so tokens, printed lines, journal rows and
+    each rank's cache lane stay the one-process serve's."""
+    tmp, got = runs
+    [one], placed = got["garbage-one"], got["garbage-placed"]
+    for run in placed:
+        assert "error" not in run, run.get("error")
+        assert run["tokens"] == one["tokens"]
+    assert "ctrl-garbage @step 7" in one["text"]
+    assert _printed(placed[0]["text"]) == _printed(one["text"])
+    assert _rows(tmp / "garbage-placed.jsonl") == _rows(
+        tmp / "garbage-one.jsonl")
+    _assert_lanes(one, placed)
+
+
 def test_checkpoint_round_trips_between_placed_and_one_process(runs):
     """The placed serve's checkpoint is the one-process serve's, file for
     file; each restores into the other bitwise (each rank its own lane),
@@ -453,8 +547,9 @@ def test_placed_mesh_errors(runs):
 
 def test_cache_shardings_name_the_references_leaves_and_axes():
     """The ported `cache_shardings` puts each sharded leaf's block on the
-    axis the reference's NamedSharding puts "model" on (its host mirror
-    `mode_host` too), and replicates the same leaves."""
+    axis the reference's NamedSharding puts "model" on, and replicates the
+    same leaves; the host mirror `mode_host`, which every rank keeps
+    whole, is replicated."""
     import dataclasses
 
     import jax
@@ -494,8 +589,9 @@ def test_cache_shardings_name_the_references_leaves_and_axes():
             axes = [i for i, p in enumerate(sh.spec) if p == "model"]
             assert node == (ShardBlock(axes[0], shard) if axes else None), (
                 path, node)
-        for name in ("stack", "flat"):  # the host mirror, beside mode_id
-            assert got[name]["mode_host"] == ShardBlock(
+        for name in ("stack", "flat"):  # the host mirror: every lane
+            assert got[name]["mode_host"] is None
+            assert got[name]["ctrl"]["mode_id"] == ShardBlock(
                 1 if name == "stack" else 0, shard)
     with pytest.raises(ValueError, match="placed mesh"):
         cache_shardings(eng, parse_mesh_spec("host:2", device="cpu"), cache)

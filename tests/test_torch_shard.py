@@ -411,7 +411,8 @@ def test_cache_shard_axes_and_signatures():
 def test_no_gather_check_flags_a_gather_and_passes_the_step():
     """One eager sharded decode step passes; a step that gathers the
     shards' prev_out lanes (a cat of the lanes) is flagged, and so is a
-    collective on a cache leaf's signature or storage."""
+    collective on a cache leaf's signature or storage, or one the
+    recorder did not see."""
     from repro_torch.dist import cache_shape_signatures, cache_shard_axes
     from repro_torch.launch.mesh import parse_mesh_spec
     from repro_torch.roofline.collectives import (
@@ -433,14 +434,22 @@ def test_no_gather_check_flags_a_gather_and_passes_the_step():
     gather = trace_step(lambda: cache["site"]["prev_out"].clone())
     [v] = cache_collective_violations(gather, sigs)
     assert v["kind"] == "move" and ("float32", (2, 2, 2, 64)) in v["operands"]
-    # the reference's rule: a collective is a violation only on a cache
-    # leaf's signature (or, here, storage); one the profiler merely names
-    # is counted, as an activation all-gather of the placed step is
+    # a collective the profiler names but the recorder did not see has
+    # unknown operands: flagged. One the recorder saw is a violation only
+    # on a cache leaf's signature or storage (the reference's rule), so a
+    # recorded activation all-gather passes
     from repro_torch.roofline.collectives import collective_count
 
     named = {"events": ["ncclKernel_AllGather_RING_LL"], "moves": []}
-    assert cache_collective_violations(named, sigs) == []
+    assert cache_collective_violations(named, sigs)[0]["kind"] == "collective"
+    assert cache_collective_violations(named, sigs)[0]["unseen"] == 1
     assert collective_count(named) == 1
+    panel = {"events": [], "kernels": ["ncclDevKernel_AllGather_RING_LL"],
+             "moves": [], "collectives": [
+                 ("c10d._allgather_base_.default", [("float32", (2, 128))],
+                  [0], 1024)]}
+    assert cache_collective_violations(panel, sigs) == []
+    assert collective_count(panel) == 1
     lane = cache["site"]["prev_out"]
     on_cache = {"events": [], "moves": [], "collectives": [
         ("c10d._allgather_base_.default", [("float32", (2, 1, 2, 64))],
