@@ -253,7 +253,7 @@ every phase's failure is fatal (non-zero exit, no result line):
                 K/V at half the bf16 bytes, a prefill's codes bitwise the
                 bf16 prefill's K/V quantized, the replay beside phase 4's
 
-  16. train   — training at full width, cut in depth: (a) qwen3-32b at 4
+  16. train   — training at full width, cut in depth: (a) qwen3-32b at 2
                 of 64 layers, batch 8, seq 128, correlation 0.9: 6 steps
                 straight, against `launch.train.run` for 3 steps under
                 ResilientLoop (its checkpoint after step 0), the state
@@ -382,8 +382,8 @@ WKV_ATOL, WKV_RTOL = 1e-5, 1e-5
 # (`mma.sync ... s8` for 8-row tiles, `wgmma ... s8` for 128-row tiles); the
 # three float ΔW GEMMs (output-, input-stationary, ragged: one cluster tile
 # loop) on the bf16 tensor cores (`mma.sync ... bf16`, f32 accumulation) and
-# their f32 operands on CUDA cores in IEEE f32; delta_quant, wkv6_decode and
-# wkv6_decode_backward on CUDA cores.
+# their f32 operands on CUDA cores in IEEE f32; delta_quant, wkv6_decode,
+# wkv6_decode_backward and site_account on CUDA cores.
 KERNEL_META = {
     "delta_quant": ("src/repro_torch/csrc/delta_quant.cu",
                     "src/repro/kernels/delta_quant.py:77"),
@@ -402,6 +402,13 @@ KERNEL_META = {
     "wkv6_decode_backward": (
         "src/repro_torch/csrc/wkv6_backward.cu",
         "none (the gradient of src/repro/kernels/wkv6_decode.py:71)"),
+    # no TPU kernel: a site call's cache bookkeeping, which XLA fuses into
+    # the reference's jitted step around its kernels
+    "site_account": (
+        "src/repro_torch/csrc/site_account.cu",
+        "none (the fusion of src/repro/core/reuse_linear.py:222-264 and "
+        "src/repro/sensor/counters.py:151-281 in the reference's jitted "
+        "step)"),
 }
 
 
@@ -537,13 +544,20 @@ class PathCheck:
     ops` (which the engine calls through the module) are swapped for
     checking ones. A check runs right after its kernel, before the engine
     writes the call's outputs back into the cache, so the inputs it reuses
-    (x, prev_q, Δ, mask, prev_out) are still the call's own. The plain
+    (x, prev_q, Δ, mask, prev_out) are still the call's own. The site
+    bookkeeping (`site_account`) writes the cache's lanes in place: its
+    plain version runs on copies of the lanes taken before the kernel, and
+    every lane must come out bitwise (NaN positions included, NaN payloads
+    not compared: the card's FMA returns the canonical NaN). The plain
     versions launch no kernel, so the launch counts stay the path's."""
 
     NAMES = ("delta_quant_fused", "reuse_matmul", "reuse_matmul_ragged",
-             "wkv6_decode")
+             "wkv6_decode", "site_account")
 
     def __init__(self, ops):
+        from repro_torch.kernels import site_account
+
+        self.sa = site_account
         self.ops = ops
         self.orig = {n: getattr(ops, n) for n in self.NAMES}
         self.checked = {k: 0 for k in KERNEL_META}
@@ -603,12 +617,29 @@ class PathCheck:
         self._note("wkv6_decode", err)
         return got
 
+    def site_account(self, cur_q, block_mask, cache, *, impl, **kw):
+        want = self.sa.copy_lanes(cache)
+        got = self.orig["site_account"](cur_q, block_mask, cache, impl=impl,
+                                        **kw)
+        want_m = self.orig["site_account"](cur_q, block_mask, want,
+                                           impl="torch", **kw)
+        bad = self.sa.differing_lanes(self.sa.written_lanes(cache),
+                                      self.sa.written_lanes(want))
+        if bad or not torch.equal(got, want_m):
+            fail(f"serve path: site_account lanes {bad or ['matches']} "
+                 f"differ from its plain version ({kw['path']}, "
+                 f"{'basic' if block_mask is None else 'reuse'}, "
+                 f"shard {kw.get('shard')})")
+        self._note("site_account", 0.0)
+        return got
+
 
 class PoisonedPathCheck(PathCheck):
     """PathCheck for a run with an injected NaN (phase 10a): a ΔW GEMM whose
     prev_out holds the NaN must carry it to exactly the positions where its
     plain version carries it, and every other element is held to the usual
-    tolerance."""
+    tolerance. The site bookkeeping is PathCheck's: NaN positions equal,
+    bits elsewhere."""
 
     def reuse_matmul(self, *args, impl, dataflow, **kw):
         if bool(torch.isfinite(args[2]).all()):
@@ -626,6 +657,117 @@ class PoisonedPathCheck(PathCheck):
         self._note(kname, close(got[fin], want[fin], GEMM_ATOL, GEMM_RTOL,
                                 f"poisoned path: {kname}"))
         return got
+
+
+# site_account in phase 3: each serve site shape at decode batch 8, the
+# variants the serves run (mode, path, dataflow, shards, budget)
+ACCOUNT_SITES = (("qwen3 attn_qkv", 5120, 10240),
+                 ("qwen3 attn_out", 8192, 5120),
+                 ("qwen3 mlp_in", 5120, 51200),
+                 ("qwen3 mlp_out", 25600, 5120),
+                 ("rwkv6 4096", 4096, 4096),
+                 ("rwkv6 cmix_wv", 14336, 4096))
+ACCOUNT_VARIANTS = (("reuse", "kernel", "output", 0, None),
+                    ("reuse", "kernel", "input", 4, None),
+                    ("reuse", "dense", "output", 2, None),
+                    ("reuse", "ragged", "output", 0, 1),
+                    ("reuse", "ragged", "output", 4, None),
+                    ("reuse", "compact", "output", 0, 1),
+                    ("basic", "kernel", "output", 0, None),
+                    ("basic", "kernel", "input", 4, None))
+
+
+def account_inputs(dev, m, k, n, gen):
+    """(cur_q, mask, a cache entry) of one site call: the previous codes
+    random, a random half of the (8 × 256) tiles moved, the float lanes
+    random with NaN and ±inf in some rows."""
+    from repro_torch.core.reuse_cache import ReuseSiteSpec, init_site_cache
+    from repro_torch.kernels import ops
+
+    entry = init_site_cache(ReuseSiteSpec("s", k, n), m, device=dev)
+    prev = torch.randint(-100, 101, (m, k), generator=gen, device=dev)
+    moved = torch.rand((m // BM, k // BK), generator=gen, device=dev) < 0.5
+    hit = torch.rand((m, k), generator=gen, device=dev) < 0.3
+    cur = torch.where(expand(moved.int(), BM, BK).bool() & hit, prev + 3,
+                      prev)
+    entry["prev_q"].copy_(prev)
+    for t in entry["sensor"].values():
+        if t.is_floating_point():
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 3e7)
+    entry["sim_ema"].copy_(torch.rand((m,), generator=gen, device=dev))
+    bad = torch.tensor([math.nan, math.inf, -math.inf], device=dev)
+    entry["sim_ema"][:3] = bad
+    entry["sensor"]["slot_hit_sum"][-3:] = bad
+    x = cur.float() * entry["scale"]
+    cur_q, _, mask = ops.delta_quant_fused(
+        x, entry["prev_q"], entry["scale"], block_m=BM, block_k=BK,
+        delta_dtype=torch.bfloat16, impl="cuda")
+    return cur_q, mask, entry
+
+
+def account_kw(variant, n, dev):
+    from repro_torch.sensor.counters import ShardCtx
+
+    mode, path, dataflow, shards, budget = variant
+    nl = n // shards if shards else n
+    return dict(path=path, dataflow=dataflow, block_m=BM, block_k=BK, n=nl,
+                gn=-(-nl // BN), w_itemsize=2, ema_decay=0.9,
+                budget=None if budget is None else torch.tensor(
+                    budget, dtype=torch.int32, device=dev),
+                shard=ShardCtx(shards - 1, shards, n, -(-n // BN))
+                if shards else None)
+
+
+def site_account_phase(dev, floor: float) -> dict:
+    """Phase 3's site_account: every variant at every serve site shape,
+    kernel against plain version on copies of the same lanes, bitwise (NaN
+    positions); then one reuse call a shape timed (kernel, plain version),
+    beside its byte bound and the launch floor."""
+    from repro_torch.kernels import site_account as sa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    by_shape = []
+    for label, k, n in ACCOUNT_SITES:
+        cur_q, mask, entry = account_inputs(dev, M, k, n, gen)
+        for variant in ACCOUNT_VARIANTS:
+            got, want = sa.copy_lanes(entry), sa.copy_lanes(entry)
+            kw = account_kw(variant, n, dev)
+            bm = None if variant[0] == "basic" else mask
+            m_got = sa.site_account(cur_q, bm, got, **kw)
+            m_want = sa.site_account_torch(cur_q, bm, want, **kw)
+            bad = sa.differing_lanes(sa.written_lanes(got),
+                                     sa.written_lanes(want))
+            if bad or not torch.equal(m_got, m_want):
+                fail(f"site_account {label} {variant}: lanes "
+                     f"{bad or ['matches']} differ from its plain version")
+        kw = account_kw(ACCOUNT_VARIANTS[0], n, dev)
+        lanes = sa.copy_lanes(entry)
+        t_k = time_ms(lambda: sa.site_account(cur_q, mask, lanes, **kw))
+        t_p = time_ms(lambda: sa.site_account_torch(cur_q, mask, lanes, **kw),
+                      iters=5)
+        t_e = time_ms(lambda: sa.site_account(cur_q, mask, lanes, **kw),
+                      graph=False)
+        # cur_q read, prev_q read and written, the mask and the match
+        # counts, sim_ema and the slot lanes read and written, the scalars
+        byts = (3 * M * k + mask.numel() * 4 + M * 4 + 3 * 2 * M * 4
+                + 2 * 4 * 13)
+        bound = byts / HBM_BYTES_PER_S * 1e3
+        print(f"  site_account {label} [{M},{k}]: {t_k:.4f} (eager call "
+              f"{t_e:.4f}) bound {bound:.6f} floor {floor:.4f} plain "
+              f"{t_p:.4f}; library: none")
+        by_shape.append({"site": label, "K": k, "ms": t_k, "plain_ms": t_p,
+                         "eager_ms": t_e, "bound_ms": bound})
+    print(f"site_account: {len(ACCOUNT_VARIANTS)} variants (reuse on every "
+          "path, basic, sharded, a budget lane that overflows) at "
+          f"{len(ACCOUNT_SITES)} site shapes, every lane and the match counts "
+          "bitwise the plain version's, NaN and ±inf lanes at the same "
+          "positions")
+    top = max(by_shape, key=lambda r: r["K"])
+    return {"shape": f"[{M},{top['K']}] int8 codes, {top['site']}",
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "floor_ms": floor, "by_shape": by_shape}
 
 
 def clone_state(tree):
@@ -690,11 +832,32 @@ def profile_step(fn, what: str, *, grad: bool = False) -> tuple:
           f"busy {busy:.2f} ms ({busy / wall:.1%}), idle share "
           f"{max(0.0, 1 - busy / wall):.1%}; "
           f"{sum(e.count for e in rows)} kernels and copies")
-    # the top rows, and delta_quant's wherever it ranks
-    for e in rows[:12] + [e for e in rows[12:] if "delta_quant" in e.key]:
+    # the top rows, and delta_quant's and site_account's wherever they rank
+    for e in rows[:12] + [e for e in rows[12:] if "delta_quant" in e.key
+                          or "site_account" in e.key]:
         print(f"    {e.device_time_total / 1e3:8.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
     return wall, busy, rows
+
+
+def no_fma_emulation(row: dict) -> None:
+    """A graph serve's replay runs none of the plain bookkeeping's exact-FMA
+    emulation (`core.similarity.fma_f32`: f64 adds, and one `nextafter` an
+    FMA, which nothing else calls): every site call's bookkeeping is the
+    site_account kernel. The replay's other f64 kernels are printed."""
+    if row["fma_emulation_graph"]:
+        fail(f"{row['serve']}: {row['fma_emulation_graph']} exact-FMA "
+             "emulation kernels (nextafter) in a replay")
+    f64 = row["f64_kernels_graph"]
+    print(f"{row['serve']}: no exact-FMA emulation kernel in a replay "
+          f"({row['kernels_graph']} kernels and copies; f64 kernels: "
+          + (", ".join(f"{n}x {k}" for k, n in f64.items()) or "none") + ")")
+
+
+def f64_kernels(rows) -> dict:
+    """{name (cut): launches} of the f64 kernels among a profile's kernel
+    rows (PyTorch's elementwise kernels name their element type)."""
+    return {e.key[:160]: e.count for e in rows if "double" in e.key}
 
 
 def tensor_leaves(tree, prefix: str = "") -> dict:
@@ -3566,8 +3729,9 @@ def sharded_control_phase(cfg, argv, drive, logdir, refs=None) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         journal = os.path.join(tmp, "j.jsonl")
-        res, _, text = drive(cfg, argv + ["--control-journal", journal],
-                             check=False, log_to=logdir / "phase14c.log")
+        with pinned_watchdog():  # phase 18c holds its journal row for row
+            res, _, text = drive(cfg, argv + ["--control-journal", journal],
+                                 check=False, log_to=logdir / "phase14c.log")
         rows = load_journal(journal)
         shard_rows = [r for r in rows if r.get("decision_kind") == "shard"]
         per = collections.Counter((r["site"], r["shard"], r["interval"])
@@ -3628,9 +3792,10 @@ def sharded_control_phase(cfg, argv, drive, logdir, refs=None) -> dict:
                     "nan")
 
         journal = os.path.join(tmp, "g.jsonl")
-        res, _, text = drive(cfg, argv + ["--control-journal", journal],
-                             check=False, after_step=poison,
-                             log_to=logdir / "phase14c_guard.log")
+        with pinned_watchdog():
+            res, _, text = drive(cfg, argv + ["--control-journal", journal],
+                                 check=False, after_step=poison,
+                                 log_to=logdir / "phase14c_guard.log")
         if refs is not None:
             refs["guard"] = {"rows": journal_rows(journal),
                              **host_outcome(outcome(res, text))}
@@ -3650,6 +3815,25 @@ def sharded_control_phase(cfg, argv, drive, logdir, refs=None) -> dict:
               f"{guard[0] if guard else ''}")
         out.update(trip=first["reason"], guard=guard)
     return out
+
+
+@contextlib.contextmanager
+def pinned_watchdog(pin: bool = True):
+    """The straggler watchdog sees no step as a stall while the block runs
+    (as the CPU tests' `pin_watchdogs`): it reads the host's clock, so one
+    slow step (a loaded host, a first replay of a graph holding NCCL
+    collectives) would put a stall row, and the probation it voids, into
+    one of two journals compared row for row. The watchdog itself is held
+    by phase 10b's `--inject stall` serve."""
+    from repro_torch.guard.watchdog import StragglerWatchdog
+
+    orig = StragglerWatchdog.observe
+    if pin:
+        StragglerWatchdog.observe = lambda self, step, dt: None
+    try:
+        yield
+    finally:
+        StragglerWatchdog.observe = orig
 
 
 def journal_rows(path) -> list:
@@ -3709,6 +3893,7 @@ def placed_rank(spec_path: str) -> None:
     backend.reset_launches()
     buf = io.StringIO()
     with (PathCheck(ops) if eager else contextlib.nullcontext()) as chk, \
+            pinned_watchdog(spec.get("pin_watchdog", False)), \
             contextlib.redirect_stdout(buf):
         res = serve.run(cfg, args)
     dev = torch.device("cuda", local)
@@ -3798,8 +3983,8 @@ def run_logged(cmd, log: pathlib.Path, timeout: float, what: str) -> None:
         fail(f"{what}: exited {rc}: {log.read_text()[-2500:]}")
 
 
-def placed_serve(root, label, arch, layers, argv, mode,
-                 logdir) -> tuple[list, list]:
+def placed_serve(root, label, arch, layers, argv, mode, logdir,
+                 pin_watchdog: bool = False) -> tuple[list, list]:
     """One phase 18 serve: `placed_rank` on every card under torchrun.
     Returns (each rank's record, each rank's final tensors); the run's
     whole output goes to `logdir` (the records and tensors to a temporary
@@ -3812,7 +3997,8 @@ def placed_serve(root, label, arch, layers, argv, mode,
         spec = out / "spec.json"
         spec.write_text(json.dumps({"arch": arch, "layers": layers,
                                     "argv": argv, "mode": mode,
-                                    "out": str(out)}))
+                                    "out": str(out),
+                                    "pin_watchdog": pin_watchdog}))
         run_logged(torchrun(PLACED_RANKS, str(root / "chip_smoke.py"),
                             "--placed-rank", str(spec)),
                    log, 400, f"18 {label} ({mode})")
@@ -3993,15 +4179,19 @@ def placed_control(root, serve_argv, refs, logdir, launches) -> dict:
         recs, _ = placed_serve(
             root, f"18c-{what}", "qwen3-32b", layers,
             argv + ["--control-journal", str(journal), *extra], mode,
-            logdir)
+            logdir, pin_watchdog=True)
         check_ranks(f"18c {what}", recs)
         ref = refs[what]
         rows = journal_rows(journal)
         tokens = {int(k): v for k, v in recs[0]["tokens"].items()}
         if rows != ref["rows"]:
+            first = next((i for i, (a, b) in enumerate(zip(rows, ref["rows"]))
+                          if a != b), min(len(rows), len(ref["rows"])))
             fail(f"18c {what} ({mode}): the journal differs from 14c's "
                  f"one-card serve's ({len(rows)} rows against "
-                 f"{len(ref['rows'])})")
+                 f"{len(ref['rows'])}); first at row {first}: placed "
+                 f"{json.dumps(rows[first:first + 1])[:600]} one card "
+                 f"{json.dumps(ref['rows'][first:first + 1])[:600]}")
         if tokens != ref["tokens"] or recs[0]["reports"] != ref["reports"]:
             fail(f"18c {what} ({mode}): tokens or SensorReport lines differ "
                  "from 14c's")
@@ -4427,7 +4617,8 @@ def kv_quant_phase(cfg, argv, serve_pair, graph_rows, dev) -> tuple[dict,
 
 # phase 16: training at full width (repro_torch.{train,optim,data},
 # launch/train under ResilientLoop), cut in depth in-process. (a) qwen3-32b
-# at 4 of 64 layers: 6 steps straight (the CLI's step function and batches,
+# at 2 of 64 layers (4 until the run grew phase 18's four-card serves: the
+# resume pair writes and reads a checkpoint of ~6.8 GB a layer): 6 steps straight (the CLI's step function and batches,
 # no loop, as the reference's tests/test_system.py does), against
 # `launch.train.run` for 3 steps with a checkpoint after step 0, the state
 # dropped, and `--resume` from that checkpoint to step 6: parameters
@@ -4438,12 +4629,12 @@ def kv_quant_phase(cfg, argv, serve_pair, graph_rows, dev) -> tuple[dict,
 # plain steps, then steps timed without the checks. (c) hubert-xlarge
 # uncut (48 layers) on SyntheticAudioSource: a finite, falling loss.
 # Every cell at batch 8, seq 128; the LM cells at correlation 0.9.
-TRAIN_LAYERS = {"qwen3-32b": 4, "rwkv6-7b": 8, "hubert-xlarge": 48}
+TRAIN_LAYERS = {"qwen3-32b": 2, "rwkv6-7b": 8, "hubert-xlarge": 48}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_CORR, TRAIN_SEED = 8, 128, 0.9, 0
 TRAIN_STEPS = 6          # every cell's run; the checkpointed run stops at 3
 TRAIN_KILL_AT = 3
 # the loop checkpoints at every step % TRAIN_CKPT_EVERY == 0: after step 0
-# only, in both halves of the pair. One checkpoint of qwen3 at 4 layers is
+# only, in both halves of the pair. One checkpoint of qwen3 at 4 layers was
 # 27.3 GB of npz, and a call may write 45 GiB to its machine's disk in all
 TRAIN_CKPT_EVERY = TRAIN_STEPS
 HUBERT_LR = 1e-3
@@ -4843,7 +5034,7 @@ def train_phase(dev, results, max_err) -> tuple[dict, dict]:
     out, launches = {}, {}
     wkvb_timing(dev, results, max_err)
 
-    # (a) qwen3-32b, 4 layers: the straight run, then the resume pair
+    # (a) qwen3-32b, 2 layers: the straight run, then the resume pair
     cfg = train_cfg("qwen3-32b")
     run = timed_steps(f"qwen3-32b {cfg.n_layers} layers, straight run",
                       cfg, dev)
@@ -5629,6 +5820,7 @@ def main() -> None:
                     "library_ms": t_l,
                 }
     del wq, enc, cur, prev, acc, state
+    results["site_account"] = site_account_phase(dev, floor)
 
     # -------------------------------------------------------------- 4. serve
     phase("4. serve, default path (qwen3-32b full width, 8 layers)")
@@ -5773,7 +5965,10 @@ def main() -> None:
             "idle_eager_profiled": 1 - busy_e / wall_e,
             "idle_graph_profiled": 1 - busy_g / wall_g,
             "kernels_eager": sum(e.count for e in rows_e),
-            "kernels_graph": sum(e.count for e in rows_g)})
+            "kernels_graph": sum(e.count for e in rows_g),
+            "f64_kernels_graph": f64_kernels(rows_g),
+            "fma_emulation_graph": sum(e.count for e in rows_g
+                                       if "nextafter" in e.key)})
         if probe is not None:
             probe(step)
         del res, step
@@ -5786,9 +5981,11 @@ def main() -> None:
     launches_default, _ = serve_pair(cfg, serve_argv, "qwen3 default",
                                      keep=unsharded["qwen3-32b"])
     unsharded["qwen3-32b"]["row"] = graph_rows[-1]
-    for kn in ("delta_quant", "reuse_matmul_output", "reuse_matmul_input"):
+    for kn in ("delta_quant", "reuse_matmul_output", "reuse_matmul_input",
+               "site_account"):
         if launches_default[kn] <= 0:
             fail(f"{kn} was not launched on the serve path")
+    no_fma_emulation(graph_rows[-1])
 
     # One decode step, impl="cuda" vs impl="torch", on the same card tensors.
     # Every kernel call of the serve path was held against its plain version
@@ -5873,9 +6070,11 @@ def main() -> None:
     print(f"rwkv6 serves: {time.perf_counter() - t0:.1f} s (checked eager, "
           f"graph, timing and profiles); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    for kn in ("delta_quant", "reuse_matmul_output", "wkv6_decode"):
+    for kn in ("delta_quant", "reuse_matmul_output", "wkv6_decode",
+               "site_account"):
         if launches_rwkv[kn] <= 0:
             fail(f"{kn} was not launched on the rwkv6 serve path")
+    no_fma_emulation(graph_rows[-1])
     gc.collect()
     torch.cuda.empty_cache()
     # One decode step with impl="cuda" and impl="torch" from the same state:
@@ -6046,7 +6245,7 @@ def main() -> None:
     print(json.dumps({"ckpt": ckpt}))
 
     # ------------------------------------------------------- 16. training
-    phase("16. training (qwen3-32b 4 layers with the resume pair, rwkv6-7b "
+    phase("16. training (qwen3-32b 2 layers with the resume pair, rwkv6-7b "
           "8 layers, hubert-xlarge uncut)")
     train, launches_train = train_phase(dev, results, max_err)
     for kn, run in (("wkv6_decode", "rwkv6"),

@@ -4,10 +4,12 @@ Caches start at prev_q = 0, prev_out = 0, so the first evaluation is the
 ordinary quantized GEMM and every later one telescopes:
 O_t = Σ_{i<=t} Δ_i · W = dequant(q_t) · W (to f32 rounding).
 
-The cache entry is updated IN PLACE (prev_q, prev_out, sim_ema, steps, the
-ctrl occupancy and the sensor counters), so the stacked per-layer cache needs
-no copy back; the function returns the same entry for symmetry with the
-reference.
+The cache entry is updated IN PLACE, so the stacked per-layer cache needs no
+copy back; the function returns the same entry for symmetry with the
+reference. prev_out takes the GEMM's output by a copy; every other lane
+(prev_q, sim_ema, steps, the ctrl occupancy and the sensor counters) is the
+call's bookkeeping, `ops.site_account`: one kernel on the card, bitwise the
+reference's compiled step. `ReuseStats` is computed only when read.
 
 kernelMode: `mode=None` reads the layer's lane of the host mirror
 (`cache["mode_host"]`, kept equal to `ctrl["mode_id"]` by the engine's host
@@ -40,8 +42,6 @@ grid steps at gn = 1 times the shard's owned global n-panels).
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from repro_torch.core.reuse_cache import (
@@ -49,44 +49,78 @@ from repro_torch.core.reuse_cache import (
     kernel_impl,
     resolve_exec_path,
 )
-from repro_torch.core.similarity import ema_update_mean, row_code_matches
+from repro_torch.core.similarity import fma_f32
 from repro_torch.kernels import ops
 from repro_torch.quant import dequantize_int8, quantize_int8
-from repro_torch.sensor.counters import (
-    ShardCtx,
-    owned_panel_count,
-    update_on_basic,
-    update_on_reuse,
-)
+from repro_torch.sensor.counters import ShardCtx
 
 
-class ReuseStats(NamedTuple):
-    similarity: torch.Tensor     # code-level similarity this call
-    skip_fraction: torch.Tensor  # fraction of weight tiles skipped this call
+class ReuseStats:
+    """A call's code-level similarity and the fraction of its weight tiles
+    skipped, the reference's `ReuseStats` fields, computed when read from
+    the call's match counts and tile mask: the serve discards them, so they
+    launch nothing unless read. On the card the match counts are the
+    bookkeeping kernel's scratch; a call captured in a CUDA graph holds the
+    counts of its graph's latest replay."""
+
+    __slots__ = ("_matches", "_mask", "_k")
+
+    def __init__(self, matches: torch.Tensor, mask: torch.Tensor | None,
+                 k: int):
+        self._matches, self._mask, self._k = matches, mask, k
+
+    @property
+    def similarity(self) -> torch.Tensor:
+        """Code-level similarity this call (f32 scalar): the mean of the
+        rows' similarities as the reference's compiled step computes it, one
+        FMA of each row's match count and f32(1/K) into a running sum, row
+        by row, times the f32 reciprocal of the row count. XLA's CPU backend
+        keeps that row order up to 16 rows; past that it vectorizes the sum
+        in an order not reproduced here (the value then differs in the last
+        bits)."""
+        acc = torch.zeros((), dtype=torch.float32,
+                          device=self._matches.device)
+        for row in self._matches:
+            acc = fma_f32(row, 1.0 / self._k, acc)
+        return acc * (1.0 / self._matches.numel())
+
+    @property
+    def skip_fraction(self) -> torch.Tensor:
+        """Fraction of weight tiles skipped this call (f32 scalar; 0 in
+        basic mode): 1 − mean(mask) as the compiled step contracts it,
+        fma(−Σ mask, f32(1/n), 1)."""
+        if self._mask is None:
+            return torch.zeros((), device=self._matches.device)
+        one = torch.ones((), dtype=torch.float32, device=self._mask.device)
+        return fma_f32(-self._mask.sum(dtype=torch.float32),
+                       1.0 / self._mask.numel(), one)
 
 
-def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, ema_decay: float,
-                shard: ShardCtx | None = None):
-    """ReuseOFF: the plain quantized GEMM, with the cache refreshed."""
-    m, k = xm.shape
+def _account(cur_q, mask, cache, spec: ReuseSiteSpec, path: str,
+             w: torch.Tensor, impl: str, ema_decay: float, budget,
+             shard: ShardCtx | None) -> ReuseStats:
+    """The call's cache bookkeeping after its GEMM (`ops.site_account`, one
+    kernel on the card); `mask` None is basic mode, where `path` is unused."""
     n = w.shape[-1]
+    matches = ops.site_account(
+        cur_q, mask, cache, path=path, dataflow=spec.dataflow,
+        block_m=spec.block_m, block_k=spec.block_k, n=n,
+        gn=-(-n // spec.block_n), w_itemsize=w.element_size(),
+        ema_decay=ema_decay,
+        budget=spec.max_active_k if budget is None else budget, shard=shard,
+        impl=kernel_impl(impl))
+    return ReuseStats(matches, mask, cur_q.shape[1])
+
+
+def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
+                ema_decay: float, shard: ShardCtx | None = None):
+    """ReuseOFF: the plain quantized GEMM, with the cache refreshed."""
     cur_q = quantize_int8(xm, cache["scale"])
     xq = dequantize_int8(cur_q, cache["scale"], dtype=xm.dtype)
     out = ops.f32_product(xq, w)  # the basic-mode product
-    matches = row_code_matches(cur_q, cache["prev_q"])
-    cache["prev_q"].copy_(cur_q)
     cache["prev_out"].copy_(out)
-    cache["sim_ema"].copy_(
-        ema_update_mean(cache["sim_ema"], matches, k, ema_decay))
-    cache["steps"].add_(1)
-    if "sensor" in cache:
-        update_on_basic(
-            cache["sensor"], row_matches=matches, m=m, k=k, n=n,
-            gn=-(-n // spec.block_n), block_m=spec.block_m,
-            block_k=spec.block_k, w_itemsize=w.element_size(), shard=shard,
-        )
-    stats = ReuseStats(similarity=(matches * (1.0 / k)).mean(),
-                       skip_fraction=torch.zeros((), device=xm.device))
+    stats = _account(cur_q, None, cache, spec, "kernel", w, impl,
+                     ema_decay, None, shard)
     return out, stats
 
 
@@ -95,10 +129,6 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
                 shard: ShardCtx | None = None):
     """ReuseON: delta-encode against the previous evaluation and run the ΔW
     GEMM on the spec's execution path."""
-    n = w.shape[-1]
-    # a shard's dma and grid steps: the per-panel formula at gn = 1 times
-    # the global n-panels it owns
-    panels = None if shard is None else owned_panel_count(shard)
     n_total = None if shard is None else shard.n_total
     sub = kernel_impl(impl)
     cur_q, delta, mask = ops.delta_quant_fused(
@@ -107,48 +137,19 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
         impl=sub,
     )
     path = resolve_exec_path(spec, impl)
-    gm, gk = mask.shape
-    gn = -(-n // spec.block_n)
-    sel = dma_issued = grid_steps = overflow = None
-    kb = spec.max_active_k if budget is None else budget
     if path == "dense":
         out = ops.reuse_matmul_ref(delta, w, cache["prev_out"], mask,
                                    spec.block_m, spec.block_k)
     elif path == "ragged":
-        idx, counts = ops.compact_rows(mask)
         out = ops.reuse_matmul_ragged(
             delta, w, cache["prev_out"], mask,
             block_m=spec.block_m, block_n=spec.block_n, block_k=spec.block_k,
-            impl=sub, compacted=(idx, counts), n_total=n_total,
+            impl=sub, compacted=ops.compact_rows(mask), n_total=n_total,
         )
-        if shard is None:
-            dma_issued = ops.ragged_dma_tiles(counts, gn=gn)
-            grid_steps = ops.ragged_grid_steps(
-                counts, gm=gm, gn=gn, gk=gk, max_active_k=kb)
-        else:
-            dma_issued = ops.ragged_dma_tiles(counts, gn=1) * panels
-            grid_steps = ops.ragged_grid_steps(
-                counts, gm=gm, gn=1, gk=gk, max_active_k=kb) * float(panels)
-        overflow = ops.budget_overflow(counts, gk=gk, max_active_k=kb)
     elif path == "compact":
-        k_mask = mask.amax(dim=0)
-        out = ops.reuse_matmul_compact(delta, w, cache["prev_out"], k_mask,
-                                       block_k=spec.block_k)
-        # the reference's gather streams each live K-block's weight panel
-        # once, shared by all rows
-        live = k_mask.sum(dtype=torch.int32)
-        if shard is None:
-            dma_issued = live * gn
-            grid_steps = ops.ragged_grid_steps(
-                live.expand(gm), gm=gm, gn=gn, gk=gk, max_active_k=kb)
-        else:
-            dma_issued = live * panels
-            grid_steps = ops.ragged_grid_steps(
-                live.expand(gm), gm=gm, gn=1, gk=gk,
-                max_active_k=kb) * float(panels)
-        overflow = ops.budget_overflow(live, gk=gk, max_active_k=kb)
+        out = ops.reuse_matmul_compact(delta, w, cache["prev_out"],
+                                       mask.amax(dim=0), block_k=spec.block_k)
     elif path == "kernel":
-        sel = ops.skip_sel(mask)
         out = ops.reuse_matmul(
             delta, w, cache["prev_out"], mask,
             block_m=spec.block_m, block_n=spec.block_n, block_k=spec.block_k,
@@ -156,36 +157,9 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
         )
     else:
         raise ValueError(f"unknown exec_path {path!r} of site {spec.name!r}")
-    k = xm.shape[1]
-    matches = row_code_matches(cur_q, cache["prev_q"])
-    cache["prev_q"].copy_(cur_q)
     cache["prev_out"].copy_(out)
-    cache["sim_ema"].copy_(
-        ema_update_mean(cache["sim_ema"], matches, k, ema_decay))
-    cache["steps"].add_(1)
-    if "ctrl" in cache:
-        occ = cache["ctrl"]["occupancy"]
-        occ.copy_(ema_update_mean(occ, mask.sum(dtype=torch.float32),
-                                  gm * gk, ema_decay))
-    if "sensor" in cache:
-        if dma_issued is None:  # kernel/dense: masked full-grid semantics
-            dma_issued = ops.weight_dma_tiles(
-                mask, gn=gn if shard is None else 1, dataflow=spec.dataflow,
-                sel=sel)
-            if shard is not None:
-                dma_issued = dma_issued * panels
-        if grid_steps is None and shard is not None:
-            # the masked full-grid walk over the shard's owned global panels
-            grid_steps = torch.full((), float(gm * gk * panels),
-                                    dtype=torch.float32, device=mask.device)
-        update_on_reuse(
-            cache["sensor"], block_mask=mask, row_matches=matches, k=k,
-            block_m=spec.block_m, block_k=spec.block_k, n=n, gn=gn,
-            w_itemsize=w.element_size(), dma_issued=dma_issued,
-            grid_steps=grid_steps, overflow=overflow, shard=shard,
-        )
-    stats = ReuseStats(similarity=(matches * (1.0 / k)).mean(),
-                       skip_fraction=1.0 - mask.float().mean())
+    stats = _account(cur_q, mask, cache, spec, path, w, impl, ema_decay,
+                     budget, shard)
     return out, stats
 
 
@@ -213,7 +187,7 @@ def reuse_linear(
     if mode is None:
         mode = "reuse" if int(cache["mode_host"]) > 0 else "basic"
     if mode == "basic":
-        out, stats = _basic_eval(xm, w, cache, spec, ema_decay, shard)
+        out, stats = _basic_eval(xm, w, cache, spec, impl, ema_decay, shard)
     elif mode == "reuse":
         out, stats = _reuse_eval(xm, w, cache, spec, impl, ema_decay, budget,
                                  shard)

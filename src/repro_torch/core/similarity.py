@@ -31,8 +31,9 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor | float,
     two f32 values is exact in f64; the f64 sum is made round-to-odd (its
     exact error from TwoSum decides the last bit), and round-to-odd to 53
     bits followed by one rounding to 24 bits is the correctly rounded
-    result. A float `b` stays a Python scalar (rounded to f32), so no host
-    value is copied to the device."""
+    result. A non-finite sum is the FMA's as it is (an infinite operand
+    makes TwoSum's error NaN). A float `b` stays a Python scalar (rounded to
+    f32), so no host value is copied to the device."""
     p = a.double() * (b.double() if isinstance(b, torch.Tensor)
                       else float(np.float32(b)))
     cd = c.double()
@@ -41,7 +42,8 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor | float,
     err = (p - bp) + (cd - (s - bp))
     even = (s.view(torch.int64) & 1) == 0
     # one ulp toward the exact sum (err · inf is ±inf where err != 0)
-    s = torch.where((err != 0) & even, torch.nextafter(s, err * np.inf), s)
+    nudge = (err != 0) & even & torch.isfinite(s)
+    s = torch.where(nudge, torch.nextafter(s, err * np.inf), s)
     return s.float()
 
 

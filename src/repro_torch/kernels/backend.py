@@ -43,10 +43,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 SOURCES = ("delta_quant", "reuse_matmul", "reuse_matmul_ragged",
-           "reuse_matmul_int8", "wkv6_decode", "wkv6_backward")
+           "reuse_matmul_int8", "wkv6_decode", "wkv6_backward",
+           "site_account")
 KERNELS = ("delta_quant", "reuse_matmul_output", "reuse_matmul_input",
            "reuse_matmul_ragged", "reuse_matmul_int8", "wkv6_decode",
-           "wkv6_decode_backward")
+           "wkv6_decode_backward", "site_account")
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,6 +92,11 @@ SIGNATURES = {
         # dv, stream
         "rt_wkv6_decode_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "site_account": {
+        # ptrs, n_ptrs, ints, n_ints, floats, n_floats, stream (host arrays
+        # of kernels/site_account's lanes, INTS and FLOATS)
+        "rt_site_account": (_P, _I, _P, _I, _P, _I, _P),
     },
 }
 

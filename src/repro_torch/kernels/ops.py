@@ -13,22 +13,20 @@ Execution paths of the reuse-mode ΔW GEMM (`ReuseSiteSpec.exec_path`):
 the paper's negative result), also in torch ops.
 
 Beside them: the int8 split GEMM (`reuse_matmul_int8`, exact int32, fed by
-`core.delta.delta_encode_int8`) and the RWKV6 recurrence step
-(`wkv6_decode`, which updates its state in place).
+`core.delta.delta_encode_int8`), the RWKV6 recurrence step (`wkv6_decode`,
+which updates its state in place) and a site call's cache bookkeeping after
+its GEMM (`site_account`, in place on the cache entry).
 
 `impl` picks the substrate: "cuda" calls the kernel wrappers, which launch
 the Hopper kernels on CUDA tensors (and take the plain versions on CPU
 tensors); "torch" calls the plain versions directly, on any device.
 
 The accounting functions (`clamp_budget`, `ragged_dma_tiles`,
-`ragged_grid_steps`, `budget_overflow`, and `weight_dma_tiles` re-exported
-from the kernel module) are the reference's, ported exactly: the sensor's
-`dma_issued_tiles`, `grid_steps` and `overflow_fallbacks` come from them,
-never from a kernel. They stay on the tensor's device (`torch.where`), so no
-Python branch ever reads a CUDA tensor. The ragged ones read the budget as
-an int32 device scalar clamped to [1, gk] (the engine's budget lane, or a
-Python int made into one); with kb = gk no row overflows, so one formula
-gives both of the reference's branches.
+`ragged_grid_steps`, `budget_overflow` from `kernels/site_account.py`, and
+`weight_dma_tiles` from the kernel module) are the reference's, ported
+exactly: `site_account`'s plain version computes the sensor's
+`dma_issued_tiles`, `grid_steps` and `overflow_fallbacks` with them, and its
+kernel computes the same values, bitwise.
 """
 
 from __future__ import annotations
@@ -41,6 +39,7 @@ from repro_torch.kernels import delta_quant as _dq
 from repro_torch.kernels import reuse_matmul as _rm
 from repro_torch.kernels import reuse_matmul_int8 as _ri
 from repro_torch.kernels import reuse_matmul_ragged as _rr
+from repro_torch.kernels import site_account as _sa
 from repro_torch.kernels import wkv6_decode as _wkv
 from repro_torch.kernels.ref import (
     delta_quant_ref,
@@ -48,6 +47,12 @@ from repro_torch.kernels.ref import (
     reuse_matmul_ref,
 )
 from repro_torch.kernels.reuse_matmul import skip_sel, weight_dma_tiles
+from repro_torch.kernels.site_account import (
+    budget_overflow,
+    clamp_budget,
+    ragged_dma_tiles,
+    ragged_grid_steps,
+)
 
 __all__ = [
     "budget_overflow",
@@ -65,6 +70,7 @@ __all__ = [
     "reuse_matmul_masked",
     "reuse_matmul_ragged",
     "reuse_matmul_ref",
+    "site_account",
     "skip_sel",
     "weight_dma_tiles",
     "wkv6_decode",
@@ -76,14 +82,6 @@ IMPLS = ("cuda", "torch")
 def _check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-
-
-def clamp_budget(max_active_k: int | None, gk: int) -> int:
-    """Static k-extent budget, clamped to [1, gk] — one definition shared by
-    the executing wrappers and the grid-step accounting."""
-    if max_active_k is None:
-        return gk
-    return max(1, min(int(max_active_k), gk))
 
 
 def _pad_to(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:
@@ -314,45 +312,6 @@ def reuse_matmul_masked(
     return prev_out + f32_product(d, w)
 
 
-def ragged_dma_tiles(counts: torch.Tensor, *, gn: int) -> torch.Tensor:
-    """Weight-tile loads of the ragged walk: per (m, n) panel the row's count
-    active blocks; a fully skipped row still holds one resident tile."""
-    return (torch.clamp(counts, min=1).sum() * gn).to(torch.int32)
-
-
-def _budget_scalar(max_active_k: int | torch.Tensor | None, gk: int,
-                 device: torch.device) -> torch.Tensor:
-    """The budget as the accounting reads it: an int32 device scalar clamped
-    to [1, gk]. A tensor (the engine's budget lane) is clamped when written
-    and passes through."""
-    if isinstance(max_active_k, torch.Tensor):
-        return max_active_k
-    return torch.full((), clamp_budget(max_active_k, gk), dtype=torch.int32,
-                      device=device)
-
-
-def ragged_grid_steps(
-    counts: torch.Tensor, *, gm: int, gn: int, gk: int,
-    max_active_k: int | torch.Tensor | None,
-) -> torch.Tensor:
-    """Grid steps the reference's ragged path executes (fallback-aware), f32:
-    gm·gn·kb, or the full gm·gn·gk when any row overflows the budget."""
-    kb = _budget_scalar(max_active_k, gk, counts.device)
-    full = torch.full((), float(gm * gn * gk), dtype=torch.float32,
-                      device=counts.device)
-    return torch.where((counts > kb).any(), full,
-                       (kb * (gm * gn)).to(torch.float32))
-
-
-def budget_overflow(
-    counts: torch.Tensor, *, gk: int, max_active_k: int | torch.Tensor | None
-) -> torch.Tensor:
-    """int32 1 when an evaluation's live counts overflow the budget (the
-    reference took its full-extent fallback), else 0."""
-    kb = _budget_scalar(max_active_k, gk, counts.device)
-    return (counts > kb).any().to(torch.int32)
-
-
 def delta_quant_fused(
     x: torch.Tensor,
     prev_q: torch.Tensor,
@@ -373,3 +332,34 @@ def delta_quant_fused(
     q, delta, mask = fn(xp, pq, scale, block_m=block_m, block_k=block_k,
                         delta_dtype=delta_dtype)
     return q[:m, :k], delta[:m, :k], mask
+
+
+def site_account(
+    cur_q: torch.Tensor,                # [M, K] int8, this call's codes
+    block_mask: torch.Tensor | None,    # [gm, gk] int32; None: basic mode
+    cache: dict,                        # the site's entry (or shard lane)
+    *,
+    path: str,
+    dataflow: str,
+    block_m: int,
+    block_k: int,
+    n: int,
+    gn: int,
+    w_itemsize: int,
+    ema_decay: float,
+    budget: int | torch.Tensor | None,
+    shard=None,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """A site call's cache bookkeeping after its GEMM, in place on `cache`:
+    the match counts and the `prev_q` write, `sim_ema`, `steps`, the ctrl
+    occupancy (reuse mode) and the sensor counters of `path` (a sharded
+    call's with `shard`). `budget` is the ragged and compact accounting's
+    k-extent budget: the engine's budget lane, or the spec's Python int.
+    Returns the per-row match counts, [M] f32."""
+    _check_impl(impl)
+    fn = _sa.site_account if impl == "cuda" else _sa.site_account_torch
+    return fn(cur_q, block_mask, cache, path=path, dataflow=dataflow,
+              block_m=block_m, block_k=block_k, n=n, gn=gn,
+              w_itemsize=w_itemsize, ema_decay=ema_decay, budget=budget,
+              shard=shard)

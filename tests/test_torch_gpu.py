@@ -510,6 +510,147 @@ def test_delta_quant_multi_chunk_tiles_on_card(card, m, k, bm, bk, offset):
     assert int(got[2][:, 0].sum()) == 0 and bool(got[2][:, 1:].all())
 
 
+# ------------------------------------- a site call's bookkeeping (site_account)
+
+# (k, n) of every serve site shape above, and K tails: a padded K (the codes
+# a strided view, ldq > K) with 16-byte rows (3968) and without (3000)
+ACCOUNT_SHAPES = {**SITE_SHAPES,
+                  **{s: kn[:2] for s, kn in PANEL_SITES.items()},
+                  "k_tail_vec": (3968, 4096), "k_tail_bytes": (3000, 4096)}
+# (mode, path, dataflow, shards, budget) of every variant the serve runs
+ACCOUNT_VARIANTS = (
+    [("reuse", p, d, s, None) for p in ("kernel", "dense")
+     for d in ("output", "input") for s in (0, 2, 4)]
+    + [("reuse", p, "output", s, b) for p in ("ragged", "compact")
+       for s in (0, 2, 4) for b in (1, None)]
+    + [("basic", "kernel", d, s, None) for d in ("output", "input")
+       for s in (0, 2, 4)])
+
+
+def _account_inputs(card, m, k, n, seed):
+    """(x, a cache entry with seeded lanes): the previous codes random, x
+    the codes of a random half of the (8 × 256) tiles moved, as values the
+    quantizer maps back to those codes exactly; the float lanes random
+    with NaN and ±inf in some rows."""
+    from repro_torch.core.reuse_cache import ReuseSiteSpec, init_site_cache
+
+    gen = torch.Generator(device=card).manual_seed(seed)
+    spec = ReuseSiteSpec("s", k, n, block_m=8, block_k=256)
+    entry = init_site_cache(spec, m, device=card)
+    prev = torch.randint(-100, 101, (m, k), generator=gen, device=card)
+    gm, gk = -(-m // 8), -(-k // 256)
+    moved = (torch.rand((gm, gk), generator=gen, device=card) < 0.5)
+    moved = moved.repeat_interleave(8, 0).repeat_interleave(256, 1)[:m, :k]
+    step = torch.randint(1, 6, (m, k), generator=gen, device=card)
+    hit = torch.rand((m, k), generator=gen, device=card) < 0.3
+    cur = torch.where(moved & hit, prev + step, prev)
+    entry["prev_q"].copy_(prev)
+    x = cur.float() * torch.tensor(0.05, device=card)
+    for name, t in entry["sensor"].items():
+        if t.is_floating_point():
+            t.copy_(torch.rand(t.shape, generator=gen, device=card) * 3e7)
+        else:
+            t.copy_(torch.randint(0, 1000, t.shape, generator=gen,
+                                  device=card))
+    entry["sensor"]["mode_flag"].fill_(seed % 3 - 1)
+    entry["sim_ema"].copy_(torch.rand((m,), generator=gen, device=card))
+    entry["ctrl"]["occupancy"].fill_(0.37)
+    bad = torch.tensor([math.nan, math.inf, -math.inf], device=card)
+    entry["sim_ema"][:3] = bad[:m]
+    entry["sensor"]["slot_hit_sum"][-3:] = bad[:m]
+    return x, entry
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("site", list(ACCOUNT_SHAPES))
+def test_site_account_matches_plain_on_card(card, site, m):
+    """Every lane of a site call's bookkeeping bitwise the plain version's
+    (NaN positions; NaN payloads are not compared), the match counts too,
+    at every serve site shape and batch, over every exec path, dataflow,
+    mode, shard count and budget (an int32 budget lane as the engine passes
+    it, which overflows at 1), with NaN and ±inf in the lanes (every third
+    variant also in every float scalar lane)."""
+    from repro_torch.kernels import site_account as sa
+    from repro_torch.sensor.counters import ShardCtx
+
+    k, n = ACCOUNT_SHAPES[site]
+    x, base = _account_inputs(card, m, k, n, seed=m + k)
+    cur_q, _, mask = ops.delta_quant_fused(
+        x, base["prev_q"], base["scale"], block_m=8, block_k=256,
+        delta_dtype=BF16, impl="cuda")
+    assert cur_q.stride(0) == -(-k // 256) * 256
+    for i, (mode, path, dataflow, shards, budget) in enumerate(
+            ACCOUNT_VARIANTS):
+        got = sa.copy_lanes(base)
+        if i % 3 == 0:
+            for j, t in enumerate(sa.written_lanes(got).values()):
+                if t.is_floating_point() and t.dim() == 0:
+                    t.fill_((math.nan, math.inf, -math.inf)[j % 3])
+        want = sa.copy_lanes(got)
+        nl = n // shards if shards else n
+        shard = (ShardCtx(shards - 1, shards, n, -(-n // 128))
+                 if shards else None)
+        lane = None if budget is None else torch.tensor(
+            budget, dtype=torch.int32, device=card)
+        kw = dict(path=path, dataflow=dataflow, block_m=8, block_k=256,
+                  n=nl, gn=-(-nl // 128), w_itemsize=2, ema_decay=0.9,
+                  budget=lane, shard=shard)
+        bm = None if mode == "basic" else mask
+        before = backend.launch_counts()["site_account"]
+        matches = sa.site_account(cur_q, bm, got, **kw)
+        want_m = sa.site_account_torch(cur_q, bm, want, **kw)
+        torch.cuda.synchronize()
+        assert backend.launch_counts()["site_account"] == before + 1
+        what = (site, m, mode, path, dataflow, shards, budget)
+        assert torch.equal(matches, want_m), what
+        assert sa.differing_lanes(sa.written_lanes(got),
+                                  sa.written_lanes(want)) == [], what
+
+
+@pytest.mark.gpu
+def test_site_account_in_a_captured_graph_on_card(card):
+    """Captured in a CUDA graph, the bookkeeping updates the same tensors in
+    place as an eager call (bitwise, a ragged call reading its budget lane,
+    written between the capture and the replay), and the capture's launch
+    is counted once per replay."""
+    from repro_torch.kernels import site_account as sa
+
+    x, entry = _account_inputs(card, 8, 25600, 5120, seed=3)
+    cur_q, _, mask = ops.delta_quant_fused(
+        x, entry["prev_q"], entry["scale"], block_m=8, block_k=256,
+        delta_dtype=BF16, impl="cuda")
+    lane = torch.tensor(100, dtype=torch.int32, device=card)
+    kw = dict(path="ragged", dataflow="output", block_m=8, block_k=256,
+              n=5120, gn=40, w_itemsize=2, ema_decay=0.9, budget=lane)
+    eager, graph = sa.copy_lanes(entry), sa.copy_lanes(entry)
+    ptrs = {k: t.data_ptr() for k, t in sa.written_lanes(graph).items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, on copies
+        sa.site_account(cur_q, mask, sa.copy_lanes(entry), **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    before = backend.launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with backend.recorded_launches() as rec, torch.cuda.graph(g):
+        sa.site_account(cur_q, mask, graph, **kw)
+    assert backend.launch_counts() == before and rec["site_account"] == 1
+    lane.fill_(1)  # a budget move: the replay reads the live lane
+    g.replay()
+    backend.count_replay(rec)
+    sa.site_account(cur_q, mask, eager, **kw)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["site_account"] == \
+        before["site_account"] + 2
+    assert int(graph["sensor"]["overflow_fallbacks"]) == \
+        int(entry["sensor"]["overflow_fallbacks"]) + 1
+    assert {k: t.data_ptr() for k, t in sa.written_lanes(graph).items()} \
+        == ptrs
+    assert sa.differing_lanes(sa.written_lanes(graph),
+                              sa.written_lanes(eager)) == []
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,dk", [(8, 64, 64), (2, 4, 32)])
 def test_wkv6_decode_matches_plain_on_card(card, b, h, dk):
@@ -683,12 +824,15 @@ def test_int8_split_matches_plain_on_card(card, m, bm, k, n, case):
     ("nemotron-4-15b", ("delta_quant", "reuse_matmul_output")),
     ("qwen2-vl-7b", ("delta_quant", "reuse_matmul_output"))])
 def test_serve_runs_the_kernels_on_the_card(card, capsys, arch, kernels):
+    """Every reuse site call runs the bookkeeping kernel too: one launch
+    beside each delta_quant (reuse mode) or basic-mode product."""
     backend.reset_launches()
     tserve_cli.main(["--arch", arch, "--reduced", "--requests", "2",
                      "--batch-slots", "2", "--prompt-len", "4",
                      "--cache-len", "16", "--max-new", "3", "--reuse"])
     counts = backend.launch_counts()
     assert all(counts[kn] > 0 for kn in kernels), counts
+    assert counts["site_account"] >= counts["delta_quant"] > 0, counts
     assert "served 2/2 requests" in capsys.readouterr().out
 
 
