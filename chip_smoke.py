@@ -28,6 +28,10 @@ every phase's failure is fatal (non-zero exit, no result line):
                 x/delta bf16/bf16, bf16/f32, f32/f32, and on views at an
                 unaligned storage offset (its scalar instance), timed at
                 every width beside the launch floor (a one-element add_);
+                the bookkeeping kernels at every serve site shape and
+                variant, bitwise in every lane: site_account, and the
+                reuse-mode fused delta_quant_account (delta, mask, prev_q
+                too), each timed beside delta_quant alone;
                 wkv6_decode at rwkv6-7b decode (B 8, H 64, 64 x 64 state) with
                 a nonzero bonus; reuse_matmul_int8 over a delta_encode_int8
                 split at [8|128, 4096] x [4096, 14336] and the same skips, and
@@ -40,8 +44,9 @@ every phase's failure is fatal (non-zero exit, no result line):
                 cache holds, and the output-stationary kernel at every k
                 split it can launch
   4. serve    — `repro_torch.launch.serve.run` on full-width qwen3-32b cut to
-                8 layers, reuse on (delta_quant, output- and input-stationary
-                reuse_matmul must launch), twice: with `--eager`, every kernel
+                8 layers, reuse on (delta_quant_account, output- and
+                input-stationary reuse_matmul must launch), twice: with
+                `--eager`, every kernel
                 call held against its plain version on that call's own inputs;
                 then through the CUDA graphs of the compiled step on the same
                 seed and traffic, whose tokens, SensorReport lines, launch
@@ -56,10 +61,12 @@ every phase's failure is fatal (non-zero exit, no result line):
   5b. refresh — the same pair with `--refresh-every 2` and a forced mode flip
                 and flip back between steps: the graph serve must capture a
                 new variant after a flip, and replay a known one after a flip
-                back unless the policy refresh itself moved the key
+                back unless the policy refresh itself moved the key; the
+                flipped lane's basic-mode calls must launch site_account
   6. rwkv6    — the same pair on full-width rwkv6-7b at full depth (32
-                layers): delta_quant, reuse_matmul_output and wkv6_decode must
-                launch; then a cuda-vs-torch decode step as a diagnostic
+                layers): delta_quant_account, reuse_matmul_output and
+                wkv6_decode must launch; then a cuda-vs-torch decode step as
+                a diagnostic
   7. int8     — the int8 split entry point (delta_encode_int8, then
                 ops.reuse_matmul_int8 on lo and on hi) at the rwkv6-7b channel
                 mix shape, against the exact product
@@ -72,8 +79,9 @@ every phase's failure is fatal (non-zero exit, no result line):
                 sensor.runner.run_measured_decode on qwen3-32b (8 layers;
                 batch 8 and 2) and rwkv6-7b (32 layers; batch 8) at
                 correlation 0.95, eagerly with every kernel call checked,
-                then twice through the CUDA graphs (timed; profiled), all
-                three equal bitwise (summary lines, JSONL rows, launch
+                then through the CUDA graphs (each decode timed, the
+                middle one profiled), both equal bitwise (summary lines,
+                JSONL rows, launch
                 counts, final cache and state); per-site skips, replay
                 times, the ΔW GEMMs' device ms beside sensor_speedup; layer
                 0 attn_qkv must skip; (c) fit: the record's JSONL through
@@ -84,12 +92,12 @@ every phase's failure is fatal (non-zero exit, no result line):
                 launch reuse_matmul_ragged
   9. control  — the online control plane (repro_torch.control): (a) the
                 reference's acceptance scenario for it on qwen3-32b (8
-                layers) and rwkv6-7b (32 layers): run_measured_decode at
+                layers) and rwkv6-7b (8 of 32 layers): run_measured_decode at
                 batch 2, correlation 1.0, 26 steps with a random-token
                 burst at steps 19-22, a Controller every 2 steps from the
                 default policy; eagerly with every kernel call checked,
-                then through the graphs (timed), then again with a
-                converged and a burst replay profiled; tokens, journal
+                then through the graphs (timed, a converged and a burst
+                replay profiled instead); tokens, journal
                 rows, specs, policy table, mode mirrors and launch counts
                 equal, final cache and state bitwise; each journal loads
                 and replays; on qwen3 (the reference test's model) at
@@ -171,7 +179,7 @@ every phase's failure is fatal (non-zero exit, no result line):
 
   12. moe     — the MoE family and the compact path: (a) phase 4's traffic
                 with --reuse on full-width mixtral-8x7b cut to 4 of 32
-                layers (delta_quant and output-stationary must launch),
+                layers (delta_quant_account and output-stationary must launch),
                 eager-checked then graphs, held equal as phase 4's pair, the
                 routed experts' bytes and bound beside a replay's busy time;
                 then run_measured_decode at mixtral's operating point
@@ -253,7 +261,7 @@ every phase's failure is fatal (non-zero exit, no result line):
                 K/V at half the bf16 bytes, a prefill's codes bitwise the
                 bf16 prefill's K/V quantized, the replay beside phase 4's
 
-  16. train   — training at full width, cut in depth: (a) qwen3-32b at 2
+  16. train   — training at full width, cut in depth: (a) qwen3-32b at 1
                 of 64 layers, batch 8, seq 128, correlation 0.9: 6 steps
                 straight, against `launch.train.run` for 3 steps under
                 ResilientLoop (its checkpoint after step 0), the state
@@ -298,7 +306,8 @@ every phase's failure is fatal (non-zero exit, no result line):
                 ms, kernels a replay, the NCCL all-gathers' device ms and
                 peak memory, and each card's name and power limit
 
-Each phase prints its seconds. Before the last line it prints a JSON line of
+Each phase prints its seconds, and each of its parts (a serve, a run, a
+check) its own. Before the last line it prints a JSON line of
 the graph serves (step times both ways, variants, captures, capture seconds,
 pools, device busy and idle share), a JSON line of phase 8 (its runs, the
 sweep, the break-even and the fitted tables), JSON lines of phase 9 (the
@@ -321,6 +330,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import itertools
@@ -382,8 +392,9 @@ WKV_ATOL, WKV_RTOL = 1e-5, 1e-5
 # (`mma.sync ... s8` for 8-row tiles, `wgmma ... s8` for 128-row tiles); the
 # three float ΔW GEMMs (output-, input-stationary, ragged: one cluster tile
 # loop) on the bf16 tensor cores (`mma.sync ... bf16`, f32 accumulation) and
-# their f32 operands on CUDA cores in IEEE f32; delta_quant, wkv6_decode,
-# wkv6_decode_backward and site_account on CUDA cores.
+# their f32 operands on CUDA cores in IEEE f32; delta_quant (and its fused
+# instance delta_quant_account), wkv6_decode, wkv6_decode_backward and
+# site_account on CUDA cores.
 KERNEL_META = {
     "delta_quant": ("src/repro_torch/csrc/delta_quant.cu",
                     "src/repro/kernels/delta_quant.py:77"),
@@ -409,6 +420,13 @@ KERNEL_META = {
         "none (the fusion of src/repro/core/reuse_linear.py:222-264 and "
         "src/repro/sensor/counters.py:151-281 in the reference's jitted "
         "step)"),
+    # the reuse-mode site call's pass: delta_quant's tile work and the
+    # bookkeeping above, one launch (delta_quant.cu's fused instance)
+    "delta_quant_account": (
+        "src/repro_torch/csrc/delta_quant.cu",
+        "src/repro/kernels/delta_quant.py:77, fused with the bookkeeping "
+        "of src/repro/core/reuse_linear.py:222-264 and "
+        "src/repro/sensor/counters.py:151-281"),
 }
 
 
@@ -418,6 +436,19 @@ def fail(msg: str) -> None:
 
 
 _PHASE = {"name": None, "t0": 0.0}
+
+
+def timed(fn):
+    """`fn`, printing its wall seconds when it returns: the parts of a
+    phase, so a phase's time can be read part by part."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        return out
+    return run
 
 
 def phase(name: str | None) -> None:
@@ -537,6 +568,18 @@ def wkv_check(out, s_new, want_out, want_s, terms, what):
     return float(err.max()), strict
 
 
+def clone_args(tree):
+    """`tree` (tensors in lists, tuples and dicts) with every tensor
+    copied."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_args(v) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(clone_args(v) for v in tree)
+    return tree
+
+
 class PathCheck:
     """Holds every kernel call of a serve run against its plain version on
     the exact inputs that call was given: each site of each layer at each
@@ -545,14 +588,20 @@ class PathCheck:
     checking ones. A check runs right after its kernel, before the engine
     writes the call's outputs back into the cache, so the inputs it reuses
     (x, prev_q, Δ, mask, prev_out) are still the call's own. The site
-    bookkeeping (`site_account`) writes the cache's lanes in place: its
-    plain version runs on copies of the lanes taken before the kernel, and
-    every lane must come out bitwise (NaN positions included, NaN payloads
-    not compared: the card's FMA returns the canonical NaN). The plain
-    versions launch no kernel, so the launch counts stay the path's."""
+    bookkeeping (`site_account`, and the reuse-mode pass that fuses it,
+    `delta_quant_account`) writes the cache's lanes in place: its plain
+    version runs on copies of the lanes taken before the kernel, and every
+    lane must come out bitwise (prev_q among them; NaN positions included,
+    NaN payloads not compared: the card's FMA returns the canonical NaN).
+    The plain versions launch no kernel, so the launch counts stay the
+    path's. Inside a trace the serve takes of itself (the sharded serve's
+    no-gather step runs under torch.profiler and a recorder of every op),
+    a call's inputs and results are copied and its check runs after the
+    trace ends, so the trace holds the copies and not the plain version's
+    ops; every call is still checked, on the same values."""
 
     NAMES = ("delta_quant_fused", "reuse_matmul", "reuse_matmul_ragged",
-             "wkv6_decode", "site_account")
+             "wkv6_decode", "site_account", "delta_quant_account")
 
     def __init__(self, ops):
         from repro_torch.kernels import site_account
@@ -563,6 +612,8 @@ class PathCheck:
         self.checked = {k: 0 for k in KERNEL_META}
         self.max_err = {k: 0.0 for k in KERNEL_META}
         self.wkv_strict = 0
+        self.pending = []   # (check, its arguments) held until a trace ends
+        self.deferred = 0
 
     def __enter__(self):
         for n in self.NAMES:
@@ -572,10 +623,28 @@ class PathCheck:
     def __exit__(self, *exc):
         for n, fn in self.orig.items():
             setattr(self.ops, n, fn)
+        self._flush()
 
     def _note(self, kname: str, err: float) -> None:
         self.checked[kname] += 1
         self.max_err[kname] = max(self.max_err[kname], err)
+
+    def _flush(self) -> None:
+        pending, self.pending = self.pending, []
+        for check, args in pending:
+            check(*args)
+
+    def _later(self, check, *args, **keep) -> None:
+        """Run `check(*args, **keep)` now, or on copies of `args` once the
+        trace that is recording ends (`keep`: values no later call changes,
+        or copies already, passed as they are)."""
+        if torch._C._autograd._profiler_enabled():
+            self.pending.append((functools.partial(check, **keep),
+                                 clone_args(args)))
+            self.deferred += 1
+        else:
+            self._flush()
+            check(*args, **keep)
 
     def delta_quant_fused(self, *args, impl, **kw):
         got = self.orig["delta_quant_fused"](*args, impl=impl, **kw)
@@ -587,22 +656,27 @@ class PathCheck:
         self._note("delta_quant", 0.0)
         return got
 
-    def reuse_matmul(self, *args, impl, dataflow, **kw):
-        got = self.orig["reuse_matmul"](*args, impl=impl, dataflow=dataflow,
-                                        **kw)
-        want = self.orig["reuse_matmul"](*args, impl="torch",
-                                         dataflow=dataflow, **kw)
-        kname = f"reuse_matmul_{dataflow}"
-        self._note(kname, close(got, want, GEMM_ATOL, GEMM_RTOL,
-                                f"serve path: {kname}"))
+    def reuse_matmul(self, delta, w, *args, impl, dataflow, **kw):
+        got = self.orig["reuse_matmul"](delta, w, *args, impl=impl,
+                                        dataflow=dataflow, **kw)
+        self._later(self._check_gemm, "reuse_matmul", delta, args, dict(
+            kw, dataflow=dataflow), got, w=w)
         return got
 
-    def reuse_matmul_ragged(self, *args, impl, **kw):
-        got = self.orig["reuse_matmul_ragged"](*args, impl=impl, **kw)
-        want = self.orig["reuse_matmul_ragged"](*args, impl="torch", **kw)
-        self._note("reuse_matmul_ragged", close(
-            got, want, GEMM_ATOL, GEMM_RTOL, "serve path: reuse_matmul_ragged"))
+    def reuse_matmul_ragged(self, delta, w, *args, impl, **kw):
+        got = self.orig["reuse_matmul_ragged"](delta, w, *args, impl=impl,
+                                               **kw)
+        self._later(self._check_gemm, "reuse_matmul_ragged", delta, args, kw,
+                    got, w=w)
         return got
+
+    def _check_gemm(self, name, delta, args, kw, got, *, w):
+        # the weight is the model's, unchanged by any call: never copied
+        want = self.orig[name](delta, w, *args, impl="torch", **kw)
+        kname = name if name.endswith("ragged") else \
+            f"reuse_matmul_{kw['dataflow']}"
+        self._note(kname, close(got, want, GEMM_ATOL, GEMM_RTOL,
+                                f"serve path: {kname}"))
 
     def wkv6_decode(self, r, k, v, w, u, state, *, impl):
         # the kernel updates `state` in place: the plain version runs on a
@@ -621,17 +695,38 @@ class PathCheck:
         want = self.sa.copy_lanes(cache)
         got = self.orig["site_account"](cur_q, block_mask, cache, impl=impl,
                                         **kw)
+        self._later(self._check_account, cur_q, block_mask, got,
+                    self.sa.written_lanes(cache), kw, want=want)
+        return got
+
+    def _check_account(self, cur_q, block_mask, got, after, kw, *, want):
         want_m = self.orig["site_account"](cur_q, block_mask, want,
                                            impl="torch", **kw)
-        bad = self.sa.differing_lanes(self.sa.written_lanes(cache),
-                                      self.sa.written_lanes(want))
+        bad = self.sa.differing_lanes(after, self.sa.written_lanes(want))
         if bad or not torch.equal(got, want_m):
             fail(f"serve path: site_account lanes {bad or ['matches']} "
                  f"differ from its plain version ({kw['path']}, "
                  f"{'basic' if block_mask is None else 'reuse'}, "
                  f"shard {kw.get('shard')})")
         self._note("site_account", 0.0)
+
+    def delta_quant_account(self, x, cache, *, impl, **kw):
+        want = self.sa.copy_lanes(cache)
+        got = self.orig["delta_quant_account"](x, cache, impl=impl, **kw)
+        self._later(self._check_fused, x, got, self.sa.written_lanes(cache),
+                    kw, want=want)
         return got
+
+    def _check_fused(self, x, got, after, kw, *, want):
+        ref = self.orig["delta_quant_account"](x, want, impl="torch", **kw)
+        bad = self.sa.differing_lanes(after, self.sa.written_lanes(want))
+        bad += [part for a, b, part in zip(got, ref, ("delta", "mask",
+                                                      "matches"))
+                if not torch.equal(a, b)]
+        if bad:
+            fail(f"serve path: delta_quant_account {bad} differ from its "
+                 f"plain version ({kw['path']}, shard {kw.get('shard')})")
+        self._note("delta_quant_account", 0.0)
 
 
 class PoisonedPathCheck(PathCheck):
@@ -678,9 +773,10 @@ ACCOUNT_VARIANTS = (("reuse", "kernel", "output", 0, None),
 
 
 def account_inputs(dev, m, k, n, gen):
-    """(cur_q, mask, a cache entry) of one site call: the previous codes
+    """(cur_q, mask, a cache entry, x) of one site call: the previous codes
     random, a random half of the (8 × 256) tiles moved, the float lanes
-    random with NaN and ±inf in some rows."""
+    random with NaN and ±inf in some rows; x the call's activations (bf16),
+    whose codes cur_q are."""
     from repro_torch.core.reuse_cache import ReuseSiteSpec, init_site_cache
     from repro_torch.kernels import ops
 
@@ -698,11 +794,11 @@ def account_inputs(dev, m, k, n, gen):
     bad = torch.tensor([math.nan, math.inf, -math.inf], device=dev)
     entry["sim_ema"][:3] = bad
     entry["sensor"]["slot_hit_sum"][-3:] = bad
-    x = cur.float() * entry["scale"]
+    x = (cur.float() * entry["scale"]).to(torch.bfloat16)
     cur_q, _, mask = ops.delta_quant_fused(
         x, entry["prev_q"], entry["scale"], block_m=BM, block_k=BK,
         delta_dtype=torch.bfloat16, impl="cuda")
-    return cur_q, mask, entry
+    return cur_q, mask, entry, x
 
 
 def account_kw(variant, n, dev):
@@ -718,18 +814,23 @@ def account_kw(variant, n, dev):
                 if shards else None)
 
 
-def site_account_phase(dev, floor: float) -> dict:
-    """Phase 3's site_account: every variant at every serve site shape,
-    kernel against plain version on copies of the same lanes, bitwise (NaN
-    positions); then one reuse call a shape timed (kernel, plain version),
-    beside its byte bound and the launch floor."""
+@timed
+def site_account_phase(dev, floor: float, dq_ms: dict) -> tuple[dict, dict]:
+    """Phase 3's bookkeeping kernels: every variant at every serve site
+    shape, each kernel against its plain version on copies of the same
+    lanes, bitwise (NaN positions): site_account on the call's codes, and
+    the reuse-mode variants through the fused delta_quant_account on the
+    call's x (delta, mask, matches and prev_q too). Then one reuse call a
+    shape timed through each (kernel, plain version), beside its byte
+    bound, the launch floor and delta_quant alone at that K (`dq_ms`).
+    Returns (site_account's result, delta_quant_account's)."""
     from repro_torch.kernels import site_account as sa
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    by_shape = []
+    by_shape, fused_by_shape = [], []
     for label, k, n in ACCOUNT_SITES:
-        cur_q, mask, entry = account_inputs(dev, M, k, n, gen)
+        cur_q, mask, entry, x = account_inputs(dev, M, k, n, gen)
         for variant in ACCOUNT_VARIANTS:
             got, want = sa.copy_lanes(entry), sa.copy_lanes(entry)
             kw = account_kw(variant, n, dev)
@@ -741,6 +842,20 @@ def site_account_phase(dev, floor: float) -> dict:
             if bad or not torch.equal(m_got, m_want):
                 fail(f"site_account {label} {variant}: lanes "
                      f"{bad or ['matches']} differ from its plain version")
+            if variant[0] == "basic":
+                continue
+            got, want = sa.copy_lanes(entry), sa.copy_lanes(entry)
+            fkw = dict(kw, delta_dtype=torch.bfloat16)
+            out = sa.delta_quant_account(x, got, **fkw)
+            ref = sa.delta_quant_account_torch(x, want, **fkw)
+            bad = sa.differing_lanes(sa.written_lanes(got),
+                                     sa.written_lanes(want))
+            bad += [part for a, b, part in zip(out, ref, ("delta", "mask",
+                                                          "matches"))
+                    if not torch.equal(a, b)]
+            if bad:
+                fail(f"delta_quant_account {label} {variant}: {bad} differ "
+                     "from its plain version")
         kw = account_kw(ACCOUNT_VARIANTS[0], n, dev)
         lanes = sa.copy_lanes(entry)
         t_k = time_ms(lambda: sa.site_account(cur_q, mask, lanes, **kw))
@@ -750,24 +865,50 @@ def site_account_phase(dev, floor: float) -> dict:
                       graph=False)
         # cur_q read, prev_q read and written, the mask and the match
         # counts, sim_ema and the slot lanes read and written, the scalars
-        byts = (3 * M * k + mask.numel() * 4 + M * 4 + 3 * 2 * M * 4
-                + 2 * 4 * 13)
+        lane_bytes = M * 4 + 3 * 2 * M * 4 + 2 * 4 * 13
+        byts = 3 * M * k + mask.numel() * 4 + lane_bytes
         bound = byts / HBM_BYTES_PER_S * 1e3
         print(f"  site_account {label} [{M},{k}]: {t_k:.4f} (eager call "
               f"{t_e:.4f}) bound {bound:.6f} floor {floor:.4f} plain "
               f"{t_p:.4f}; library: none")
         by_shape.append({"site": label, "K": k, "ms": t_k, "plain_ms": t_p,
                          "eager_ms": t_e, "bound_ms": bound})
+        fkw = dict(kw, delta_dtype=torch.bfloat16)
+        t_f = time_ms(lambda: sa.delta_quant_account(x, lanes, **fkw))
+        t_fp = time_ms(lambda: sa.delta_quant_account_torch(x, lanes, **fkw),
+                       iters=5)
+        t_fe = time_ms(lambda: sa.delta_quant_account(x, lanes, **fkw),
+                       graph=False)
+        # x read, prev_q read and written, delta and the mask written, the
+        # lanes as site_account's (the partials are the kernel's scratch)
+        fbytes = M * k * (2 + 1 + 1 + 2) + mask.numel() * 4 + 4 + lane_bytes
+        fbound = fbytes / HBM_BYTES_PER_S * 1e3
+        pair = dq_ms[k] + t_k
+        print(f"  delta_quant_account {label} [{M},{k}]: {t_f:.4f} (eager "
+              f"call {t_fe:.4f}) bound {fbound:.6f} floor {floor:.4f} plain "
+              f"{t_fp:.4f}; delta_quant alone {dq_ms[k]:.4f}, with "
+              f"site_account {pair:.4f}; library: none")
+        fused_by_shape.append({
+            "site": label, "K": k, "ms": t_f, "plain_ms": t_fp,
+            "eager_ms": t_fe, "bound_ms": fbound,
+            "delta_quant_ms": dq_ms[k], "pair_ms": pair})
     print(f"site_account: {len(ACCOUNT_VARIANTS)} variants (reuse on every "
           "path, basic, sharded, a budget lane that overflows) at "
           f"{len(ACCOUNT_SITES)} site shapes, every lane and the match counts "
           "bitwise the plain version's, NaN and ±inf lanes at the same "
-          "positions")
+          "positions; delta_quant_account the same over the reuse-mode "
+          "variants, delta, mask and prev_q included")
     top = max(by_shape, key=lambda r: r["K"])
-    return {"shape": f"[{M},{top['K']}] int8 codes, {top['site']}",
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "floor_ms": floor, "by_shape": by_shape}
+    ftop = max(fused_by_shape, key=lambda r: r["K"])
+    return ({"shape": f"[{M},{top['K']}] int8 codes, {top['site']}",
+             "ms": top["ms"], "plain_ms": top["plain_ms"],
+             "bound_ms": top["bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "floor_ms": floor, "by_shape": by_shape},
+            {"shape": f"[{M},{ftop['K']}] bf16, {ftop['site']}",
+             "ms": ftop["ms"], "plain_ms": ftop["plain_ms"],
+             "bound_ms": ftop["bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "floor_ms": floor,
+             "by_shape": fused_by_shape})
 
 
 def clone_state(tree):
@@ -843,8 +984,9 @@ def profile_step(fn, what: str, *, grad: bool = False) -> tuple:
 def no_fma_emulation(row: dict) -> None:
     """A graph serve's replay runs none of the plain bookkeeping's exact-FMA
     emulation (`core.similarity.fma_f32`: f64 adds, and one `nextafter` an
-    FMA, which nothing else calls): every site call's bookkeeping is the
-    site_account kernel. The replay's other f64 kernels are printed."""
+    FMA, which nothing else calls): every site call's bookkeeping is a
+    kernel (delta_quant_account, site_account). The replay's other f64
+    kernels are printed."""
     if row["fma_emulation_graph"]:
         fail(f"{row['serve']}: {row['fma_emulation_graph']} exact-FMA "
              "emulation kernels (nextafter) in a replay")
@@ -887,6 +1029,7 @@ def outcome(res, text: str) -> dict:
     }
 
 
+@timed
 def step_times(step, pairs: int) -> tuple[list, list]:
     """Decode step times in ms (host clock around synchronize) on the graph
     serve's buffers after its run: the step function run eagerly, and its
@@ -933,6 +1076,7 @@ def flip_hook():
     return hook, log
 
 
+@timed
 def decode_compare(cfg, gen, dev):
     """Prefill 8 random prompts, then run ONE decode step from a cold reuse
     cache with impl="cuda" and with impl="torch" on the same card tensors.
@@ -1002,6 +1146,7 @@ GEMM_LISTS = {"MaskList": "reuse_matmul_output",
               "RaggedList": "reuse_matmul_ragged"}
 
 
+@timed
 def skip_sweep(dev, gen, max_err) -> dict:
     """Phase 8a. At every serve site shape (M = 8, bf16) and skip in
     SWEEP_SKIPS: the site's masked kernel (output- or input-stationary), the
@@ -1131,7 +1276,9 @@ def timed_decodes(profile_at, what: str):
     clock around synchronize) by wrapping `CompiledStep.decode`, and the
     host time until the call returns (the token copy, the key and the
     graph launch, before the device is waited for); the decodes numbered in
-    `profile_at` (1-based) are profiled instead. Yields a log: per decode
+    `profile_at` (1-based; or those for which `profile_at(n, step)` is
+    true, asked before the decode runs) are profiled instead. Yields a
+    log: per decode
     its ms and host ms (None: profiled) and whether it captured a variant,
     per replay the host time of the graph launch alone
     (`CompiledStep.replay`), and the profiles (wall ms, busy ms, kernel
@@ -1152,7 +1299,8 @@ def timed_decodes(profile_at, what: str):
         before = self.captures
         ms = host = None
         n = len(log["ms"]) + 1
-        if n in profile_at:
+        if (profile_at(n, self) if callable(profile_at)
+                else n in profile_at):
             box = []
             log["profile"] = log["profiles"][n] = profile_step(
                 lambda: box.append(orig(self, tokens)), f"{what} (step {n})")
@@ -1176,19 +1324,19 @@ def timed_decodes(profile_at, what: str):
         CompiledStep.decode, CompiledStep.replay = orig, orig_replay
 
 
+@timed
 def measured_pair(label, arch, cfg, params, *, steps, batch, policy, dev,
                   max_err, correlation=CORRELATION, **run_kw):
-    """Phase 8b and 8d: `run_measured_decode` three times on one seed and
-    stream: eagerly (`graphs=False`) with every kernel call held against its
-    plain version (PathCheck); through the CUDA graphs of the compiled step
-    with each decode timed (no profiler in that run, the card's clocks read
-    before and after); and through the graphs again with the middle decode
-    profiled. Summary lines, JSONL rows, launch counts, mode mirrors and
-    every tensor of the final reuse cache and decode state must be equal
-    (bitwise) in all three. `policy()` makes each run's policy; `run_kw`
-    goes to the runner as it is (impl, refresh_policy). Returns (the timed
-    run's MeasuredDecode, its launch counts, its decode log with the
-    profiled run's profile)."""
+    """Phase 8b and 8d: `run_measured_decode` twice on one seed and stream:
+    eagerly (`graphs=False`) with every kernel call held against its plain
+    version (PathCheck); then through the CUDA graphs of the compiled step
+    with each decode timed (the card's clocks read before and after) but
+    the middle one, which is profiled instead. Summary lines, JSONL rows,
+    launch counts, mode mirrors and every tensor of the final reuse cache
+    and decode state must be equal (bitwise) in both. `policy()` makes each
+    run's policy; `run_kw` goes to the runner as it is (impl,
+    refresh_policy). Returns (the graph run's MeasuredDecode, its launch
+    counts, its decode log and profile)."""
     from repro_torch.kernels import backend, ops
     from repro_torch.sensor.runner import run_measured_decode
 
@@ -1196,15 +1344,14 @@ def measured_pair(label, arch, cfg, params, *, steps, batch, policy, dev,
               seed=MEASURED_SEED, device=dev, params=params, cfg=cfg,
               cache_len=MEASURED_CACHE_LEN, **run_kw)
     runs, logs = [], []
-    for how in ("eager", "timed", "profiled"):
+    for how in ("eager", "timed"):
         gc.collect()
         torch.cuda.empty_cache()
         backend.reset_launches()
         if how == "eager":
             ctx = PathCheck(ops)
         else:
-            ctx = timed_decodes((steps // 2 + 1,) if how == "profiled"
-                                else (), f"{label}: one replay")
+            ctx = timed_decodes((steps // 2 + 1,), f"{label}: one replay")
         clocks = gpu_clocks() if how == "timed" else None
         with ctx as got:
             md = run_measured_decode(arch, policy=policy(),
@@ -1234,24 +1381,22 @@ def measured_pair(label, arch, cfg, params, *, steps, batch, policy, dev,
             "tensors": {k: t.clone() for k, t in tensor_leaves(
                 {"rcache": md.cache, "state": md.step.state}).items()}})
         del md
-    want = runs[0]
-    for how, got in zip(("timed", "profiled"), runs[1:]):
-        for part in ("lines", "rows", "counts", "modes"):
-            if got[part] != want[part]:
-                fail(f"{label}: the {how} graph run's {part} differ from the "
-                     "checked eager run's")
-        diff = [k for k, t in want["tensors"].items()
-                if not torch.equal(t, got["tensors"][k])]
-        if diff:
-            fail(f"{label}: the {how} graph run's final reuse cache / decode "
-                 f"state differ at {diff[:8]} ({len(diff)} tensors)")
-    print(f"{label}: both graph runs equal to the checked eager run — "
+    want, got = runs
+    for part in ("lines", "rows", "counts", "modes"):
+        if got[part] != want[part]:
+            fail(f"{label}: the graph run's {part} differ from the checked "
+                 "eager run's")
+    diff = [k for k, t in want["tensors"].items()
+            if not torch.equal(t, got["tensors"][k])]
+    if diff:
+        fail(f"{label}: the graph run's final reuse cache / decode state "
+             f"differ at {diff[:8]} ({len(diff)} tensors)")
+    print(f"{label}: the graph run equal to the checked eager run — "
           f"{len(want['lines'])} summary lines, {len(want['rows'])} JSONL "
           f"rows, launch counts {want['counts']}, {len(want['tensors'])} "
           "tensors of the final reuse cache and decode state bitwise; every "
           "kernel call of the eager run held against its plain version")
-    log = dict(logs[0], profile=logs[1]["profile"])
-    return timed[0], timed[1], log
+    return timed[0], timed[1], logs[0]
 
 
 def measured_summary(label, md, counts, log, ref=None,
@@ -1288,12 +1433,16 @@ def measured_summary(label, md, counts, log, ref=None,
     if first.site == "attn_qkv" and first.skipped_tiles == 0:
         fail(f"{label}: layer 0 attn_qkv skipped no tile on the correlated "
              "stream")
-    replays = [t for t, cap in zip(log["ms"], log["captured"]) if not cap]
-    hosts = [t for t, cap in zip(log["host_ms"], log["captured"]) if not cap]
+    # the replays timed (a profiled decode has no time)
+    replays = [t for t, cap in zip(log["ms"], log["captured"])
+               if not cap and t is not None]
+    hosts = [t for t, cap in zip(log["host_ms"], log["captured"])
+             if not cap and t is not None]
     med = statistics.median(replays)
     launch = statistics.median(log["launch_ms"] or [math.nan])
     print(f"{label}: replay step (host clock around synchronize, "
-          f"{len(replays)} replays, no profiler): median {med:.2f} ms ("
+          f"{len(replays)} replays, the profiled one aside): median "
+          f"{med:.2f} ms ("
           + ", ".join(f"{t:.2f}" for t in replays) + ")"
           + (f"; {ref[0]}: {ref[1]:.2f} ms" if ref else "")
           + f"; host time until the decode call returns: median "
@@ -1398,9 +1547,10 @@ def measured_decode_phase(cfg, rcfg, dev, graph_rows, max_err) -> dict:
                 if batch == 8:
                     record, record_ms = md, measured[-1]["replay_ms"]
                 del md
-            for kn in (("delta_quant", "reuse_matmul_output",
+            for kn in (("delta_quant_account", "reuse_matmul_output",
                         "reuse_matmul_input") if arch == "qwen3-32b" else
-                       ("delta_quant", "reuse_matmul_output", "wkv6_decode")):
+                       ("delta_quant_account", "reuse_matmul_output",
+                        "wkv6_decode")):
                 if launches_measured[f"{arch} b8 record"][kn] <= 0:
                     fail(f"{kn} was not launched in the {arch} record run")
             # (c) fit: the record's JSONL, loaded, fitted for the card's
@@ -1467,6 +1617,10 @@ def measured_decode_phase(cfg, rcfg, dev, graph_rows, max_err) -> dict:
 # control_matches_tuned_baseline): from the default policy, a fully anchored
 # stream converges, then a dissimilarity burst must widen a budget
 CONTROL_STEPS, CONTROL_BATCH, CONTROL_BURST = 26, 2, (19, 22)
+# rwkv6's closed loop is cut to 8 of its 32 layers (phase 6 serves it
+# uncut): its properties are printed, not required, and at 32 layers its
+# checked eager run alone took ~30 s of the run's time limit
+CONTROL_RWKV_LAYERS = 8
 CONTROL_SPANS = (("1-10", 1, 10), ("11-18", 11, 18), ("burst 19-22", 19, 22),
                  ("23-26", 23, 26))
 # the closed loop on a compiled step with budgets in the decode key and no
@@ -1527,29 +1681,42 @@ def gemm_ms(rows) -> float:
                if "cluster_gemm" in e.key) / 1e3
 
 
+@timed
 def control_pair(label, arch, cfg, params, dev, max_err, tmp) -> dict:
-    """Phase 9a on one model: the controlled run three times on one seed
-    and stream — eagerly with every kernel call held against its plain
-    version (PathCheck), through the CUDA graphs with each decode timed,
-    and through the graphs again with a converged and a burst replay
-    profiled (the steps the timed run replayed). Tokens, journal rows
+    """Phase 9a on one model: the controlled run twice on one seed and
+    stream — eagerly with every kernel call held against its plain version
+    (PathCheck), then through the CUDA graphs with each decode timed but a
+    converged and a burst replay, which are profiled (the first replay from
+    step 15 to 18 and the first in the burst). Tokens, journal rows
     (without `ts`), final specs, policy table, mode mirrors and launch
-    counts equal in all three, the final reuse cache and decode state
-    bitwise; each journal loads and replays; on qwen3 the reference
-    test's four properties hold. Returns the row of the JSON line."""
+    counts equal in both, the final reuse cache and decode state bitwise;
+    each journal loads and replays; on qwen3 the reference test's four
+    properties hold. Returns the row of the JSON line."""
     from repro_torch.control import load_journal, replay_rows
     from repro_torch.kernels import backend, ops
     from repro_torch.serve.compiled_step import summary_line
 
-    runs, profile_at = [], ()
-    for how in ("eager", "timed", "profiled"):
+    chosen = {}
+
+    def profile_at(n, step):
+        """A replay (its key captured before) in a span not yet profiled."""
+        if step.decode_key() not in step.variants:
+            return False
+        for span, lo, hi in (("converged", 15, 18),
+                             ("burst", *CONTROL_BURST)):
+            if lo <= n <= hi and span not in chosen:
+                chosen[span] = n
+                return True
+        return False
+
+    runs = []
+    for how in ("eager", "timed"):
         gc.collect()
         torch.cuda.empty_cache()
         backend.reset_launches()
         journal = os.path.join(tmp, f"{arch}_{how}.jsonl")
         ctx = (PathCheck(ops) if how == "eager" else
-               timed_decodes(profile_at if how == "profiled" else (),
-                             f"{label}: one replay"))
+               timed_decodes(profile_at, f"{label}: one replay"))
         with ctx as got, recorded_tokens() as toks:
             ctl, md, windows = controlled_decode(arch, cfg, params, dev,
                                                  journal, how != "eager")
@@ -1587,32 +1754,22 @@ def control_pair(label, arch, cfg, params, dev, max_err, tmp) -> dict:
             prefill_pool = sum(pool for kind, _, pool in md.step.built
                                if kind == "prefill")
             engine, cache, report = md.engine, md.cache, md.report
-            # the profiled run profiles a replay near step 15 and one in the
-            # burst, steps this (equal) run replayed
-            replays = [i + 1 for i, c in enumerate(got["captured"]) if not c]
-            conv = min((i for i in replays if 11 <= i <= 18),
-                       key=lambda i: abs(i - 15), default=None)
-            burst = next((i for i in replays
-                          if CONTROL_BURST[0] <= i <= CONTROL_BURST[1]), None)
-            profile_at = tuple(i for i in (conv, burst) if i is not None)
-        if how == "profiled":
             profiles = got["profiles"]
             if any(got["captured"][i - 1] for i in profiles):
                 fail(f"{label}: a profiled step captured instead of replaying")
         del ctl, md
-    want = runs[0]
-    for how, run in zip(("timed", "profiled"), runs[1:]):
-        for part in ("tokens", "rows", "specs", "table", "modes", "counts"):
-            if run[part] != want[part]:
-                fail(f"{label}: the {how} graph run's {part} differ from the "
-                     "checked eager run's")
-        diff = [k for k, t in want["tensors"].items()
-                if not torch.equal(t, run["tensors"][k])]
-        if diff:
-            fail(f"{label}: the {how} graph run's final reuse cache / decode "
-                 f"state differ at {diff[:8]} ({len(diff)} tensors)")
+    want, run = runs
+    for part in ("tokens", "rows", "specs", "table", "modes", "counts"):
+        if run[part] != want[part]:
+            fail(f"{label}: the graph run's {part} differ from the checked "
+                 "eager run's")
+    diff = [k for k, t in want["tensors"].items()
+            if not torch.equal(t, run["tensors"][k])]
+    if diff:
+        fail(f"{label}: the graph run's final reuse cache / decode state "
+             f"differ at {diff[:8]} ({len(diff)} tensors)")
     rows = want["rows"]
-    print(f"{label}: both graph runs equal to the checked eager run — "
+    print(f"{label}: the graph run equal to the checked eager run — "
           f"tokens of {CONTROL_STEPS} steps, {len(rows)} journal rows, final "
           f"specs, policy table ({len(want['table'])} rows), mode mirrors, "
           f"launch counts {want['counts']}, {len(want['tensors'])} tensors of "
@@ -1706,13 +1863,14 @@ def control_pair(label, arch, cfg, params, dev, max_err, tmp) -> dict:
     spans = {}
     for name, a, b in CONTROL_SPANS:
         ts = [log["ms"][i - 1] for i in range(a, b + 1)
-              if not log["captured"][i - 1]]
+              if not log["captured"][i - 1] and log["ms"][i - 1] is not None]
         spans[name] = statistics.median(ts) if ts else None
         print(f"{label}: replay step ms, steps {name}: "
               + (f"median {spans[name]:.2f} over {len(ts)} replays ("
                  + ", ".join(f"{t:.2f}" for t in ts) + ")" if ts else
                  "no replay")
-              + " (host clock around synchronize, no profiler)")
+              + " (host clock around synchronize; the profiled replays "
+              "aside)")
     prof = {}
     for i, (_, busy, krows) in sorted(profiles.items()):
         prof[i] = {"busy_ms": busy, "dw_gemm_ms": gemm_ms(krows)}
@@ -1734,6 +1892,7 @@ def control_pair(label, arch, cfg, params, dev, max_err, tmp) -> dict:
             "launches": dict(want["counts"])}
 
 
+@timed
 def control_serve_phase(cfg, argv, drive, logdir, *,
                         label="qwen3 serve --control-every 2", log="phase9b"):
     """Phase 9b (and 11b, with `--latency-table` in `argv`): the serve of
@@ -1807,6 +1966,7 @@ def control_serve_phase(cfg, argv, drive, logdir, *,
     return control_serve, want["counts"]
 
 
+@timed
 def basic_product_timing(dev, gen) -> dict:
     """The basic-mode product at mlp_in's shape ([8,5120]x[5120,51200]
     bf16): `basic_product` (one bf16 product with an f32 result) against
@@ -1832,13 +1992,15 @@ def basic_product_timing(dev, gen) -> dict:
 
 def control_loop_phase(cfg, rcfg, dev, max_err) -> dict:
     """Phase 9a on the configs of phases 4 (qwen3 `cfg`) and 6 (rwkv6
-    `rcfg`). Prints a JSON line of the runs; returns {run: launch
-    counts}."""
+    `rcfg`, cut to CONTROL_RWKV_LAYERS). Prints a JSON line of the runs;
+    returns {run: launch counts}."""
     from repro_torch.models import init_params
 
     out, launches = [], {}
     with tempfile.TemporaryDirectory() as tmp:
-        for arch, mcfg in (("qwen3-32b", cfg), ("rwkv6-7b", rcfg)):
+        for arch, mcfg in (("qwen3-32b", cfg), (
+                "rwkv6-7b", dataclasses.replace(rcfg,
+                                                n_layers=CONTROL_RWKV_LAYERS))):
             gc.collect()
             torch.cuda.empty_cache()
             label = f"{arch} {mcfg.n_layers} layers closed loop"
@@ -1951,6 +2113,7 @@ def chaos_run(dev, w, xs, *, inject: bool, graphs: bool,
         "inj": inj}
 
 
+@timed
 def chaos_phase(dev, max_err) -> tuple[dict, dict]:
     """Phase 10a: the chaos run eagerly with every kernel call held against
     its plain version, then through CUDA graphs; the graph run equal to the
@@ -2085,6 +2248,7 @@ def recorded_finite():
         CompiledStep.decode = orig
 
 
+@timed
 def guard_serve_phase(cfg, argv, drive, logdir) -> tuple[dict, dict]:
     """Phase 10b: `serve.run` on `cfg` with `--control-every 2
     --control-journal J --inject poison-nan` into the last layer's mlp_out,
@@ -2240,6 +2404,7 @@ def guard_serve_phase(cfg, argv, drive, logdir) -> tuple[dict, dict]:
     return out, launches
 
 
+@timed
 def interval_cost_phase(cfg, argv, drive, logdir) -> dict:
     """Phase 10c: the sentinel lanes' cost end to end. The graph serves of
     `argv` (phase 4's traffic, 24 new tokens: 23 decode steps) with
@@ -2294,6 +2459,7 @@ def interval_cost_phase(cfg, argv, drive, logdir) -> dict:
     return out
 
 
+@timed
 def guard_cost(label, arch, cfg, params, dev) -> dict:
     """What the guard adds to one Controller.step with a window on every
     site: its device→host copies (torch.profiler's Memcpy DtoH), with and
@@ -2371,7 +2537,10 @@ FLEET_INJECT = "poison-sim:at_step=24"
 FLEET_BOUNDARY = ["--requests", "4", "--max-new", "16"]
 # the kernels of a profile by the name of their instance (the three float
 # ΔW GEMMs are instances of one tile loop, `cluster_gemm<T, List>`)
-TRACE_NAMES = {"delta_quant": "delta_quant", "reuse_matmul_output": "MaskList",
+TRACE_NAMES = {"delta_quant": "delta_quant_kernel",
+               "delta_quant_account": "delta_quant_account_kernel",
+               "site_account": "site_account_kernel",
+               "reuse_matmul_output": "MaskList",
                "reuse_matmul_input": "InputList",
                "reuse_matmul_ragged": "RaggedList"}
 OBS_ITERS = 5  # the timed calls a path of `probe_latency_table`
@@ -2388,6 +2557,7 @@ def probe_device_ms(spans) -> dict:
     return {k: statistics.median(v) for k, v in by.items()}
 
 
+@timed
 def obs_serve_phase(cfg, argv, drive, dev, max_err, results, logdir):
     """Phase 11a: the graph serve of `argv` with `--obs-dir` (the table
     probed through CUDA graphs, its call recorded: caches, skip rates,
@@ -2538,6 +2708,7 @@ def obs_serve_phase(cfg, argv, drive, dev, max_err, results, logdir):
     return row, launches, d / "latency_table.json"
 
 
+@timed
 def profile_phase(cfg, argv, drive, logdir) -> dict:
     """Phase 11c: the graph serve with `--obs --profile-dir`: the Chrome
     trace must exist, hold one `serve_step` range per decode step, and
@@ -2586,19 +2757,21 @@ def profile_phase(cfg, argv, drive, logdir) -> dict:
             "port_kernels": ours}
 
 
+@timed
 def fleet_phase(cfg, logdir) -> tuple[dict, dict]:
     """Phase 11d: `replicas.run` with 2 replicas on repeat traffic, clean
     and with poison-sim armed on r1: no alert on the clean fleet, alerts
     naming r1 alone on the injected one; the fleet report has 2 replicas;
-    `python -m repro_torch.obs.top --fleet <out> --once` renders it. Then,
-    as a diagnostic with no gate, the clean fleet whose second wave of
-    requests starts at a control interval (`FLEET_BOUNDARY`): its alerts
-    are printed. Returns (the row of the JSON line, {run: launch
-    counts})."""
+    `python -m repro_torch.obs.top --fleet <out> --once` renders it (each
+    render a process of its own, started as its fleet ends and read after
+    the last fleet). Then, as a diagnostic with no gate, the clean fleet
+    whose second wave of requests starts at a control interval
+    (`FLEET_BOUNDARY`): its alerts are printed. Returns (the row of the
+    JSON line, {run: launch counts})."""
     from repro_torch.kernels import backend
     from repro_torch.launch import replicas
 
-    row, launches = {}, {}
+    row, launches, tops = {}, {}, {}
     for how, extra in (("clean", []), ("inject", ["--inject", FLEET_INJECT]),
                        ("boundary", FLEET_BOUNDARY)):
         label = f"fleet of 2 ({how})"
@@ -2654,21 +2827,24 @@ def fleet_phase(cfg, logdir) -> tuple[dict, dict]:
                   f"{s['evictions']} evictions, live pools "
                   f"{s['live_pool_bytes'] / 1e6:.1f} MB (captured "
                   f"{s['pool_bytes'] / 1e6:.1f} MB)")
-        top = subprocess.run(
+        tops[label] = (out, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.obs.top", "--fleet",
-             str(out), "--once"], capture_output=True, text=True,
+             str(out), "--once"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
             env=dict(os.environ, PYTHONPATH=str(pathlib.Path(
-                __file__).resolve().parent / "src")))
-        if top.returncode != 0 or "(2 replicas)" not in top.stdout:
-            fail(f"{label}: obs.top --fleet returned {top.returncode}: "
-                 f"{top.stderr[-500:]}")
-        print(f"{label}: python -m repro_torch.obs.top --fleet {out.name} "
-              "--once:")
-        print("\n".join(f"    {ln}" for ln in top.stdout.splitlines()))
+                __file__).resolve().parent / "src"))))
         row[how] = {"alerts": alerts, "seconds": res["seconds"],
                     "replicas": reps,
                     "fleet_mac_skip": rep["fleet"]["mac_skip_rate"]}
         del res
+    for label, (out, top) in tops.items():
+        stdout, stderr = top.communicate()
+        if top.returncode != 0 or "(2 replicas)" not in stdout:
+            fail(f"{label}: obs.top --fleet returned {top.returncode}: "
+                 f"{stderr[-500:]}")
+        print(f"{label}: python -m repro_torch.obs.top --fleet {out.name} "
+              "--once:")
+        print("\n".join(f"    {ln}" for ln in stdout.splitlines()))
     gc.collect()
     torch.cuda.empty_cache()
     return row, launches
@@ -2733,7 +2909,7 @@ def moe_serve_phase(serve_pair, graph_rows) -> dict:
         torch.cuda.empty_cache()
         counts, _ = serve_pair(cfg, argv, label, pairs=3)
         launches[f"{label} (eager, checked)"] = counts
-        for kn in ("delta_quant", "reuse_matmul_output"):
+        for kn in ("delta_quant_account", "reuse_matmul_output"):
             if counts[kn] <= 0:
                 fail(f"{kn} was not launched on the {label} path")
         eb = expert_bytes(cfg)
@@ -2748,6 +2924,7 @@ def moe_serve_phase(serve_pair, graph_rows) -> dict:
     return launches
 
 
+@timed
 def moe_runner_phase(params, cfg, dev, max_err) -> tuple[dict, dict]:
     """12a's runner: run_measured_decode at mixtral's operating point
     (correlation 0.9), batch 8, eager-checked then twice as graphs."""
@@ -2822,6 +2999,7 @@ def tie_readings(dec_e, pre_e, dec_h, pre_h, dec_l, pre_l, rerouted,
     return out
 
 
+@timed
 def window_phase(params, dev) -> dict:
     """12b: full-width mixtral (as 12a) made dropless (capacity_factor 4.0),
     batch 1, cache_len = window = 4096: a 4088-token prompt, then 16 decode
@@ -2987,6 +3165,7 @@ def window_phase(params, dev) -> dict:
     return res
 
 
+@timed
 def compact_phase(cfg, params, serve_pair, serve_argv, dev,
                   max_err) -> tuple[dict, dict]:
     """12d on qwen3-32b (phase 4's config): run_measured_decode at
@@ -3035,12 +3214,13 @@ def compact_phase(cfg, params, serve_pair, serve_argv, dev,
     counts, _ = serve_pair(cfg, serve_argv + ["--impl", "jnp"], label,
                            pairs=2)
     launches[f"{label} (eager, checked)"] = counts
-    if counts["delta_quant"] <= 0 or any(
+    if counts["delta_quant_account"] <= 0 or any(
             counts[kn] for kn in ("reuse_matmul_output", "reuse_matmul_input",
                                   "reuse_matmul_ragged")):
-        fail(f"{label}: the auto sites must run dense (delta_quant and no "
-             f"ΔW GEMM kernel): {counts}")
-    print(f"{label}: every auto site ran dense: delta_quant launched, no ΔW "
+        fail(f"{label}: the auto sites must run dense (delta_quant_account "
+             f"and no ΔW GEMM kernel): {counts}")
+    print(f"{label}: every auto site ran dense: delta_quant_account "
+          "launched, no ΔW "
           "GEMM kernel")
 
     # the exec-path refresh alone after each step: the mode refresh would
@@ -3066,6 +3246,7 @@ def compact_phase(cfg, params, serve_pair, serve_argv, dev,
     return out, launches
 
 
+@timed
 def expert_reuse_phase(params, dev) -> dict:
     """12e: per-(slot, expert) reuse at mixtral width, one layer (12a's
     layer 0), batch 8, on the reference test's stream (a drifting input, so
@@ -3276,7 +3457,7 @@ def archetype_serve_phase(serve_pair, graph_rows,
         if name == "qwen2-72b" and keep is not None:
             keep["row"] = graph_rows[-1]
         launches[f"{label} (eager, checked)"] = counts
-        need = ["delta_quant", "reuse_matmul_output"]
+        need = ["delta_quant_account", "reuse_matmul_output"]
         if name == "qwen2-vl-7b":  # mlp_out: 18944 > 4 x 3584
             need.append("reuse_matmul_input")
         for kn in need:
@@ -3287,6 +3468,7 @@ def archetype_serve_phase(serve_pair, graph_rows,
     return out, launches
 
 
+@timed
 def mamba_phase(dev) -> dict:
     """13a's Mamba check: zamba2 at full width, 2 superblocks, batch 2. A
     32-token prefill and 16 decode steps without reuse, through the graphs,
@@ -3340,6 +3522,7 @@ def mamba_phase(dev) -> dict:
     return res
 
 
+@timed
 def local_window_phase(dev) -> dict:
     """13b's window check: gemma3 at full width, one superblock, batch 1,
     cache 2048 (local caches of 1024 slots): a 1016-token prompt and 16
@@ -3434,6 +3617,7 @@ def widened_logits(params, cfg, h, *, vocab_chunk: int = 16384):
     return out
 
 
+@timed
 def head_phase(dev, pairs: int = 5) -> dict:
     """13d: qwen3-32b (8 layers), llama4-scout (2) and gemma3-12b (12) at
     phase 4's batch and cache: one decode step with reuse captured with the
@@ -3543,6 +3727,7 @@ def sharded_equal(label, got, want, shards) -> int:
     return len(want["tensors"])
 
 
+@timed
 def panel_timing(dev, sites, shards, layers) -> dict:
     """Each sharded site's ΔW GEMM at decode (M = 8, bf16, skip 0): its
     `shards` launches on the column panels of one weight, read in place
@@ -3653,7 +3838,7 @@ def sharded_phase(serve_pair, graph_rows, unsharded, dev,
         counts, _ = serve_pair(cfg, argv, label, pairs=3, probe=probe,
                                keep=keep)
         launches[f"{label} (eager, checked)"] = counts
-        need = ["delta_quant", "reuse_matmul_output"]
+        need = ["delta_quant_account", "reuse_matmul_output"]
         if arch == "qwen3-32b":
             need.append("reuse_matmul_input")
         for kn in need:
@@ -3701,6 +3886,7 @@ def sharded_phase(serve_pair, graph_rows, unsharded, dev,
     return out, launches
 
 
+@timed
 def sharded_control_phase(cfg, argv, drive, logdir, refs=None) -> dict:
     """14c: phase 4's serve at 16 new tokens with `--mesh host:4
     --control-every 2 --control-journal`: kind="shard" rows, at most one per (site, shard,
@@ -4058,6 +4244,7 @@ def check_ranks(label, recs) -> None:
                  "from rank 0's")
 
 
+@timed
 def placed_pair(root, label, arch, layers, argv, logdir, ref) -> tuple:
     """18a/b: the pair, eager (checked) then graphs; the ranks agree, the
     graph serve equals the eager one, and both equal the one-card sharded
@@ -4121,7 +4308,7 @@ def placed_pair(root, label, arch, layers, argv, logdir, ref) -> tuple:
           f"{slowest:.2f} ms")
     launches = summed_launches(er)
     for r in range(PLACED_RANKS):
-        for kn in ("delta_quant", "reuse_matmul_output"):
+        for kn in ("delta_quant_account", "reuse_matmul_output"):
             if er[r]["counts"][kn] <= 0:
                 fail(f"18 {label}: {kn} was not launched on rank {r}")
     max_err = {k: max(rec["max_err"][k] for rec in er) for k in KERNEL_META}
@@ -4162,6 +4349,7 @@ def placed_cell(root, cell, refs, logdir, out, launches) -> None:
         placed_pair(root, cell, arch, ref["layers"], argv, logdir, ref)
 
 
+@timed
 def placed_control(root, serve_argv, refs, logdir, launches) -> dict:
     """18c: the controlled serve as a pair, then its NaN in shard 2's lane
     (rank 2's) through the graphs, against 14c's one-card serves."""
@@ -4359,13 +4547,15 @@ def ckpt_costs(label, rcache, tmp) -> dict:
     return out
 
 
-def need_kernels(label, counts, names=("delta_quant", "reuse_matmul_output",
+def need_kernels(label, counts, names=("delta_quant_account",
+                                       "reuse_matmul_output",
                                        "reuse_matmul_input")) -> None:
     for kn in names:
         if counts[kn] <= 0:
             fail(f"{kn} was not launched on the {label} path")
 
 
+@timed
 def ckpt_phase(cfg, argv, drive, logdir) -> tuple[dict, dict]:
     """15a-d. Returns ({part: readings}, {run: launches})."""
     from repro_torch.ckpt.checkpoint import (
@@ -4554,6 +4744,7 @@ def ckpt_phase(cfg, argv, drive, logdir) -> tuple[dict, dict]:
     return out, launches
 
 
+@timed
 def kv_quant_phase(cfg, argv, serve_pair, graph_rows, dev) -> tuple[dict,
                                                                     dict]:
     """15e. Phase 4's serve with kv_cache_quant=True as a pair; on the graph
@@ -4617,9 +4808,11 @@ def kv_quant_phase(cfg, argv, serve_pair, graph_rows, dev) -> tuple[dict,
 
 # phase 16: training at full width (repro_torch.{train,optim,data},
 # launch/train under ResilientLoop), cut in depth in-process. (a) qwen3-32b
-# at 2 of 64 layers (4 until the run grew phase 18's four-card serves: the
-# resume pair writes and reads a checkpoint of ~6.8 GB a layer): 6 steps straight (the CLI's step function and batches,
-# no loop, as the reference's tests/test_system.py does), against
+# at 1 of 64 layers (4 until phase 18's four-card serves joined the run, 2
+# until its time limit had to hold them: the resume pair writes and reads a
+# checkpoint of ~4.9 GB a layer beside ~7.8 GB for the embedding and its
+# moments): 6 steps straight (the CLI's step function and batches, no
+# loop, as the reference's tests/test_system.py does), against
 # `launch.train.run` for 3 steps with a checkpoint after step 0, the state
 # dropped, and `--resume` from that checkpoint to step 6: parameters
 # bitwise; the f32_product gradient against the f32 product's. (b)
@@ -4629,7 +4822,7 @@ def kv_quant_phase(cfg, argv, serve_pair, graph_rows, dev) -> tuple[dict,
 # plain steps, then steps timed without the checks. (c) hubert-xlarge
 # uncut (48 layers) on SyntheticAudioSource: a finite, falling loss.
 # Every cell at batch 8, seq 128; the LM cells at correlation 0.9.
-TRAIN_LAYERS = {"qwen3-32b": 2, "rwkv6-7b": 8, "hubert-xlarge": 48}
+TRAIN_LAYERS = {"qwen3-32b": 1, "rwkv6-7b": 8, "hubert-xlarge": 48}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_CORR, TRAIN_SEED = 8, 128, 0.9, 0
 TRAIN_STEPS = 6          # every cell's run; the checkpointed run stops at 3
 TRAIN_KILL_AT = 3
@@ -4758,6 +4951,7 @@ def train_batches(cfg, dev):
                       for k, v in src.batch(i).items()}
 
 
+@timed
 def timed_steps(label, cfg, dev, *, steps=TRAIN_STEPS, check=None,
                 falling=True, lr=3e-4) -> dict:
     """`steps` train steps of `cfg` (the CLI's optimizer at `lr`, schedule
@@ -4808,6 +5002,7 @@ def timed_steps(label, cfg, dev, *, steps=TRAIN_STEPS, check=None,
             "state": state, "step": step, "batch": batch}
 
 
+@timed
 def f32_product_grad_check(params, dev) -> dict:
     """ops.f32_product's gradient (bf16 operands, f32 result: the chunked
     cross-entropy's product) against autograd of the f32 product of the
@@ -4845,6 +5040,7 @@ def f32_product_grad_check(params, dev) -> dict:
     return errs
 
 
+@timed
 def resume_pair(cfg, dev, straight) -> dict:
     """(a): `launch.train.run` for TRAIN_KILL_AT steps (its ResilientLoop
     checkpoints after step 0), the state dropped, then `--resume` to step
@@ -4897,6 +5093,7 @@ def resume_pair(cfg, dev, straight) -> dict:
         shutil.rmtree(ckdir, ignore_errors=True)
 
 
+@timed
 def wkv_layer_grad_check(cfg, dev) -> dict:
     """(b): the inputs of layer 0's WKV6Sequence in one training forward,
     then its gradients (r, k, v, w, u, s0) under a random cotangent against
@@ -4955,6 +5152,7 @@ def wkv_layer_grad_check(cfg, dev) -> dict:
     return errs
 
 
+@timed
 def wkvb_timing(dev, results, max_err) -> None:
     """wkv6_decode_backward at rwkv6-7b's [8, 64, 64] x 64 x 64 against its
     plain version: three input cases checked (w near 1 in the third), then
@@ -5034,7 +5232,7 @@ def train_phase(dev, results, max_err) -> tuple[dict, dict]:
     out, launches = {}, {}
     wkvb_timing(dev, results, max_err)
 
-    # (a) qwen3-32b, 2 layers: the straight run, then the resume pair
+    # (a) qwen3-32b, 1 layer: the straight run, then the resume pair
     cfg = train_cfg("qwen3-32b")
     run = timed_steps(f"qwen3-32b {cfg.n_layers} layers, straight run",
                       cfg, dev)
@@ -5398,8 +5596,9 @@ def main() -> None:
     # printed per instance: its loads by width and how many of them are
     # issued before the CTA's first barrier (one round trip per thread)
     for fn, body in sass_functions(backend.sass("delta_quant")).items():
-        vec, items = re.search(r"delta_quant_kernel.*Li(\d+)ELi(\d+)E",
-                               fn).groups()
+        vec, items = re.search(
+            r"delta_quant_(?:account_)?kernel.*?Li(\d+)ELi(\d+)E",
+            fn).groups()
         head = body.split("BAR.SYNC", 1)[0]
         ldg = re.findall(r"\bLDG\.E\.?(\d+|[US]\d+)?", body)
         stg = re.findall(r"\bSTG\.E\.?(\d+|[US]\d+)?", body)
@@ -5820,7 +6019,8 @@ def main() -> None:
                     "library_ms": t_l,
                 }
     del wq, enc, cur, prev, acc, state
-    results["site_account"] = site_account_phase(dev, floor)
+    results["site_account"], results["delta_quant_account"] = \
+        site_account_phase(dev, floor, {r["K"]: r["ms"] for r in dq_by_shape})
 
     # -------------------------------------------------------------- 4. serve
     phase("4. serve, default path (qwen3-32b full width, 8 layers)")
@@ -5863,7 +6063,8 @@ def main() -> None:
                     max_err[kn] = max(max_err[kn], chk.max_err[kn])
             print("serve path: every kernel call (each site, layer and decode "
                   "step) held against its plain version on the call's own "
-                  "inputs — delta_quant q/delta/mask bitwise, GEMMs within "
+                  "inputs — delta_quant(_account) q/delta/mask and every "
+                  "lane bitwise, GEMMs within "
                   f"atol {GEMM_ATOL} rtol {GEMM_RTOL}, wkv6 state bitwise and "
                   f"out within atol {WKV_ATOL} + rtol {WKV_RTOL}·Σ|terms|; max "
                   "err " + ", ".join(f"{kn} {chk.max_err[kn]:.3e}"
@@ -5879,6 +6080,7 @@ def main() -> None:
         print(f"launches: {counts}")
         return res, counts, text
 
+    drive = timed(drive)
     graph_rows = []
     serve_cells = {}   # serve label: (config, argv), priced in phase 17
 
@@ -5976,13 +6178,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         return counts_e, [h[1] for h in hooks]
 
+    serve_pair = timed(serve_pair)
     # phase 4's graph serve, which phase 14a's sharded serve must equal
     unsharded = {"qwen3-32b": {}, "qwen2-72b": {}}
     launches_default, _ = serve_pair(cfg, serve_argv, "qwen3 default",
                                      keep=unsharded["qwen3-32b"])
     unsharded["qwen3-32b"]["row"] = graph_rows[-1]
-    for kn in ("delta_quant", "reuse_matmul_output", "reuse_matmul_input",
-               "site_account"):
+    for kn in ("delta_quant_account", "reuse_matmul_output",
+               "reuse_matmul_input"):
         if launches_default[kn] <= 0:
             fail(f"{kn} was not launched on the serve path")
     no_fma_emulation(graph_rows[-1])
@@ -6039,8 +6242,12 @@ def main() -> None:
 
     # ------------------------------------------------- 5b. refresh, recapture
     phase("5b. serve with --refresh-every 2 (mode and exec flips recapture)")
-    _, logs = serve_pair(cfg, serve_argv + ["--refresh-every", "2"],
-                         "qwen3 refresh", hook=flip_hook)
+    launches_refresh, logs = serve_pair(
+        cfg, serve_argv + ["--refresh-every", "2"], "qwen3 refresh",
+        hook=flip_hook)
+    if launches_refresh["site_account"] <= 0:
+        fail("site_account was not launched on the refresh serve path (its "
+             "basic-mode calls)")
     seq = logs[1]["seq"]
     print(f"decode keys after each step (step, key index, variant exists): "
           f"{seq}")
@@ -6070,8 +6277,7 @@ def main() -> None:
     print(f"rwkv6 serves: {time.perf_counter() - t0:.1f} s (checked eager, "
           f"graph, timing and profiles); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    for kn in ("delta_quant", "reuse_matmul_output", "wkv6_decode",
-               "site_account"):
+    for kn in ("delta_quant_account", "reuse_matmul_output", "wkv6_decode"):
         if launches_rwkv[kn] <= 0:
             fail(f"{kn} was not launched on the rwkv6 serve path")
     no_fma_emulation(graph_rows[-1])
@@ -6245,7 +6451,7 @@ def main() -> None:
     print(json.dumps({"ckpt": ckpt}))
 
     # ------------------------------------------------------- 16. training
-    phase("16. training (qwen3-32b 2 layers with the resume pair, rwkv6-7b "
+    phase("16. training (qwen3-32b 1 layer with the resume pair, rwkv6-7b "
           "8 layers, hubert-xlarge uncut)")
     train, launches_train = train_phase(dev, results, max_err)
     for kn, run in (("wkv6_decode", "rwkv6"),
@@ -6286,12 +6492,16 @@ def main() -> None:
 
     kernels = []
     path_launches = {"reuse_matmul_ragged": launches_ragged,
+                     "site_account": launches_refresh,
                      "wkv6_decode": launches_rwkv,
                      "reuse_matmul_int8": launches_int8,
                      "wkv6_decode_backward": launches_train["rwkv6"]}
     for kn, (src, replaces) in KERNEL_META.items():
         r = results[kn]
         launches = path_launches.get(kn, launches_default)[kn]
+        if kn == "delta_quant":  # the serve runs its fused instance
+            r = dict(r, path="phase 3 and ops.delta_quant_fused; each serve "
+                     "launches the fused instance, delta_quant_account")
         kernels.append({"name": kn, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": max_err[kn], **r,

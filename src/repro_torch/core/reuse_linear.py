@@ -8,8 +8,11 @@ The cache entry is updated IN PLACE, so the stacked per-layer cache needs no
 copy back; the function returns the same entry for symmetry with the
 reference. prev_out takes the GEMM's output by a copy; every other lane
 (prev_q, sim_ema, steps, the ctrl occupancy and the sensor counters) is the
-call's bookkeeping, `ops.site_account`: one kernel on the card, bitwise the
-reference's compiled step. `ReuseStats` is computed only when read.
+call's bookkeeping, bitwise the reference's compiled step: in reuse mode
+fused into the delta/quant/mask pass before the GEMM
+(`ops.delta_quant_account`, one kernel on the card: the GEMM reads none of
+those lanes), in basic mode `ops.site_account` after the product (one
+kernel). `ReuseStats` is computed only when read.
 
 kernelMode: `mode=None` reads the layer's lane of the host mirror
 (`cache["mode_host"]`, kept equal to `ctrl["mode_id"]` by the engine's host
@@ -96,47 +99,41 @@ class ReuseStats:
                        1.0 / self._mask.numel(), one)
 
 
-def _account(cur_q, mask, cache, spec: ReuseSiteSpec, path: str,
-             w: torch.Tensor, impl: str, ema_decay: float, budget,
-             shard: ShardCtx | None) -> ReuseStats:
-    """The call's cache bookkeeping after its GEMM (`ops.site_account`, one
-    kernel on the card); `mask` None is basic mode, where `path` is unused."""
-    n = w.shape[-1]
-    matches = ops.site_account(
-        cur_q, mask, cache, path=path, dataflow=spec.dataflow,
-        block_m=spec.block_m, block_k=spec.block_k, n=n,
-        gn=-(-n // spec.block_n), w_itemsize=w.element_size(),
-        ema_decay=ema_decay,
-        budget=spec.max_active_k if budget is None else budget, shard=shard,
-        impl=kernel_impl(impl))
-    return ReuseStats(matches, mask, cur_q.shape[1])
-
-
 def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
                 ema_decay: float, shard: ShardCtx | None = None):
-    """ReuseOFF: the plain quantized GEMM, with the cache refreshed."""
+    """ReuseOFF: the plain quantized GEMM, with the cache refreshed (the
+    bookkeeping after the product, `ops.site_account`)."""
     cur_q = quantize_int8(xm, cache["scale"])
     xq = dequantize_int8(cur_q, cache["scale"], dtype=xm.dtype)
     out = ops.f32_product(xq, w)  # the basic-mode product
     cache["prev_out"].copy_(out)
-    stats = _account(cur_q, None, cache, spec, "kernel", w, impl,
-                     ema_decay, None, shard)
-    return out, stats
+    n = w.shape[-1]
+    matches = ops.site_account(
+        cur_q, None, cache, path="kernel", dataflow=spec.dataflow,
+        block_m=spec.block_m, block_k=spec.block_k, n=n,
+        gn=-(-n // spec.block_n), w_itemsize=w.element_size(),
+        ema_decay=ema_decay, budget=spec.max_active_k, shard=shard,
+        impl=kernel_impl(impl))
+    return out, ReuseStats(matches, None, xm.shape[1])
 
 
 def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
                 ema_decay: float, budget: torch.Tensor | None,
                 shard: ShardCtx | None = None):
-    """ReuseON: delta-encode against the previous evaluation and run the ΔW
-    GEMM on the spec's execution path."""
+    """ReuseON: delta-encode against the previous evaluation, with the
+    call's bookkeeping in the same pass, then run the ΔW GEMM on the spec's
+    execution path."""
     n_total = None if shard is None else shard.n_total
     sub = kernel_impl(impl)
-    cur_q, delta, mask = ops.delta_quant_fused(
-        xm, cache["prev_q"], cache["scale"],
-        block_m=spec.block_m, block_k=spec.block_k, delta_dtype=w.dtype,
-        impl=sub,
-    )
     path = resolve_exec_path(spec, impl)
+    n = w.shape[-1]
+    delta, mask, matches = ops.delta_quant_account(
+        xm, cache, block_m=spec.block_m, block_k=spec.block_k,
+        delta_dtype=w.dtype, path=path, dataflow=spec.dataflow, n=n,
+        gn=-(-n // spec.block_n), w_itemsize=w.element_size(),
+        ema_decay=ema_decay,
+        budget=spec.max_active_k if budget is None else budget, shard=shard,
+        impl=sub)
     if path == "dense":
         out = ops.reuse_matmul_ref(delta, w, cache["prev_out"], mask,
                                    spec.block_m, spec.block_k)
@@ -158,9 +155,7 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
     else:
         raise ValueError(f"unknown exec_path {path!r} of site {spec.name!r}")
     cache["prev_out"].copy_(out)
-    stats = _account(cur_q, mask, cache, spec, path, w, impl, ema_decay,
-                     budget, shard)
-    return out, stats
+    return out, ReuseStats(matches, mask, xm.shape[1])
 
 
 def reuse_linear(

@@ -36,10 +36,31 @@
 // rounding is half to even (`rintf`), the delta product is `__fmul_rn` (no
 // contraction), and the bf16 cast rounds to nearest even. Build without
 // --use_fast_math.
+//
+// The fused instance (`rt_delta_quant_account`, `delta_quant_account_kernel`)
+// is a reuse site call's whole pass before its ΔW GEMM: the same tile work
+// on the call's own operands, plus the call's bookkeeping, which needs the
+// codes this pass already holds in registers (csrc/site_account.cu would
+// read them back). It reads x and the cache entry's prev_q
+// unpadded (a row or column past M or K reads as 0 on both sides, as the
+// padding entry's zeros do, so the mask bits are the same), writes the codes
+// back into prev_q (each element read, then written, by the same thread: no
+// __restrict__ and no __ldg on prev_q there) and delta into a buffer padded
+// to whole tiles, counts each real row's unchanged codes per tile into a
+// scratch `partial[M, gk]` (a warp-level sum, one shared add a row and
+// warp), and the launch's last CTA runs the epilogue of
+// csrc/site_account.cuh (sim_ema, steps, the occupancy and every sensor
+// lane). One launch where there were two, and no q tensor: its bound is
+// this kernel's bytes less the q write.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <type_traits>
+
+#include "site_account.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -75,17 +96,20 @@ __device__ __forceinline__ void load_x(const float* p, float (&v)[VEC]) {
   }
 }
 
-template <int VEC>
+// NC: through the read-only path (__ldg); else a plain load, for codes the
+// kernel writes back in place
+template <int VEC, bool NC>
 __device__ __forceinline__ void load_q(const int8_t* p, int (&v)[VEC]) {
   if constexpr (VEC == 8) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const uint2 u = NC ? __ldg(reinterpret_cast<const uint2*>(p))
+                       : *reinterpret_cast<const uint2*>(p);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       v[i] = (int)(int8_t)(u.x >> (8 * i));
       v[4 + i] = (int)(int8_t)(u.y >> (8 * i));
     }
   } else {
-    v[0] = (int)__ldg(p);
+    v[0] = NC ? (int)__ldg(p) : (int)*p;
   }
 }
 
@@ -134,6 +158,29 @@ __device__ __forceinline__ void store_d(float* p, const float (&v)[VEC]) {
   }
 }
 
+constexpr int kMaxRows = 256;  // rows of a CTA the fused instance counts
+
+// Adds each thread's `v` into s_count[row] for the threads whose row is
+// real (`row` >= 0). A row's threads are the blockDim.x consecutive threads
+// of one threadIdx.y: with blockDim.x a power of two they are an aligned
+// run of lanes (or whole warps), summed by shuffles and added once a run;
+// else every thread adds its own.
+__device__ __forceinline__ void count_row(int v, int row, int* s_count) {
+  const int tx = blockDim.x;
+  if ((tx & (tx - 1)) == 0) {
+    const int tid = threadIdx.x + tx * threadIdx.y;
+    const int in_warp = tx * blockDim.y - (tid & ~31);
+    const unsigned wmask = in_warp >= 32 ? 0xffffffffu : (1u << in_warp) - 1u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      if (o < tx) v += __shfl_xor_sync(wmask, v, o);
+    if (row >= 0 && (threadIdx.x & (min(tx, 32) - 1)) == 0)
+      atomicAdd(&s_count[row], v);
+  } else if (row >= 0 && v != 0) {
+    atomicAdd(&s_count[row], v);
+  }
+}
+
 // One CTA per (block_m × block_k) tile, or per row slice of it: a tile of
 // more rows than one pass of the CTA covers is cut across a cluster of
 // 2^shift CTAs along y (at most 8), each owning block_m >> shift rows, so a
@@ -142,24 +189,41 @@ __device__ __forceinline__ void store_d(float* p, const float (&v)[VEC]) {
 // rows in chunks of (tx vectors) × (ITEMS · ty rows), from bases that
 // advance by addition (no integer division); at the serve's tiles there is
 // one chunk and no cluster.
-template <typename TX, typename TD, int VEC, int ITEMS>
-__global__ void __launch_bounds__(kThreads)
-delta_quant_kernel(const TX* __restrict__ x, const int8_t* __restrict__ prev_q,
-                   const float* __restrict__ scale, int8_t* __restrict__ q,
-                   TD* __restrict__ delta, int* __restrict__ mask, int K,
-                   int block_m, int block_k, int shift) {
+//
+// ACCOUNT (the fused instance): x and prev_q are [M, K] with row stride K,
+// positions past M or K read as 0; the codes go back into prev_q (q is
+// unused), delta has row stride ldd (whole tiles), and each real row's
+// unchanged codes in real columns go to partial[row, tile]. Otherwise all
+// operands are whole tiles of row stride K, as the padding entry makes them.
+template <typename TX, typename TD, int VEC, int ITEMS, bool ACCOUNT>
+__device__ __forceinline__ void dq_tile(
+    const TX* __restrict__ x,
+    std::conditional_t<ACCOUNT, int8_t*, const int8_t*> prev_q,
+    const float* __restrict__ scale, int8_t* __restrict__ q,
+    TD* __restrict__ delta, int* mask, int K, int block_m, int block_k,
+    int shift, int M, int ldd, int* partial) {
   __shared__ float s_scale;
   __shared__ int s_changed;
+  __shared__ int s_count[ACCOUNT ? kMaxRows : 1];
   const int vpr = block_k / VEC;               // vectors in a tile row
   const int chunk = ITEMS * blockDim.y;        // rows in a chunk
   const int rows = block_m >> shift;           // rows of this CTA
   const int rank = blockIdx.y & ((1 << shift) - 1);
   const int tm = blockIdx.y >> shift;          // tile row
-  const size_t base = ((size_t)tm * block_m + (size_t)rank * rows) * K +
-                      (size_t)blockIdx.x * block_k;
+  const int row0 = tm * block_m + rank * rows;  // this CTA's first row
+  const int col0 = blockIdx.x * block_k;
+  const size_t base = (size_t)row0 * K + (size_t)col0;
+  const size_t dbase = ACCOUNT ? (size_t)row0 * ldd + col0 : base;
+  const int ldo = ACCOUNT ? ldd : K;           // delta's row stride
+  const int tid = threadIdx.x + blockDim.x * threadIdx.y;
 
   float xv[ITEMS][VEC];
   int pv[ITEMS][VEC];
+  // whether (row r of this CTA, vector column cv) holds real elements:
+  // always, past the fused instance's edges never
+  auto real = [&](int r, int cv) {
+    return !ACCOUNT || (row0 + r < M && col0 + cv * VEC < K);
+  };
   // the chunk at (column base cb, row base rb): this thread's vector column
   // cb + threadIdx.x and rows rb + threadIdx.y + i·blockDim.y, i < ITEMS
   auto load = [&](int cb, int rb) {
@@ -169,14 +233,24 @@ delta_quant_kernel(const TX* __restrict__ x, const int8_t* __restrict__ prev_q,
       const int r = rb + threadIdx.y + i * blockDim.y;
       if (cv < vpr && r < rows) {
         const size_t off = base + (size_t)r * K + (size_t)cv * VEC;
-        load_x<VEC>(x + off, xv[i]);
-        load_q<VEC>(prev_q + off, pv[i]);
+        if (real(r, cv)) {
+          load_x<VEC>(x + off, xv[i]);
+          load_q<VEC, !ACCOUNT>(prev_q + off, pv[i]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            xv[i][e] = 0.f;
+            pv[i][e] = 0;
+          }
+        }
       }
     }
   };
 
   // the first chunk's loads are in flight while thread 0 fetches the scale
   const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
+  if constexpr (ACCOUNT)
+    for (int t = tid; t < rows; t += blockDim.x * blockDim.y) s_count[t] = 0;
   load(0, 0);
   if (lead) s_scale = __ldg(scale);
   __syncthreads();
@@ -190,6 +264,7 @@ delta_quant_kernel(const TX* __restrict__ x, const int8_t* __restrict__ prev_q,
 #pragma unroll
       for (int i = 0; i < ITEMS; ++i) {
         const int r = rb + threadIdx.y + i * blockDim.y;
+        int same = 0;  // unchanged codes of this item
         if (cv < vpr && r < rows) {
           int qi[VEC];
           float dv[VEC];
@@ -201,15 +276,28 @@ delta_quant_kernel(const TX* __restrict__ x, const int8_t* __restrict__ prev_q,
             const int dq = qi[e] - pv[i][e];
             dv[e] = __fmul_rn((float)dq, s);
             changed |= (dq != 0);
+            same += dq == 0;
           }
           const size_t off = base + (size_t)r * K + (size_t)cv * VEC;
-          store_q<VEC>(q + off, qi);
-          store_d<VEC>(delta + off, dv);
+          const size_t doff = dbase + (size_t)r * ldo + (size_t)cv * VEC;
+          if constexpr (ACCOUNT) {
+            if (real(r, cv)) store_q<VEC>(prev_q + off, qi);
+            else same = 0;
+          } else {
+            store_q<VEC>(q + off, qi);
+          }
+          store_d<VEC>(delta + doff, dv);
         }
+        if constexpr (ACCOUNT)
+          count_row(same, r < rows && row0 + r < M ? r : -1, s_count);
       }
     }
   }
   changed = __syncthreads_or(changed);
+  if constexpr (ACCOUNT) {
+    for (int t = tid; t < rows && row0 + t < M; t += blockDim.x * blockDim.y)
+      partial[(size_t)(row0 + t) * gridDim.x + blockIdx.x] = s_count[t];
+  }
   int* word = mask + (size_t)tm * gridDim.x + blockIdx.x;
   if (shift == 0) {
     if (lead) *word = changed ? 1 : 0;
@@ -228,11 +316,52 @@ delta_quant_kernel(const TX* __restrict__ x, const int8_t* __restrict__ prev_q,
   cl.sync();  // no CTA leaves while rank 0 still reads its bit
 }
 
+template <typename TX, typename TD, int VEC, int ITEMS>
+__global__ void __launch_bounds__(kThreads)
+delta_quant_kernel(const TX* __restrict__ x, const int8_t* prev_q,
+                   const float* __restrict__ scale, int8_t* __restrict__ q,
+                   TD* __restrict__ delta, int* __restrict__ mask, int K,
+                   int block_m, int block_k, int shift) {
+  dq_tile<TX, TD, VEC, ITEMS, false>(x, prev_q, scale, q, delta, mask, K,
+                                     block_m, block_k, shift, 0, K, nullptr);
+}
+
+// The fused instance: the tile work, then the call's bookkeeping on the
+// last CTA (after the cluster's OR: each CTA draws its ticket past its
+// last cl.sync, so the mask word is written by then).
+template <typename TX, typename TD, int VEC, int ITEMS>
+__global__ void __launch_bounds__(kThreads)
+delta_quant_account_kernel(const TX* __restrict__ x,
+                           const float* __restrict__ scale,
+                           TD* __restrict__ delta, int M, int K, int ldd,
+                           int block_m, int block_k, int shift, Lanes L,
+                           Ints g, Floats f) {
+  dq_tile<TX, TD, VEC, ITEMS, true>(x, L.prev_q, scale, nullptr, delta,
+                                    const_cast<int*>(L.mask), K, block_m,
+                                    block_k, shift, M, ldd, L.partial);
+  if (last_cta()) epilogue(L, g, f);
+}
+
+// the fused instance's arguments beyond the tile's (null: the TPU kernel's
+// port, rt_delta_quant)
+struct Account {
+  int M, ldd;
+  Lanes L;
+  Ints g;
+  Floats f;
+};
+
 template <int ITEMS, typename TX, typename TD, int VEC>
 cudaError_t launch_items(const cudaLaunchConfig_t& cfg, const void* x,
                          const void* prev_q, const void* scale, void* q,
                          void* delta, void* mask, int K, int block_m,
-                         int block_k, int shift) {
+                         int block_k, int shift, const Account* acc) {
+  if (acc != nullptr)
+    return cudaLaunchKernelEx(
+        &cfg, delta_quant_account_kernel<TX, TD, VEC, ITEMS>,
+        static_cast<const TX*>(x), static_cast<const float*>(scale),
+        static_cast<TD*>(delta), acc->M, K, acc->ldd, block_m, block_k, shift,
+        acc->L, acc->g, acc->f);
   return cudaLaunchKernelEx(
       &cfg, delta_quant_kernel<TX, TD, VEC, ITEMS>, static_cast<const TX*>(x),
       static_cast<const int8_t*>(prev_q), static_cast<const float*>(scale),
@@ -241,11 +370,13 @@ cudaError_t launch_items(const cudaLaunchConfig_t& cfg, const void* x,
 }
 
 // The CTA shape, the cluster's row slices and the rows in flight per thread,
-// from the tile shape.
+// from the tile shape; the grid covers ceil(M / block_m) × ceil(K / block_k)
+// tiles (whole tiles but in the fused instance).
 template <typename TX, typename TD, int VEC>
 cudaError_t launch_vec(const void* x, const void* prev_q, const void* scale,
                        void* q, void* delta, void* mask, int M, int K,
-                       int block_m, int block_k, cudaStream_t stream) {
+                       int block_m, int block_k, const Account* acc,
+                       cudaStream_t stream) {
   const int vpr = block_k / VEC;
   const int tx = vpr < kThreads ? vpr : kThreads;
   const int ty = kThreads / tx < block_m ? kThreads / tx : block_m;
@@ -254,9 +385,12 @@ cudaError_t launch_vec(const void* x, const void* prev_q, const void* scale,
          block_m % (2 << shift) == 0)
     ++shift;
   const int per_thread = ((block_m >> shift) + ty - 1) / ty;
+  if (acc != nullptr && (block_m >> shift) > kMaxRows)
+    return cudaErrorInvalidValue;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(K / block_k, (M / block_m) << shift, 1);
+  cfg.gridDim = dim3((K + block_k - 1) / block_k,
+                     ((M + block_m - 1) / block_m) << shift, 1);
   cfg.blockDim = dim3(tx, ty, 1);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -271,21 +405,39 @@ cudaError_t launch_vec(const void* x, const void* prev_q, const void* scale,
   const cudaError_t e =
       per_thread == 1
           ? launch_items<1, TX, TD, VEC>(cfg, x, prev_q, scale, q, delta, mask,
-                                         K, block_m, block_k, shift)
+                                         K, block_m, block_k, shift, acc)
           : launch_items<2, TX, TD, VEC>(cfg, x, prev_q, scale, q, delta, mask,
-                                         K, block_m, block_k, shift);
+                                         K, block_m, block_k, shift, acc);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <typename TX, typename TD>
 cudaError_t launch(const void* x, const void* prev_q, const void* scale,
                    void* q, void* delta, void* mask, int M, int K, int block_m,
-                   int block_k, int vec, cudaStream_t stream) {
+                   int block_k, int vec, const Account* acc,
+                   cudaStream_t stream) {
   if (vec)
     return launch_vec<TX, TD, 8>(x, prev_q, scale, q, delta, mask, M, K,
-                                 block_m, block_k, stream);
+                                 block_m, block_k, acc, stream);
   return launch_vec<TX, TD, 1>(x, prev_q, scale, q, delta, mask, M, K,
-                               block_m, block_k, stream);
+                               block_m, block_k, acc, stream);
+}
+
+cudaError_t dispatch(const void* x, int x_dtype, const void* prev_q,
+                     const void* scale, void* q, void* delta, int delta_dtype,
+                     void* mask, int M, int K, int block_m, int block_k,
+                     int vec, const Account* acc, cudaStream_t s) {
+  if (x_dtype == 1 && delta_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        x, prev_q, scale, q, delta, mask, M, K, block_m, block_k, vec, acc, s);
+  if (x_dtype == 1)
+    return launch<__nv_bfloat16, float>(x, prev_q, scale, q, delta, mask, M, K,
+                                        block_m, block_k, vec, acc, s);
+  if (delta_dtype == 1)
+    return launch<float, __nv_bfloat16>(x, prev_q, scale, q, delta, mask, M, K,
+                                        block_m, block_k, vec, acc, s);
+  return launch<float, float>(x, prev_q, scale, q, delta, mask, M, K, block_m,
+                              block_k, vec, acc, s);
 }
 
 }  // namespace
@@ -298,16 +450,33 @@ extern "C" int rt_delta_quant(const void* x, int x_dtype, const void* prev_q,
                               int delta_dtype, void* mask, int M, int K,
                               int block_m, int block_k, int vec,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && delta_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        x, prev_q, scale, q, delta, mask, M, K, block_m, block_k, vec, s);
-  if (x_dtype == 1)
-    return launch<__nv_bfloat16, float>(x, prev_q, scale, q, delta, mask, M, K,
-                                        block_m, block_k, vec, s);
-  if (delta_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, prev_q, scale, q, delta, mask, M, K,
-                                        block_m, block_k, vec, s);
-  return launch<float, float>(x, prev_q, scale, q, delta, mask, M, K, block_m,
-                              block_k, vec, s);
+  return dispatch(x, x_dtype, prev_q, scale, q, delta, delta_dtype, mask, M,
+                  K, block_m, block_k, vec, nullptr,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The fused instance. x [M, K] and the lanes' prev_q [M, K] unpadded; delta
+// [ceil(M/bm)·bm, ceil(K/bk)·bk]; ptrs, ints, floats as rt_site_account's
+// (kernels/site_account's lanes, INTS and FLOATS: prev_q, partial [M, gk],
+// matches and the mask [gm, gk] among the lanes). vec = 1: x, prev_q and
+// delta 16-byte aligned, K and block_k multiples of 8.
+extern "C" int rt_delta_quant_account(const void* x, int x_dtype,
+                                      const void* scale, void* delta,
+                                      int delta_dtype, int M, int K,
+                                      int block_m, int block_k, int vec,
+                                      void* const* ptrs, int n_ptrs,
+                                      const int* ints, int n_ints,
+                                      const float* floats, int n_floats,
+                                      void* stream) {
+  if (n_ptrs != kNumLanes || n_ints != kNumInts || n_floats != kNumFloats)
+    return cudaErrorInvalidValue;
+  Account acc;
+  std::memcpy(&acc.L, ptrs, sizeof acc.L);
+  std::memcpy(&acc.g, ints, sizeof acc.g);
+  std::memcpy(&acc.f, floats, sizeof acc.f);
+  acc.M = M;
+  acc.ldd = (K + block_k - 1) / block_k * block_k;
+  return dispatch(x, x_dtype, acc.L.prev_q, scale, nullptr, delta,
+                  delta_dtype, const_cast<int*>(acc.L.mask), M, K, block_m,
+                  block_k, vec, &acc, static_cast<cudaStream_t>(stream));
 }

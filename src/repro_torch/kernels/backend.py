@@ -47,7 +47,7 @@ SOURCES = ("delta_quant", "reuse_matmul", "reuse_matmul_ragged",
            "site_account")
 KERNELS = ("delta_quant", "reuse_matmul_output", "reuse_matmul_input",
            "reuse_matmul_ragged", "reuse_matmul_int8", "wkv6_decode",
-           "wkv6_decode_backward", "site_account")
+           "wkv6_decode_backward", "site_account", "delta_quant_account")
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +61,11 @@ SIGNATURES = {
         # vec, stream
         "rt_delta_quant": (_P, _I, _P, _P, _P, _P, _I, _P,
                            _I, _I, _I, _I, _I, _P),
+        # x, x_dtype, scale, delta, delta_dtype, M, K, bm, bk, vec, then
+        # rt_site_account's ptrs, n_ptrs, ints, n_ints, floats, n_floats,
+        # stream
+        "rt_delta_quant_account": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _P, _I, _P, _I, _P, _I, _P),
     },
     "reuse_matmul": {
         # delta, w, dtype, prev_out, mask, out, M, K, Kw, N, ldw, bm, bk,

@@ -15,7 +15,8 @@ the paper's negative result), also in torch ops.
 Beside them: the int8 split GEMM (`reuse_matmul_int8`, exact int32, fed by
 `core.delta.delta_encode_int8`), the RWKV6 recurrence step (`wkv6_decode`,
 which updates its state in place) and a site call's cache bookkeeping after
-its GEMM (`site_account`, in place on the cache entry).
+its GEMM (`site_account`, in place on the cache entry; a reuse-mode call
+takes it fused into its delta/quant/mask pass, `delta_quant_account`).
 
 `impl` picks the substrate: "cuda" calls the kernel wrappers, which launch
 the Hopper kernels on CUDA tensors (and take the plain versions on CPU
@@ -58,6 +59,7 @@ __all__ = [
     "budget_overflow",
     "clamp_budget",
     "compact_rows",
+    "delta_quant_account",
     "delta_quant_fused",
     "delta_quant_ref",
     "f32_product",
@@ -363,3 +365,34 @@ def site_account(
               block_m=block_m, block_k=block_k, n=n, gn=gn,
               w_itemsize=w_itemsize, ema_decay=ema_decay, budget=budget,
               shard=shard)
+
+
+def delta_quant_account(
+    x: torch.Tensor,        # [M, K] f32 / bf16, unpadded
+    cache: dict,            # the site's entry (or shard lane)
+    *,
+    block_m: int,
+    block_k: int,
+    delta_dtype: torch.dtype,
+    path: str,
+    dataflow: str,
+    n: int,
+    gn: int,
+    w_itemsize: int,
+    ema_decay: float,
+    budget: int | torch.Tensor | None,
+    shard=None,
+    impl: str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A reuse-mode site call's delta/quant/mask pass with its bookkeeping:
+    `delta_quant_fused` against the entry's prev_q, then `site_account` on
+    the codes, as one kernel on the card. Writes prev_q and every lane in
+    place, in the entry's own tensors; returns (delta [M, K], mask
+    [gm, gk] int32, matches [M] f32)."""
+    _check_impl(impl)
+    fn = (_sa.delta_quant_account if impl == "cuda"
+          else _sa.delta_quant_account_torch)
+    return fn(x, cache, block_m=block_m, block_k=block_k,
+              delta_dtype=delta_dtype, path=path, dataflow=dataflow, n=n,
+              gn=gn, w_itemsize=w_itemsize, ema_decay=ema_decay,
+              budget=budget, shard=shard)

@@ -1,4 +1,4 @@
-"""A reuse site call's cache bookkeeping after its ΔW GEMM, as one kernel.
+"""A reuse site call's cache bookkeeping, as one launch.
 
     matches[m] = #{k : cur_q[m, k] == prev_q[m, k]}      then prev_q ← cur_q
     sim_ema[m] = fma(sim_ema[m], f32(decay), matches[m] · c),
@@ -11,15 +11,22 @@
 The reference computes these lanes in the jitted step that runs its kernels
 (`src/repro/core/reuse_linear.py:222-264`, `src/repro/sensor/counters.py:
 151-281`), where XLA fuses them; eagerly they are about a hundred small
-kernels a site call. `site_account` launches `csrc/site_account.cu` on CUDA
-tensors: a row pass (the match counts and the `prev_q` write) and a one-CTA
-epilogue (every other lane). It takes `site_account_torch`, today's code
-gathered into one function, on CPU tensors. Every lane is updated in place,
-in the cache entry's own tensors (a CUDA graph reads them), and is bitwise
-the twin's: the kernel rounds once where the twin's `fma_f32` does and twice
-where the twin multiplies and then adds. NaN lanes stay NaN in the same
-positions; their payloads may differ (the card's FMA returns the canonical
-NaN).
+kernels a site call. Two entries, each one kernel on CUDA tensors:
+
+- `delta_quant_account` (reuse mode): quantize → delta → tile mask and the
+  bookkeeping in one pass over the call's own x and prev_q, the fused
+  instance of `csrc/delta_quant.cu` (the codes land in prev_q; the last CTA
+  writes every other lane). Its plain version is `delta_quant_torch` on
+  zero-padded operands followed by `site_account_torch`.
+- `site_account` (basic mode, or any caller that holds the codes):
+  `csrc/site_account.cu`, a row pass whose last CTA writes the lanes.
+
+Both take their plain versions on CPU tensors. Every lane is updated in
+place, in the cache entry's own tensors (a CUDA graph reads them), and is
+bitwise the plain version's: the kernels round once where `fma_f32` does
+and twice where the plain version multiplies and then adds
+(`csrc/site_account.cuh`). NaN lanes stay NaN in the same positions; their
+payloads may differ (the card's FMA returns the canonical NaN).
 
 The accounting functions (`clamp_budget`, `ragged_dma_tiles`,
 `ragged_grid_steps`, `budget_overflow`; `weight_dma_tiles` lives with the
@@ -37,9 +44,11 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.similarity import ema_update_mean, row_code_matches
 from repro_torch.kernels import backend
+from repro_torch.kernels.delta_quant import delta_quant_torch
 from repro_torch.kernels.reuse_matmul import weight_dma_tiles
 from repro_torch.sensor.counters import (
     ShardCtx,
@@ -49,7 +58,7 @@ from repro_torch.sensor.counters import (
     update_on_reuse,
 )
 
-# csrc/site_account.cu kChunk: the bytes of a row that one CTA of the row
+# csrc/site_account.cu kChunk: the bytes of a row that one CTA of its row
 # pass compares
 CHUNK = 4096
 PATHS = ("kernel", "dense", "ragged", "compact")  # the kernel's path codes
@@ -287,9 +296,10 @@ def written_lanes(cache: dict) -> dict[str, torch.Tensor]:
 
 def copy_lanes(cache: dict) -> dict:
     """A cache entry holding copies of the lanes the bookkeeping reads and
-    writes, for running the plain version beside the kernel."""
+    writes (and the scale the fused pass reads), for running the plain
+    version beside the kernel."""
     out = {name: cache[name].clone() for name in ("prev_q", "sim_ema",
-                                                  "steps")}
+                                                  "steps", "scale")}
     if "ctrl" in cache:
         out["ctrl"] = {"occupancy": cache["ctrl"]["occupancy"].clone()}
     if "sensor" in cache:
@@ -300,29 +310,30 @@ def copy_lanes(cache: dict) -> dict:
 def differing_lanes(got: dict, want: dict) -> list[str]:
     """Names of the lanes of `got` that differ from `want`'s (two
     `written_lanes`): bitwise, NaN positions included, NaN payloads not
-    compared (the card's FMA returns the canonical NaN)."""
-    bad = []
+    compared (the card's FMA returns the canonical NaN). The comparisons
+    stay on the device and come back in one transfer."""
+    bad = [name for name, b in want.items()
+           if got[name].dtype != b.dtype or got[name].shape != b.shape]
+    same = {}
     for name, b in want.items():
+        if name in bad:
+            continue
         a = got[name]
-        if a.dtype != b.dtype or a.shape != b.shape:
-            bad.append(name)
-        elif a.is_floating_point():
+        if a.is_floating_point():
             nan = torch.isnan(b)
-            if not (torch.equal(torch.isnan(a), nan) and torch.equal(
-                    a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])):
-                bad.append(name)
-        elif not torch.equal(a, b):
-            bad.append(name)
+            bits = a.view(torch.int32) == b.view(torch.int32)
+            same[name] = (torch.isnan(a) == nan).all() & (bits | nan).all()
+        else:
+            same[name] = (a == b).all()
+    if same:
+        flags = torch.stack(list(same.values())).tolist()
+        bad += [name for name, ok in zip(same, flags) if not ok]
     return bad
 
 
-def _check(cur_q, block_mask, cache, budget) -> None:
-    """The kernel's contract: int8 codes with unit column stride, the cache's
-    lanes contiguous, of the reference's dtypes and shapes, on one device."""
-    m, k = cur_q.shape
-    if cur_q.dtype != torch.int8 or cur_q.stride(1) != 1:
-        raise ValueError("site_account: cur_q must be int8 with unit column "
-                         f"stride, got {cur_q.dtype} strides {cur_q.stride()}")
+def _check_lanes(m, k, device, block_mask, cache, budget, what) -> None:
+    """The kernels' contract on the cache entry: its lanes contiguous, of
+    the reference's dtypes and shapes, on `device`."""
     specs = _lane_specs(m, k)
     lanes = dict(written_lanes(cache))
     if block_mask is not None:
@@ -334,13 +345,41 @@ def _check(cur_q, block_mask, cache, budget) -> None:
     for name, t in lanes.items():
         dtype, shape = specs[name]
         if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"site_account: {name} {t.dtype} "
+            raise ValueError(f"{what}: {name} {t.dtype} "
                              f"{tuple(t.shape)} != {dtype} {shape}")
-        if t.device != cur_q.device:
-            raise ValueError(f"site_account: {name} on {t.device}, cur_q on "
-                             f"{cur_q.device}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} on {t.device}, not {device}")
         if not t.is_contiguous():
-            raise ValueError(f"site_account: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _launch_args(cache, *, cur_q, partial, matches, block_mask, budget,
+                 ints, floats):
+    """The C entries' lane pointers and by-value arrays (ctypes), in the
+    order of `csrc/site_account.cuh`'s Lanes, Ints and Floats."""
+    sensor = cache.get("sensor", {})
+    ptrs = [cur_q, cache["prev_q"], partial, matches, block_mask,
+            budget if isinstance(budget, torch.Tensor) else None,
+            cache["sim_ema"], cache["steps"],
+            cache["ctrl"]["occupancy"] if "ctrl" in cache else None,
+            *(sensor.get(name) for name in SENSOR_LANES)]
+    ptrs = [0 if t is None else t.data_ptr() for t in ptrs]
+    ints.update(has_ctrl=int("ctrl" in cache),
+                has_sensor=int("sensor" in cache))
+    return ((ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+            (ctypes.c_int * len(INTS))(*(ints[n] for n in INTS)), len(INTS),
+            (ctypes.c_float * len(FLOATS))(*(floats[n] for n in FLOATS)),
+            len(FLOATS))
+
+
+def _plan_for(m, k, gm, gk, basic, kw):
+    return plan(m=m, k=k, gm=gm, gk=gk, basic=basic, path=kw["path"],
+                dataflow=kw["dataflow"], block_m=kw["block_m"],
+                block_k=kw["block_k"], n=kw["n"], gn=kw["gn"],
+                w_itemsize=kw["w_itemsize"], ema_decay=kw["ema_decay"],
+                budget=(None if isinstance(kw["budget"], torch.Tensor)
+                        else kw["budget"]),
+                shard=kw["shard"])
 
 
 def site_account(
@@ -369,40 +408,119 @@ def site_account(
         return site_account_torch(cur_q, block_mask, cache, **kw)
     if cur_q.device.type != "cuda":
         raise ValueError(f"site_account: unsupported device {cur_q.device}")
-    _check(cur_q, block_mask, cache, budget)
     m, k = cur_q.shape
+    if cur_q.dtype != torch.int8 or cur_q.stride(1) != 1:
+        raise ValueError("site_account: cur_q must be int8 with unit column "
+                         f"stride, got {cur_q.dtype} strides {cur_q.stride()}")
+    _check_lanes(m, k, cur_q.device, block_mask, cache, budget,
+                 "site_account")
     if block_mask is None:
         gm, gk = -(-m // block_m), -(-k // block_k)
     else:
         gm, gk = block_mask.shape
-    ints, floats = plan(
-        m=m, k=k, gm=gm, gk=gk, basic=block_mask is None, path=path,
-        dataflow=dataflow, block_m=block_m, block_k=block_k, n=n, gn=gn,
-        w_itemsize=w_itemsize, ema_decay=ema_decay,
-        budget=None if isinstance(budget, torch.Tensor) else budget,
-        shard=shard)
+    ints, floats = _plan_for(m, k, gm, gk, block_mask is None, kw)
     chunks = -(-k // CHUNK)
     partial = torch.empty(m * chunks, dtype=torch.int32, device=cur_q.device)
     matches = torch.empty(m, dtype=torch.float32, device=cur_q.device)
-    prev_q = cache["prev_q"]
-    sensor = cache.get("sensor", {})
-    ptrs = [cur_q, prev_q, partial, matches, block_mask,
-            budget if isinstance(budget, torch.Tensor) else None,
-            cache["sim_ema"], cache["steps"],
-            cache["ctrl"]["occupancy"] if "ctrl" in cache else None,
-            *(sensor.get(name) for name in SENSOR_LANES)]
-    ptrs = [0 if t is None else t.data_ptr() for t in ptrs]
     ints.update(
         m=m, k=k, ldq=cur_q.stride(0), chunks=chunks,
         vec=int(k % 16 == 0 and cur_q.stride(0) % 16 == 0
-                and ptrs[0] % 16 == 0 and ptrs[1] % 16 == 0),
-        has_ctrl=int("ctrl" in cache), has_sensor=int("sensor" in cache))
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_ints = (ctypes.c_int * len(INTS))(*(ints[n] for n in INTS))
-    c_floats = (ctypes.c_float * len(FLOATS))(*(floats[n] for n in FLOATS))
+                and cur_q.data_ptr() % 16 == 0
+                and cache["prev_q"].data_ptr() % 16 == 0))
     rc = backend.library("site_account").rt_site_account(
-        c_ptrs, len(ptrs), c_ints, len(INTS), c_floats, len(FLOATS),
+        *_launch_args(cache, cur_q=cur_q, partial=partial, matches=matches,
+                      block_mask=block_mask, budget=budget, ints=ints,
+                      floats=floats),
         backend.stream_ptr(cur_q.device))
     backend.check(rc, "site_account")
     backend.count_launch("site_account")
     return matches
+
+
+def delta_quant_account_torch(
+    x: torch.Tensor,
+    cache: dict,
+    *,
+    block_m: int,
+    block_k: int,
+    delta_dtype: torch.dtype,
+    **kw,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the fused pass: `delta_quant_torch` on x and
+    prev_q padded with zeros to whole tiles (as `ops.delta_quant_fused`
+    pads them), then `site_account_torch` on the codes. Returns (delta
+    [M, K], mask [gm, gk], matches [M])."""
+    m, k = x.shape
+    pad = (0, -k % block_k, 0, -m % block_m)
+    q, delta, mask = delta_quant_torch(
+        F.pad(x, pad), F.pad(cache["prev_q"], pad), cache["scale"],
+        block_m=block_m, block_k=block_k, delta_dtype=delta_dtype)
+    matches = site_account_torch(q[:m, :k], mask, cache, block_m=block_m,
+                                 block_k=block_k, **kw)
+    return delta[:m, :k], mask, matches
+
+
+def delta_quant_account(
+    x: torch.Tensor,          # [M, K] f32 / bf16, this call's activations
+    cache: dict,              # the site's entry (or shard lane)
+    *,
+    block_m: int,
+    block_k: int,
+    delta_dtype: torch.dtype,
+    path: str,
+    dataflow: str,
+    n: int,
+    gn: int,
+    w_itemsize: int,
+    ema_decay: float,
+    budget: int | torch.Tensor | None,
+    shard: ShardCtx | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A reuse-mode site call's pass before its ΔW GEMM, in place on
+    `cache`: the codes into prev_q and every bookkeeping lane. Returns
+    (delta [M, K] (a view of whole tiles), mask int32 [gm, gk], matches [M]
+    f32). One launch of `csrc/delta_quant.cu`'s fused instance on CUDA
+    tensors; CPU tensors take `delta_quant_account_torch`."""
+    kw = dict(path=path, dataflow=dataflow, n=n, gn=gn,
+              w_itemsize=w_itemsize, ema_decay=ema_decay, budget=budget,
+              shard=shard)
+    if x.device.type == "cpu":
+        return delta_quant_account_torch(x, cache, block_m=block_m,
+                                         block_k=block_k,
+                                         delta_dtype=delta_dtype, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"delta_quant_account: unsupported device {x.device}")
+    m, k = x.shape
+    scale = cache["scale"]
+    if x.dtype not in backend.DTYPE_CODE or delta_dtype not in backend.DTYPE_CODE:
+        raise TypeError(f"delta_quant_account: x {x.dtype} / delta "
+                        f"{delta_dtype} must be float32 or bfloat16")
+    if not x.is_contiguous():
+        raise ValueError("delta_quant_account: x must be contiguous")
+    if scale.dtype != torch.float32 or scale.numel() != 1 or \
+            scale.device != x.device:
+        raise TypeError("delta_quant_account: scale must be one float32 on "
+                        f"{x.device}")
+    _check_lanes(m, k, x.device, None, cache, budget, "delta_quant_account")
+    gm, gk = -(-m // block_m), -(-k // block_k)
+    delta = torch.empty((gm * block_m, gk * block_k), dtype=delta_dtype,
+                        device=x.device)
+    mask = torch.empty((gm, gk), dtype=torch.int32, device=x.device)
+    partial = torch.empty(m * gk, dtype=torch.int32, device=x.device)
+    matches = torch.empty(m, dtype=torch.float32, device=x.device)
+    ints, floats = _plan_for(m, k, gm, gk, False,
+                             dict(kw, block_m=block_m, block_k=block_k))
+    vec = int(block_k % 8 == 0 and k % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, cache["prev_q"], delta)))
+    ints.update(m=m, k=k, ldq=k, chunks=gk, vec=vec)
+    rc = backend.library("delta_quant").rt_delta_quant_account(
+        x.data_ptr(), backend.DTYPE_CODE[x.dtype], scale.data_ptr(),
+        delta.data_ptr(), backend.DTYPE_CODE[delta_dtype], m, k, block_m,
+        block_k, vec,
+        *_launch_args(cache, cur_q=None, partial=partial, matches=matches,
+                      block_mask=mask, budget=budget, ints=ints,
+                      floats=floats),
+        backend.stream_ptr(x.device))
+    backend.check(rc, "delta_quant_account")
+    backend.count_launch("delta_quant_account")
+    return delta[:m, :k], mask, matches

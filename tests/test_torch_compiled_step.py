@@ -475,7 +475,7 @@ def test_serve_counts_equal_with_and_without_eager(monkeypatch, capsys):
     """On the CPU the wrappers take their plain versions and count nothing;
     here the ops entry points count as their kernels would, so the compiled
     serve's counts can be held against the eager serve's."""
-    names = {"delta_quant_fused": lambda kw: "delta_quant",
+    names = {"delta_quant_account": lambda kw: "delta_quant_account",
              "reuse_matmul": lambda kw: f"reuse_matmul_{kw['dataflow']}",
              "reuse_matmul_ragged": lambda kw: "reuse_matmul_ragged",
              "wkv6_decode": lambda kw: "wkv6_decode"}
@@ -499,5 +499,6 @@ def test_serve_counts_equal_with_and_without_eager(monkeypatch, capsys):
                         if ln.startswith(("SensorReport", "  rwkv"))]
     backend.reset_launches()
     assert counts[True] == counts[False]
-    assert counts[True]["delta_quant"] > 0 and counts[True]["wkv6_decode"] > 0
+    assert counts[True]["delta_quant_account"] > 0 and \
+        counts[True]["wkv6_decode"] > 0
     assert lines[True] == lines[False] and len(lines[True]) >= 4

@@ -651,6 +651,136 @@ def test_site_account_in_a_captured_graph_on_card(card):
                               sa.written_lanes(eager)) == []
 
 
+# the fused entry's shapes: every site shape above, qwen2-72b's mlp_out
+# (K 29568 = 115.5 tiles of 256) and a K the vector instance cannot take
+FUSED_SHAPES = {**ACCOUNT_SHAPES, "qwen2_mlp_out": (29568, 8192),
+                "k_tail_scalar": (3004, 4096)}
+
+
+def _fused_kw(variant, n, card):
+    from repro_torch.sensor.counters import ShardCtx
+
+    _, path, dataflow, shards, budget = variant
+    nl = n // shards if shards else n
+    return dict(
+        path=path, dataflow=dataflow, block_m=8, block_k=256,
+        delta_dtype=BF16, n=nl, gn=-(-nl // 128), w_itemsize=2,
+        ema_decay=0.9,
+        budget=None if budget is None else torch.tensor(
+            budget, dtype=torch.int32, device=card),
+        shard=(ShardCtx(shards - 1, shards, n, -(-n // 128))
+               if shards else None))
+
+
+def _fused_equal(got, want, cache_got, cache_want, what):
+    """delta, mask and matches equal, and every lane (prev_q among them)
+    bitwise, NaN positions included."""
+    from repro_torch.kernels import site_account as sa
+
+    for a, b, part in zip(got, want, ("delta", "mask", "matches")):
+        assert a.shape == b.shape and torch.equal(a, b), (what, part)
+    assert sa.differing_lanes(sa.written_lanes(cache_got),
+                              sa.written_lanes(cache_want)) == [], what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 8, 128])
+@pytest.mark.parametrize("site", list(FUSED_SHAPES))
+def test_delta_quant_account_matches_plain_on_card(card, site, m):
+    """The reuse-mode call's fused pass against its plain version
+    (`delta_quant_torch` on padded operands, then `site_account_torch`), on
+    copies of the same lanes: delta, the mask, the match counts, prev_q and
+    every lane bitwise (NaN positions), at every site shape and batch (2:
+    rows past M in the tile), over every reuse-mode variant; one launch a
+    call and nothing else; prev_q and the lanes written in the entry's own
+    tensors."""
+    from repro_torch.kernels import site_account as sa
+
+    k, n = FUSED_SHAPES[site]
+    x, base = _account_inputs(card, m, k, n, seed=m + k + 1)
+    for i, variant in enumerate(v for v in ACCOUNT_VARIANTS
+                                if v[0] == "reuse"):
+        # x and delta: bf16 and bf16 (the serve's), f32 and f32, bf16 and f32
+        x_dtype, d_dtype = ((BF16, BF16), (F32, F32), (BF16, F32))[i % 3]
+        got = sa.copy_lanes(base)
+        if i % 3 == 0:
+            for j, t in enumerate(sa.written_lanes(got).values()):
+                if t.is_floating_point() and t.dim() == 0:
+                    t.fill_((math.nan, math.inf, -math.inf)[j % 3])
+        want = sa.copy_lanes(got)
+        ptrs = {name: t.data_ptr() for name, t in
+                sa.written_lanes(got).items()}
+        kw = dict(_fused_kw(variant, n, card), delta_dtype=d_dtype)
+        before = backend.launch_counts()
+        out = sa.delta_quant_account(x.to(x_dtype), got, **kw)
+        ref = sa.delta_quant_account_torch(x.to(x_dtype), want, **kw)
+        torch.cuda.synchronize()
+        after = backend.launch_counts()
+        assert after == dict(before, delta_quant_account=before[
+            "delta_quant_account"] + 1)
+        _fused_equal(out, ref, got, want, (site, m, variant))
+        assert {name: t.data_ptr() for name, t in
+                sa.written_lanes(got).items()} == ptrs
+
+
+@pytest.mark.gpu
+def test_account_kernels_replayed_in_a_graph_on_card(card):
+    """One CUDA graph holding a fused reuse-mode call (ragged, a budget
+    lane) and a basic-mode site_account call, replayed 60 times with new
+    codes written into its inputs between replays (and a budget move):
+    after every replay each lane equals the plain versions' run on copies,
+    so each launch's last CTA found itself and left the ticket at zero.
+    Each kernel is one launch, counted once per replay."""
+    from repro_torch.kernels import site_account as sa
+
+    x, entry = _account_inputs(card, 8, 25600, 5120, seed=11)
+    x2, entry_b = _account_inputs(card, 8, 4096, 4096, seed=12)
+    xs = [x.to(BF16), (x * 1.5).to(BF16), x.to(BF16) * 0]
+    codes = [torch.randint(-127, 128, (8, 4096), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(i)).to(torch.int8) for i in range(3)]
+    lane = torch.tensor(100, dtype=torch.int32, device=card)
+    kw = _fused_kw(("reuse", "ragged", "output", 0, None), 5120, card)
+    kw["budget"] = lane
+    kwb = dict(path="kernel", dataflow="output", block_m=8, block_k=256,
+               n=4096, gn=32, w_itemsize=2, ema_decay=0.9, budget=None)
+    x_in, q_in = xs[0].clone(), codes[0].clone()
+    graph, graph_b = sa.copy_lanes(entry), sa.copy_lanes(entry_b)
+    want, want_b = sa.copy_lanes(graph), sa.copy_lanes(graph_b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, on copies
+        sa.delta_quant_account(x_in, sa.copy_lanes(entry), **kw)
+        sa.site_account(q_in, None, sa.copy_lanes(entry_b), **kwb)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    before = backend.launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with backend.recorded_launches() as rec, torch.cuda.graph(g):
+        out = sa.delta_quant_account(x_in, graph, **kw)
+        m_b = sa.site_account(q_in, None, graph_b, **kwb)
+    assert backend.launch_counts() == before
+    assert dict(rec) == {"delta_quant_account": 1, "site_account": 1}
+    for r in range(60):
+        x_in.copy_(xs[r % 3])
+        q_in.copy_(codes[r % 3])
+        lane.fill_(1 if r % 4 == 0 else 100)
+        g.replay()
+        backend.count_replay(rec)
+        ref = sa.delta_quant_account_torch(x_in, want, **kw)
+        ref_b = sa.site_account_torch(q_in, None, want_b, **kwb)
+        torch.cuda.synchronize()
+        _fused_equal(out, ref, graph, want, ("replay", r))
+        assert torch.equal(m_b, ref_b), r
+        assert sa.differing_lanes(sa.written_lanes(graph_b),
+                                  sa.written_lanes(want_b)) == [], r
+    after = backend.launch_counts()
+    assert after["delta_quant_account"] == \
+        before["delta_quant_account"] + 60
+    assert after["site_account"] == before["site_account"] + 60
+    assert int(graph["steps"]) == int(entry["steps"]) + 60
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,dk", [(8, 64, 64), (2, 4, 32)])
 def test_wkv6_decode_matches_plain_on_card(card, b, h, dk):
@@ -814,25 +944,28 @@ def test_int8_split_matches_plain_on_card(card, m, bm, k, n, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,kernels", [
-    ("qwen3-32b", ("delta_quant", "reuse_matmul_output")),
-    ("rwkv6-7b", ("delta_quant", "reuse_matmul_output", "wkv6_decode")),
-    ("mixtral-8x7b", ("delta_quant", "reuse_matmul_output")),
-    ("llama4-scout-17b-a16e", ("delta_quant", "reuse_matmul_output")),
-    ("zamba2-2.7b", ("delta_quant", "reuse_matmul_output")),
-    ("gemma3-12b", ("delta_quant", "reuse_matmul_output")),
-    ("qwen2-72b", ("delta_quant", "reuse_matmul_output")),
-    ("nemotron-4-15b", ("delta_quant", "reuse_matmul_output")),
-    ("qwen2-vl-7b", ("delta_quant", "reuse_matmul_output"))])
+    ("qwen3-32b", ("delta_quant_account", "reuse_matmul_output")),
+    ("rwkv6-7b", ("delta_quant_account", "reuse_matmul_output",
+                  "wkv6_decode")),
+    ("mixtral-8x7b", ("delta_quant_account", "reuse_matmul_output")),
+    ("llama4-scout-17b-a16e", ("delta_quant_account", "reuse_matmul_output")),
+    ("zamba2-2.7b", ("delta_quant_account", "reuse_matmul_output")),
+    ("gemma3-12b", ("delta_quant_account", "reuse_matmul_output")),
+    ("qwen2-72b", ("delta_quant_account", "reuse_matmul_output")),
+    ("nemotron-4-15b", ("delta_quant_account", "reuse_matmul_output")),
+    ("qwen2-vl-7b", ("delta_quant_account", "reuse_matmul_output"))])
 def test_serve_runs_the_kernels_on_the_card(card, capsys, arch, kernels):
-    """Every reuse site call runs the bookkeeping kernel too: one launch
-    beside each delta_quant (reuse mode) or basic-mode product."""
+    """Every reuse-mode site call runs the fused delta_quant_account (its
+    bookkeeping included), a basic-mode call site_account after its
+    product; the unfused delta_quant is not on the serve path."""
     backend.reset_launches()
     tserve_cli.main(["--arch", arch, "--reduced", "--requests", "2",
                      "--batch-slots", "2", "--prompt-len", "4",
                      "--cache-len", "16", "--max-new", "3", "--reuse"])
     counts = backend.launch_counts()
     assert all(counts[kn] > 0 for kn in kernels), counts
-    assert counts["site_account"] >= counts["delta_quant"] > 0, counts
+    assert counts["delta_quant_account"] > 0, counts
+    assert counts["delta_quant"] == 0, counts
     assert "served 2/2 requests" in capsys.readouterr().out
 
 
@@ -965,7 +1098,7 @@ def test_graph_step_matches_eager_step_on_card(card, arch):
     assert summ["captures"] == 3 and summ["decode"] == 2
     assert all(torch.equal(a, b) for a, b in zip(le, lg))
     assert all(torch.equal(a, b) for a, b in zip(se + re, sg + rg))
-    assert ce == cg and ce["delta_quant"] > 0
+    assert ce == cg and ce["delta_quant_account"] > 0
     backend.reset_launches()
 
 
@@ -1114,7 +1247,8 @@ def test_measured_decode_graphs_match_eager_on_card(card, arch):
     rows_g, counts_g, tensors_g, md = _measured(card, arch, graphs=True)
     assert rows_e == rows_g and counts_e == counts_g
     assert all(torch.equal(a, b) for a, b in zip(tensors_e, tensors_g))
-    assert counts_g["delta_quant"] > 0 and counts_g["reuse_matmul_output"] > 0
+    assert counts_g["delta_quant_account"] > 0 and \
+        counts_g["reuse_matmul_output"] > 0
     assert md.step.graphs and md.step.captures == 1
     if arch == "qwen3-32b":  # layer 0's attn_qkv sees the anchor again
         assert md.report.per_layer[0].skipped_tiles > 0
@@ -1284,7 +1418,7 @@ def test_closed_loop_graphs_match_eager_on_card(card, arch, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(tensors_e, tensors_g))
     assert md_e.engine.sites == md_g.engine.sites
     assert any(d.kind == "budget" for r in ctl.reports for d in r.decisions)
-    assert md_g.step.captures > 1 and counts_g["delta_quant"] > 0
+    assert md_g.step.captures > 1 and counts_g["delta_quant_account"] > 0
     backend.reset_launches()
 
 

@@ -11,7 +11,13 @@ payload is not compared: the card's FMA returns the canonical NaN). The
 cases cover reuse and basic mode, the four exec paths, both dataflows, a
 budget that overflows and one that does not, and the ownership partition of
 a sharded call at S = 2 and 4. The kernel's by-value arguments (`plan`) are
-held to the same lanes through a numpy model of its epilogue."""
+held to the same lanes through a numpy model of its epilogue.
+
+The reuse-mode call's fused entry (`ops.delta_quant_account`, the
+delta/quant/mask pass and the bookkeeping as one kernel on the card) is
+held the same way at batches of 2 and 8 and a K tail, its delta and mask
+against the reference's padding entry, and its per-tile match counts
+through a numpy model of the kernel's partials."""
 
 import dataclasses
 
@@ -24,11 +30,12 @@ import torch
 from repro.core.reuse_cache import ReuseSiteSpec as JSpec
 from repro.core.reuse_cache import init_site_cache as jinit_site_cache
 from repro.core.reuse_linear import reuse_linear as jreuse_linear
+from repro.kernels import ops as jops
 from repro.kernels.reuse_matmul import _skip_sel as jskip_sel
 from repro.sensor.counters import ShardCtx as JShardCtx
 from repro_torch.core.reuse_cache import ReuseSiteSpec, init_site_cache
 from repro_torch.core.reuse_linear import ReuseStats, reuse_linear
-from repro_torch.core.similarity import fma_f32
+from repro_torch.core.similarity import fma_f32, row_code_matches
 from repro_torch.kernels import ops
 from repro_torch.kernels import site_account as sa
 from repro_torch.kernels.reuse_matmul import skip_sel, weight_dma_tiles
@@ -53,6 +60,8 @@ class Case:
     shards: int = 0              # 0: unsharded
     budget: int | None = None    # max_active_k; 1 overflows, None never
     poison: bool = False         # NaN and ±inf in the scalar float lanes
+    m: int = M                   # rows (the batch)
+    k: int = K                   # in_features
 
     def __str__(self):
         parts = [self.mode]
@@ -63,6 +72,8 @@ class Case:
         parts.append(f"S{self.shards}" if self.shards else "unsharded")
         if self.poison:
             parts.append("poison")
+        if (self.m, self.k) != (M, K):
+            parts.append(f"{self.m}x{self.k}")
         return "-".join(parts)
 
 
@@ -124,7 +135,7 @@ def codes(rng, prev, gm_mask):
     `gm_mask` (a few codes of each such tile move by 1..5)."""
     cur = prev.copy()
     for r, c in zip(*np.nonzero(gm_mask)):
-        rows = slice(r * BM, min((r + 1) * BM, M))
+        rows = slice(r * BM, min((r + 1) * BM, prev.shape[0]))
         tile = cur[rows, c * BK:(c + 1) * BK]
         hit = rng.random(tile.shape) < 0.3
         tile[hit] = np.clip(tile[hit] + rng.integers(1, 6, hit.sum()),
@@ -140,6 +151,7 @@ def seeded_lanes(rng, case, c0, c1, live):
     first call's match counts (and, for the occupancy, its `live` changed
     tiles); the scalar lanes finite values that round when added to, or
     NaN and ±inf (`poison`)."""
+    M, K = c0.shape
     matches = (c0 == c1).sum(axis=1).astype(np.float32)
     c_sim = np.float32(1.0 - DECAY) * np.float32(1.0 / K)
     inv_k = np.float32(1.0 / K)
@@ -148,7 +160,10 @@ def seeded_lanes(rng, case, c0, c1, live):
                     for m in range(M)], np.float32)
     hits = np.array([sensitive_addend(rng, matches[m], inv_k)
                      for m in range(M)], np.float32)
-    sim[:3] = hits[3:6] = [np.nan, np.inf, -np.inf]
+    bad = np.array([np.nan, np.inf, -np.inf], np.float32)[:min(3, M)]
+    sim[:len(bad)] = bad
+    at = 3 if M >= 6 else M - len(bad)   # rows 3-5, or the last rows
+    hits[at:at + len(bad)] = bad
     lanes = {
         "prev_q": c0, "sim_ema": sim, "steps": np.int32(7),
         "occupancy": sensitive(rng, DECAY,
@@ -169,7 +184,7 @@ def seeded_lanes(rng, case, c0, c1, live):
 
 
 def jax_cache(spec, lanes):
-    entry = jinit_site_cache(spec, M)
+    entry = jinit_site_cache(spec, len(lanes["sim_ema"]))
     sensor = dict(entry["sensor"])
     ctrl = dict(entry["ctrl"])
     for name, v in lanes.items():
@@ -183,7 +198,7 @@ def jax_cache(spec, lanes):
 
 
 def torch_cache(spec, lanes):
-    entry = init_site_cache(spec, M, device="cpu")
+    entry = init_site_cache(spec, len(lanes["sim_ema"]), device="cpu")
     for name, v in lanes.items():
         for tree in (entry, entry["sensor"], entry["ctrl"]):
             if name in tree:
@@ -216,7 +231,7 @@ def assert_lanes_equal(got, want, what):
 
 def site_geometry(case):
     """(port spec, reference spec, n, shard contexts, weight columns)."""
-    kw = dict(in_features=K, block_m=BM, block_k=BK, block_n=BN,
+    kw = dict(in_features=case.k, block_m=BM, block_k=BK, block_n=BN,
               mode=case.mode, dataflow=case.dataflow,
               exec_path=case.path, max_active_k=case.budget,
               fixed_scale=SCALE)
@@ -424,8 +439,10 @@ def test_kernel_plan_gives_the_plain_lanes(run):
 @pytest.mark.parametrize("case", [Case(path="ragged", budget=1, shards=2),
                                   Case(mode="basic"), Case()], ids=str)
 def test_reuse_linear_routes_through_site_account(case, monkeypatch):
-    """`reuse_linear` leaves the lanes `site_account_torch` leaves, through
-    `ops.site_account`, with a budget lane as the engine passes it."""
+    """`reuse_linear` leaves the lanes `site_account_torch` leaves: reuse
+    mode through the fused entry `ops.delta_quant_account` (before the
+    GEMM), basic mode through `ops.site_account`, each once a call, with a
+    budget lane as the engine passes it."""
     spec, _, n, shard, cols = site_geometry(case)
     tshard = None if shard is None else shard[0]
     rng = np.random.default_rng(3)
@@ -434,28 +451,28 @@ def test_reuse_linear_routes_through_site_account(case, monkeypatch):
         w = w[:, cols]
     x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
     calls = []
-    orig = sa.site_account_torch
-
-    def counted(*args, **kw):
-        calls.append(kw["budget"])
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(sa, "site_account_torch", counted)
+    for entry in ("delta_quant_account", "site_account"):
+        def counted(*args, _entry=entry, _orig=getattr(ops, entry), **kw):
+            calls.append((_entry, kw["budget"]))
+            return _orig(*args, **kw)
+        monkeypatch.setattr(ops, entry, counted)
     a = init_site_cache(spec, M, device="cpu")
     b = init_site_cache(spec, M, device="cpu")
     lane = torch.tensor(1, dtype=torch.int32)
     reuse_linear(x, w, None, a, spec, mode=case.mode, impl="torch",
                  ema_decay=DECAY, budget=lane, shard=tshard)
-    assert calls == [lane if case.mode == "reuse" else None]
+    assert calls == ([("delta_quant_account", lane)] if case.mode == "reuse"
+                     else [("site_account", None)])
     if case.mode == "basic":
         cur_q, mask = quantize_int8(x, b["scale"]), None
     else:
         cur_q, _, mask = ops.delta_quant_fused(x, b["prev_q"], b["scale"],
                                                block_m=BM, block_k=BK,
                                                impl="torch")
-    orig(cur_q, mask, b, path=case.path, dataflow=case.dataflow, block_m=BM,
-         block_k=BK, n=n, gn=-(-n // BN), w_itemsize=4, ema_decay=DECAY,
-         budget=lane, shard=tshard)
+    sa.site_account_torch(
+        cur_q, mask, b, path=case.path, dataflow=case.dataflow, block_m=BM,
+        block_k=BK, n=n, gn=-(-n // BN), w_itemsize=4, ema_decay=DECAY,
+        budget=lane, shard=tshard)
     assert_lanes_equal(lane_dict(a), lane_dict(b), str(case))
 
 
@@ -509,3 +526,147 @@ def test_wrapper_takes_the_twin_on_the_cpu(monkeypatch):
     assert backend.launch_counts()["site_account"] == 0
     np.testing.assert_array_equal(m.numpy(), np.zeros(M, np.float32))
     assert (entry["prev_q"] == 1).all()
+
+
+# ------------------------------- the reuse-mode call's fused entry
+
+K_TAIL = 300                      # gk 5: the last tile holds 44 columns
+FUSED_CASES = (
+    [Case(path=p, m=m, k=K_TAIL,
+          budget=1 if p in ("ragged", "compact") else None)
+     for m in (2, 8) for p in ("kernel", "dense", "ragged", "compact")]
+    + [Case(path="kernel", dataflow="input", shards=2, m=m, k=K_TAIL)
+       for m in (2, 8)]
+    + [Case(path="ragged", shards=4, m=m, k=K_TAIL) for m in (2, 8)]
+)
+
+
+@pytest.fixture(scope="module", params=FUSED_CASES, ids=str)
+def fused(request):
+    """One reuse-mode case at a batch of 2 or 8 and a K tail: the
+    reference's two compiled site calls against `ops.delta_quant_account`
+    (impl "cuda": the wrapper, which takes its plain version for CPU
+    tensors) on the same x, from the same seeded lanes; and the reference's
+    padding entry on the call's x and prev_q."""
+    case = request.param
+    rng = np.random.default_rng(FUSED_CASES.index(case) + 101)
+    spec, jspec, n, shard, cols = site_geometry(case)
+    m, k = case.m, case.k
+    gm, gk = -(-m // BM), -(-k // BK)
+    c0 = rng.integers(-100, 101, (m, k)).astype(np.int8)
+    first = rng.random((gm, gk)) < 0.5
+    first[0, :2] = True                    # over a budget of 1
+    c1 = codes(rng, c0, first)
+    c2 = codes(rng, c1, rng.random((gm, gk)) < 0.6)
+    lanes = seeded_lanes(rng, case, c0, c1, first)
+    w = (rng.normal(size=(k, N)) / np.sqrt(k)).astype(np.float32)
+    if cols is not None:
+        w = w[:, cols]
+    jshard = None if shard is None else shard[1]
+    tshard = None if shard is None else shard[0]
+
+    @jax.jit
+    def jstep(x, entry, idx):
+        # the stats stay outputs, as in `run`: XLA's choice of which product
+        # of the occupancy's a·b + c·d it contracts follows their uses
+        sh = None if jshard is None else jshard._replace(index=idx)
+        _, entry, stats = jreuse_linear(x, jnp.asarray(w), None, entry,
+                                        jspec, mode="reuse", impl="pallas",
+                                        ema_decay=DECAY, shard=sh)
+        return entry, stats
+
+    jentry = jax_cache(jspec, lanes)
+    tentry = torch_cache(spec, lanes)
+    ptrs = {name: t.data_ptr() for name, t in sa.written_lanes(tentry).items()}
+    steps = []
+    for c in (c1, c2):
+        x = (c.astype(np.float32) * np.float32(SCALE)).astype(np.float32)
+        _, jd, jm = jops.delta_quant_fused(
+            jnp.asarray(x), jnp.asarray(tentry["prev_q"].numpy()),
+            jnp.float32(SCALE), block_m=BM, block_k=BK,
+            delta_dtype=jnp.float32, interpret=True)
+        jentry, _ = jstep(jnp.asarray(x), jentry, jnp.int32(1))
+        delta, mask, matches = ops.delta_quant_account(
+            torch.from_numpy(x), tentry, block_m=BM, block_k=BK,
+            delta_dtype=torch.float32, path=case.path,
+            dataflow=case.dataflow, n=n, gn=-(-n // BN), w_itemsize=4,
+            ema_decay=DECAY, budget=case.budget, shard=tshard)
+        steps.append(dict(
+            ref=lane_dict(jentry), got=lane_dict(tentry), delta=delta,
+            mask=mask, matches=matches, ref_delta=np.asarray(jd),
+            ref_mask=np.asarray(jm), codes=c,
+            ptrs={name: t.data_ptr()
+                  for name, t in sa.written_lanes(tentry).items()}))
+    return case, ptrs, steps
+
+
+def test_fused_entry_lanes_bitwise_reference(fused):
+    """Every lane and prev_q bitwise the reference's jitted reuse_linear,
+    at a batch of 2 and 8 (padded rows) and a K tail."""
+    case, _, steps = fused
+    for i, step in enumerate(steps):
+        assert_lanes_equal(step["got"], step["ref"], f"{case} step {i}")
+        np.testing.assert_array_equal(step["got"]["prev_q"], step["codes"])
+
+
+def test_fused_entry_delta_and_mask_equal_reference(fused):
+    """delta [M, K] and the tile mask bitwise the reference's padding
+    entry; the match counts are the unchanged codes of each row."""
+    case, _, steps = fused
+    prev = None
+    for step in steps:
+        assert tuple(step["delta"].shape) == (case.m, case.k)
+        np.testing.assert_array_equal(step["delta"].numpy(), step["ref_delta"])
+        np.testing.assert_array_equal(step["mask"].numpy(), step["ref_mask"])
+        if prev is not None:
+            np.testing.assert_array_equal(
+                step["matches"].numpy(),
+                (step["codes"] == prev).sum(axis=1).astype(np.float32))
+        prev = step["codes"]
+
+
+def test_fused_entry_writes_the_entry_in_place(fused):
+    """prev_q and every lane the call writes keep their tensors (a CUDA
+    graph reads them by address)."""
+    _, ptrs, steps = fused
+    for step in steps:
+        assert step["ptrs"] == ptrs
+
+
+def partial_model(x, prev_q, scale, block_m, block_k):
+    """numpy model of the fused kernel's per-tile partials: each real row's
+    unchanged codes in the real columns of each tile, from operands read
+    as 0 past M and K (the kernel's edge), [M, gk]."""
+    m, k = x.shape
+    gm, gk = -(-m // block_m), -(-k // block_k)
+    xp = np.zeros((gm * block_m, gk * block_k), np.float32)
+    pp = np.zeros((gm * block_m, gk * block_k), np.int32)
+    xp[:m, :k], pp[:m, :k] = x, prev_q
+    q = np.clip(np.rint(xp / np.float32(scale)), -127, 127).astype(np.int32)
+    same = q == pp
+    real = np.zeros_like(same)
+    real[:m, :k] = True
+    tiles = (same & real).reshape(gm * block_m, gk, block_k).sum(axis=2)
+    return tiles[:m], (same.reshape(gm * block_m, gk, block_k)
+                       .sum(axis=2)[:m])
+
+
+@pytest.mark.parametrize("m,k,bm,bk", [(2, 300, 8, 64), (8, 300, 8, 64),
+                                       (12, 320, 8, 64), (8, 3000, 8, 256),
+                                       (130, 4100, 128, 256)])
+def test_partials_sum_to_the_row_matches(m, k, bm, bk):
+    """Σ over tiles of the kernel's partials equals `row_code_matches` over
+    the real columns, with a K tail and with padded rows; counting the
+    padded columns too (where both sides read 0) would not."""
+    rng = np.random.default_rng(m * 7 + k)
+    prev = rng.integers(-100, 101, (m, k)).astype(np.int8)
+    cur = np.where(rng.random((m, k)) < 0.6, prev,
+                   rng.integers(-127, 128, (m, k))).astype(np.int8)
+    x = cur.astype(np.float32) * np.float32(SCALE)
+    part, with_pad = partial_model(x, prev, SCALE, bm, bk)
+    assert part.shape == (m, -(-k // bk))
+    want = row_code_matches(torch.from_numpy(cur), torch.from_numpy(prev))
+    np.testing.assert_array_equal(part.sum(axis=1).astype(np.float32),
+                                  want.numpy())
+    if k % bk:
+        assert (with_pad.sum(axis=1) > part.sum(axis=1)).all()

@@ -1,14 +1,16 @@
 """Time variants of the delta_quant kernel side by side on one card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.delta_quant_variants \\
-        [--baseline OLDER_delta_quant.cu]
+    python3 tools/delta_quant_variants.py [--baseline OLDER_delta_quant.cu]
 
 A diagnostic of the kernel's design, not part of any serve path. It builds
-patched copies of `csrc/delta_quant.cu` (one `nvcc` each, all started
-together, into `build/variants/`), holds each against `delta_quant_torch`
-bitwise, and times them in turns: a CUDA-graph replay of 20 calls, the
-median of 7 replays, three rounds in alternating order, beside the launch
-floor (a one-element `add_` in the same kind of replay). The variants:
+patched copies of `src/repro_torch/csrc/delta_quant.cu` (one `nvcc` each,
+all started together, into `build/variants/`), holds each against
+`delta_quant_torch` bitwise, and times them in turns: a CUDA-graph replay
+of 20 calls, the median of 7 replays, three rounds in alternating order,
+beside the launch floor (a one-element `add_` in the same kind of replay).
+It times the TPU kernel's port, `rt_delta_quant`; a patch also changes the
+source's fused instance (`rt_delta_quant_account`), which it does not
+call. The variants:
 
     new         the source as it is
     no_cluster  tall tiles on one CTA each (no cluster row slices)
@@ -18,6 +20,15 @@ floor (a one-element `add_` in the same kind of replay). The variants:
     baseline    an older version of the source (--baseline), whose C entry
                 takes no `vec` argument
 
+Then the fused instance (`rt_delta_quant_account`, a reuse site call's
+pass and bookkeeping) cut down part by part, timing only, beside it whole
+(held bitwise against its plain version) and `rt_delta_quant`: where its
+time over the TPU kernel's port goes.
+
+    no_ticket   the tile pass and the per-tile match counts, no ticket and
+                no epilogue
+    no_epilogue the ticket drawn, the last CTA's epilogue left out
+
 Prints the card's name and power limit, then one line per shape (bf16 x
 and delta, ms per call). Needs a CUDA card; exits non-zero without one.
 """
@@ -26,14 +37,21 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import pathlib
 import statistics
 import subprocess
 import sys
 
 import torch
 
-from repro_torch.kernels import backend
-from repro_torch.kernels.delta_quant import delta_quant_torch
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels import site_account as sa  # noqa: E402
+from repro_torch.kernels.delta_quant import (  # noqa: E402
+    delta_quant,
+    delta_quant_torch,
+)
 
 SHAPES = ((8, 4096, 8, 256), (8, 14336, 8, 256), (8, 25600, 8, 256),
           (8, 25600, 8, 64), (128, 4096, 128, 256), (128, 25600, 128, 256))
@@ -46,6 +64,15 @@ PATCHES = {
                   "  const float s = s_scale;",
                   "  const float s = __ldg(scale);"),
 }
+
+
+# the fused instance's cuts: (text in the source, its replacement)
+FUSED_CUTS = {
+    "no_ticket": ("if (last_cta()) epilogue(L, g, f);", ";"),
+    "no_epilogue": ("if (last_cta()) epilogue(L, g, f);", "last_cta();"),
+}
+# (M, K, N) of the fused calls timed: rwkv6's 4096 sites, qwen3's mlp_out
+FUSED_SHAPES = ((8, 4096, 4096), (8, 25600, 5120))
 
 
 def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
@@ -166,6 +193,74 @@ def main(argv=None) -> None:
               f"{statistics.median(floor):.5f} bound {bound:.6f} "
               + " ".join(f"{n} {statistics.median(t):.5f}"
                          for n, t in times.items()), flush=True)
+
+    fused(src, one)
+
+
+def fused(src: str, one: torch.Tensor) -> None:
+    """The fused instance whole and cut down (FUSED_CUTS), at FUSED_SHAPES,
+    in turns, through `site_account.delta_quant_account` with its library
+    swapped for each build."""
+    from repro_torch.core.reuse_cache import ReuseSiteSpec, init_site_cache
+
+    sources = {"fused": src}
+    for name, (old, new) in FUSED_CUTS.items():
+        if old not in src:
+            sys.exit(f"delta_quant_variants: {name}'s cut no longer applies")
+        sources[name] = src.replace(old, new)
+    libs = build(sources)
+    for lib in libs.values():
+        for fn, argtypes in backend.SIGNATURES["delta_quant"].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+    real = backend.library
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for m, k, n in FUSED_SHAPES:
+        entry = init_site_cache(ReuseSiteSpec("s", k, n), m, device=dev)
+        entry["prev_q"].copy_(torch.randint(-127, 128, (m, k), generator=gen,
+                                            device=dev))
+        x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
+            torch.bfloat16)
+        kw = dict(block_m=8, block_k=256, delta_dtype=torch.bfloat16,
+                  path="kernel", dataflow="output", n=n, gn=n // 128,
+                  w_itemsize=2, ema_decay=0.9, budget=None)
+
+        def call(name, lanes):
+            backend.library = lambda lib: libs[name] \
+                if lib == "delta_quant" else real(lib)
+            try:
+                return sa.delta_quant_account(x, lanes, **kw)
+            finally:
+                backend.library = real
+
+        got, want = sa.copy_lanes(entry), sa.copy_lanes(entry)
+        out = call("fused", got)
+        ref = sa.delta_quant_account_torch(x, want, **kw)
+        torch.cuda.synchronize()
+        if sa.differing_lanes(sa.written_lanes(got), sa.written_lanes(want)) \
+                or not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            sys.exit(f"delta_quant_variants: the fused instance differs from "
+                     f"its plain version at [{m},{k}]")
+        prev_q = entry["prev_q"].clone()
+        scale = entry["scale"]
+        times = {name: [] for name in ["delta_quant", *libs]}
+        floor = []
+        lanes = sa.copy_lanes(entry)
+        for rnd in range(3):
+            floor.append(graph_ms(lambda: one.add_(1)))
+            names = list(times) if rnd % 2 == 0 else list(times)[::-1]
+            for name in names:
+                if name == "delta_quant":
+                    times[name].append(graph_ms(lambda: delta_quant(
+                        x, prev_q, scale, block_m=8, block_k=256)))
+                else:
+                    times[name].append(graph_ms(lambda: call(name, lanes)))
+        print(f"fused [{m},{k}] block 8x256: floor "
+              f"{statistics.median(floor):.5f} "
+              + " ".join(f"{nm} {statistics.median(t):.5f}"
+                         for nm, t in times.items()), flush=True)
 
 
 if __name__ == "__main__":
