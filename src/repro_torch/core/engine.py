@@ -93,6 +93,7 @@ from repro_torch.dist.shard import (
     validate_shardable,
 )
 from repro_torch.kernels.ops import clamp_budget
+from repro_torch.obs import trace
 from repro_torch.sensor.counters import ShardCtx
 
 # ctrl_snapshot lanes, in the order they are packed per site; the sentinel
@@ -381,11 +382,15 @@ class ReuseEngine:
         spec = self.sites[name]
         # pinned sites keep a static branch; "auto" sites read the mirror
         mode = spec.mode if spec.mode in ("reuse", "basic") else None
+        trace.mark(name, None)  # a marked capture's timing events, else none
         if self.shards.get(name):
-            return self._apply_sharded(name, x, w, b, cache_entry, mode)
-        return reuse_linear(x, w, b, cache_entry, spec, mode=mode,
-                            impl=self.impl,
-                            budget=self.budget_lane(name, x.device))
+            out = self._apply_sharded(name, x, w, b, cache_entry, mode)
+        else:
+            out = reuse_linear(x, w, b, cache_entry, spec, mode=mode,
+                               impl=self.impl,
+                               budget=self.budget_lane(name, x.device))
+        trace.mark(name, "epilogue")
+        return out
 
     def _apply_sharded(
         self,

@@ -14,6 +14,13 @@ fused into the delta/quant/mask pass before the GEMM
 those lanes), in basic mode `ops.site_account` after the product (one
 kernel). `ReuseStats` is computed only when read.
 
+Timing marks (`obs.trace.mark`, events only inside a marked decode
+graph's capture): `ReuseEngine.apply` marks the call's entry and the end
+of its `epilogue`, this module the ends of its `quant` (the delta/quant
+pass, or basic mode's quantize) and `product` (the ΔW GEMM, or basic
+mode's product) phases; the epilogue is the prev_out copy, basic mode's
+bookkeeping, the bias add and the cast.
+
 kernelMode: `mode=None` reads the layer's lane of the host mirror
 (`cache["mode_host"]`, kept equal to `ctrl["mode_id"]` by the engine's host
 passes) instead of branching on the device lane, which would cost one
@@ -54,6 +61,7 @@ from repro_torch.core.reuse_cache import (
 )
 from repro_torch.core.similarity import fma_f32
 from repro_torch.kernels import ops
+from repro_torch.obs import trace
 from repro_torch.quant import dequantize_int8, quantize_int8
 from repro_torch.sensor.counters import ShardCtx
 
@@ -105,7 +113,9 @@ def _basic_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
     bookkeeping after the product, `ops.site_account`)."""
     cur_q = quantize_int8(xm, cache["scale"])
     xq = dequantize_int8(cur_q, cache["scale"], dtype=xm.dtype)
+    trace.mark(spec.name, "quant")
     out = ops.f32_product(xq, w)  # the basic-mode product
+    trace.mark(spec.name, "product")
     cache["prev_out"].copy_(out)
     n = w.shape[-1]
     matches = ops.site_account(
@@ -134,6 +144,7 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
         ema_decay=ema_decay,
         budget=spec.max_active_k if budget is None else budget, shard=shard,
         impl=sub)
+    trace.mark(spec.name, "quant")
     if path == "dense":
         out = ops.reuse_matmul_ref(delta, w, cache["prev_out"], mask,
                                    spec.block_m, spec.block_k)
@@ -154,6 +165,7 @@ def _reuse_eval(xm, w, cache, spec: ReuseSiteSpec, impl: str,
         )
     else:
         raise ValueError(f"unknown exec_path {path!r} of site {spec.name!r}")
+    trace.mark(spec.name, "product")
     cache["prev_out"].copy_(out)
     return out, ReuseStats(matches, mask, xm.shape[1])
 

@@ -66,7 +66,7 @@ from repro_torch.serve.compiled_step import CompiledStep, summary_line
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, reset_slot
 from repro_torch.serve.serve_step import (
     build_reuse_engine,
-    greedy_sample,
+    greedy_to_host,
     init_serve_state,
 )
 
@@ -154,13 +154,12 @@ class Replica:
             full[slot] = prompt[0]
             logits = step.prefill(full)
             reset_slot(rcache, slot)
-            return int(greedy_sample(logits[slot:slot + 1, -1:])[0, 0])
+            return int(greedy_to_host(logits[slot:slot + 1, -1:])[0, 0])
 
         def decode_fn(tokens):
             if self.injector is not None:
                 self.injector.maybe_stall(self.batcher.stats["steps"] + 1)
-            out = greedy_sample(step.decode(np.asarray(tokens, np.int32)))
-            out = out.cpu().numpy()  # waits for the step
+            out = greedy_to_host(step.decode(np.asarray(tokens, np.int32)))
             if self.sticky_token is not None:
                 # teacher-force the loop token: the whole decode ran (and
                 # synced), only the emitted token is pinned so the stream
@@ -225,7 +224,7 @@ class Replica:
         with events.context(run=self.run, replica=self.name):
             alive = self.batcher.step_once()
         self.turn_s += obs_trace.now() - t0
-        drained = obs_trace.drain_spans()
+        drained, _ = obs_trace.drain_spans()
         if drained:
             self.all_spans.extend(drained)
             with open(self.spans_path, "a") as f:

@@ -46,8 +46,12 @@ step's decode plus the host work after it (a control interval, a mode
 refresh, the injector).
 
 Observability (`repro_torch.obs`): `--obs` turns on span tracing (a
-`prefill` span per admission, a `serve_step` span per decode step) and a
-metrics registry for the run; `--obs-dir OUT` also exports `metrics.prom`
+`prefill` span per admission, a `serve_step` span per decode step, and
+inside it the compiled step's span, its replay's device record on the
+card, and the token's copy back) and a metrics registry for the run. The
+spans stay in memory until the run ends, up to the trace module's cap
+(262,144 records: about 52,000 decode steps on the card); the export line
+says how many the cap turned away. `--obs-dir OUT` also exports `metrics.prom`
 (Prometheus textfile), `metrics.jsonl` (snapshots for `python -m
 repro_torch.obs.top`), `spans.jsonl`, and `latency_table.json` — the
 measured per-(site, exec_path) latencies, probed at the run's measured skip
@@ -127,7 +131,7 @@ from repro_torch.serve.compiled_step import CompiledStep, summary_line
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, reset_slot
 from repro_torch.serve.serve_step import (
     build_reuse_engine,
-    greedy_sample,
+    greedy_to_host,
     init_serve_state,
 )
 
@@ -450,7 +454,7 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
         full[slot] = prompt[0]
         logits = step.prefill(full)
         reset_slot(rcache, slot)
-        return int(greedy_sample(logits[slot:slot + 1, -1:])[0, 0])
+        return int(greedy_to_host(logits[slot:slot + 1, -1:])[0, 0])
 
     step_ms: list[float] = []
     step_built: list[bool] = []
@@ -463,8 +467,7 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
             # the stall scenario lives INSIDE the timed region — exactly
             # where a straggler host's slowness would land
             injector.maybe_stall(step_clock["step"])
-        out = greedy_sample(step.decode(np.asarray(tokens, np.int32)))
-        out = out.cpu().numpy()  # waits for the step
+        out = greedy_to_host(step.decode(np.asarray(tokens, np.int32)))
         dt = time.perf_counter() - t0
         step_ms.append(dt * 1e3)
         step_built.append(step.last_built)
@@ -732,13 +735,15 @@ def _run(cfg: ModelConfig, args: argparse.Namespace,
                   f"{time.perf_counter() - t_probe:.2f}s)")
             observe_sensor_report(registry, report)
         observe_spans(registry, obs_trace.spans())
+        lost = obs_trace.dropped()
         n = write_prometheus(
             os.path.join(args.obs_dir, "metrics.prom"), registry)
         write_jsonl(os.path.join(args.obs_dir, "metrics.jsonl"), registry)
         n_spans = obs_trace.write_spans_jsonl(
             os.path.join(args.obs_dir, "spans.jsonl"))
         print(f"obs exports -> {args.obs_dir} (metrics.prom {n} lines, "
-              f"metrics.jsonl, spans.jsonl {n_spans} spans)")
+              f"metrics.jsonl, spans.jsonl {n_spans} spans, {lost} lost "
+              "to the cap)")
     if len(done) != args.requests:
         raise RuntimeError(f"served {len(done)} of {args.requests} requests")
     return {"done": done, "stats": batcher.stats, "report": report,

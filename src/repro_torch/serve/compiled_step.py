@@ -62,11 +62,21 @@ With `graphs=False` (the CPU, or `--eager`, the counterpart of
 `jax.disable_jit`) the same class runs the step function directly: buffers
 and variant bookkeeping are the same, and `captures` counts what would have
 been captured.
+
+Under tracing (`obs.trace.enable()`), `decode` and `prefill` each open a
+host span (`compiled_step.decode`, `compiled_step.prefill`), and a replay
+runs between two timing events (`trace.device_begin` / `device_end`),
+resolved into a device record later, with no sync. With marks asked for
+(`trace.set_marks`), decode runs a graph captured with the per-site marks
+(`trace.capture_marks`), keyed with the extra component `MARKED`; the
+unmarked graph, its key and its launch counts are the ones an untraced
+serve runs. Without graphs only the host spans are recorded.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import time
@@ -77,6 +87,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ReuseEngine
 from repro_torch.kernels import backend
+from repro_torch.obs import trace
 from repro_torch.serve.serve_step import decode_step, prefill_step
 
 
@@ -88,6 +99,7 @@ class Variant:
     launches: collections.Counter   # kernel launches one replay runs
     seconds: float = 0.0            # host time of the capture
     pool_bytes: int = 0             # device memory the capture reserved
+    marks: list | None = None       # the graph's timing marks (traced)
 
 
 # Live decode variants kept before the least recently used is evicted. A
@@ -96,6 +108,9 @@ class Variant:
 # controller's closed loop no evicted key came back, and the cap held
 # qwen3-32b's pools (8 layers, ~694 MB a variant) to 2.8 GB (PERF.md §6).
 MAX_DECODE_VARIANTS = 4
+
+# the decode key's last component when the graph holds the per-site marks
+MARKED = "marked"
 
 
 class CompiledStep:
@@ -157,9 +172,12 @@ class CompiledStep:
             return ()
         return tuple(sorted(self.engine.shards.items()))
 
-    def decode_key(self) -> tuple:
-        return ("decode", self.spec_signature(), self.mode_signature(),
-                self.shard_plan())
+    def decode_key(self, marked: bool = False) -> tuple:
+        """The decode variant's key; `marked`: the variant whose graph holds
+        the per-site timing marks (traced, on the card)."""
+        key = ("decode", self.spec_signature(), self.mode_signature(),
+               self.shard_plan())
+        return key + (MARKED,) if marked else key
 
     # ------------------------------------------- the functions a graph holds
 
@@ -185,31 +203,40 @@ class CompiledStep:
     def prefill(self, tokens) -> torch.Tensor:
         """Prompt tokens [B, S] (host array or tensor) into the caches.
         Returns the last-token logits, valid until the next call."""
-        shape = tuple(tokens.shape)
-        buf = self.prompts.get(shape)
-        if buf is None:
-            buf = self.prompts[shape] = torch.zeros(
-                shape, dtype=torch.int32, device=self.device)
-        buf.copy_(torch.as_tensor(tokens))
-        return self._call(("prefill", shape), lambda: self.run_prefill(buf))
+        with trace.span("compiled_step.prefill") as sp:
+            shape = tuple(tokens.shape)
+            buf = self.prompts.get(shape)
+            if buf is None:
+                buf = self.prompts[shape] = torch.zeros(
+                    shape, dtype=torch.int32, device=self.device)
+            buf.copy_(torch.as_tensor(tokens))
+            return self._call(("prefill", shape),
+                              lambda: self.run_prefill(buf), sp)
 
     @torch.no_grad()
     def decode(self, tokens) -> torch.Tensor:
         """Tokens [B, 1] (host array or tensor) through one decode step.
         Returns the logits, valid until the next call."""
-        self.tokens.copy_(torch.as_tensor(tokens))
-        return self.decode_call(self.run_decode)
+        with trace.span("compiled_step.decode") as sp:
+            self.tokens.copy_(torch.as_tensor(tokens))
+            return self.decode_call(self.run_decode, sp,
+                                    marked=self.graphs and trace.marking())
 
-    def decode_call(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+    def decode_call(self, fn: Callable[[], torch.Tensor], sp=None, *,
+                    marked: bool = False) -> torch.Tensor:
         """`fn` as one decode step: the budget lanes synced, then the variant
         of the current decode key replayed, or built on its first call. A
         caller that steps its own function over the engine's cache (a single
-        site, say) keys it as the serve's decode is keyed."""
+        site, say) keys it as the serve's decode is keyed. `sp`: a traced
+        caller's host span, under which the replay is timed; `marked`: the
+        variant whose graph holds the per-site marks."""
         if self.engine is not None:
             self.engine.sync_budgets()
-        return self._call(self.decode_key(), fn)
+        return self._call(self.decode_key(marked), fn, sp)
 
-    def _call(self, key: tuple, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+    def _call(self, key: tuple, fn: Callable[[], torch.Tensor],
+              sp=None) -> torch.Tensor:
+        """`sp`: the traced call's host span, whose replay is timed."""
         v = self.variants.get(key)
         self.last_built = v is None
         if v is None:
@@ -219,7 +246,9 @@ class CompiledStep:
         self.variants.move_to_end(key)
         if v.graph is None:
             return fn()
-        return self.replay(v, key)
+        if sp is None or not trace.is_enabled():
+            return self.replay(v, key)
+        return self._traced_replay(v, key, sp)
 
     @property
     def captures(self) -> int:
@@ -257,6 +286,16 @@ class CompiledStep:
         backend.count_replay(v.launches)
         return v.out
 
+    def _traced_replay(self, v: Variant, key: tuple, sp) -> torch.Tensor:
+        """`replay` between the two timing events of a device record under
+        the host span `sp`, the earlier replays resolved first."""
+        trace.before_replay(v.marks)
+        start = trace.device_begin(self.device)
+        out = self.replay(v, key)
+        trace.device_end(self.device, f"{sp.name}.replay", sp.span_id, start,
+                         v.marks)
+        return out
+
     def _build(self, key: tuple, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
         kind = key[0]
         if not self.graphs:
@@ -286,10 +325,12 @@ class CompiledStep:
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
+        marking = (trace.capture_marks() if key[-1] == MARKED
+                   else contextlib.nullcontext())
         t0 = time.perf_counter()
         try:
             with backend.recorded_launches() as rec, torch.cuda.graph(
-                    graph, **capture):
+                    graph, **capture), marking as marks:
                 gout = fn()
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the {kind} step "
@@ -297,7 +338,8 @@ class CompiledStep:
         seconds = time.perf_counter() - t0
         pool = torch.cuda.memory_reserved(self.device) - before
         self.built.append((kind, seconds, pool))
-        self.variants[key] = Variant(key, graph, gout, rec, seconds, pool)
+        self.variants[key] = Variant(key, graph, gout, rec, seconds, pool,
+                                     marks)
         self.log(f"compiled step: captured {kind} variant "
                  f"{self._n_built(kind)} in {seconds:.3f} s, pool "
                  f"{pool / 1e6:.1f} MB, {sum(rec.values())} kernel launches "

@@ -143,8 +143,8 @@ class ContinuousBatcher:
             with events.context(request=req.rid, session=req.session,
                                 slot=slot):
                 with span("prefill", slot=slot,
-                          prompt_len=int(req.prompt.shape[0])) as sp:
-                    first = sp.sync(self.prefill_fn(req.prompt[None, :], slot))
+                          prompt_len=int(req.prompt.shape[0])):
+                    first = self.prefill_fn(req.prompt[None, :], slot)
             req.output.append(int(first))
             self.active[slot] = req
             self.stats["prefills"] += 1
@@ -181,12 +181,11 @@ class ContinuousBatcher:
             return False
         for slot, req in self.active.items():
             self._cur[slot, 0] = req.output[-1]
-        # THE serve-step measurement: host launch + device execution (sync),
-        # one span per decode step, batch-occupancy tagged. The span wraps
-        # the whole call, so a step that captures a CUDA graph syncs after
-        # its capture, never inside it.
-        with span("serve_step", active=len(self.active)) as sp:
-            nxt = np.asarray(sp.sync(self.decode_fn(self._cur)))
+        # THE serve-step measurement: host launch + device execution, one
+        # span per decode step, batch-occupancy tagged. `decode_fn` returns
+        # host tokens: their copy back is what waits for the device.
+        with span("serve_step", active=len(self.active)):
+            nxt = np.asarray(self.decode_fn(self._cur))
         self.stats["steps"] += 1
         if self.on_step is not None:
             self.on_step(self.stats["steps"])

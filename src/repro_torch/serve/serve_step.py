@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -16,6 +17,7 @@ from repro_torch.core.engine import ReuseEngine
 from repro_torch.core.policy import ReusePolicy
 from repro_torch.models import forward, init_decode_state, output_logits
 from repro_torch.models.transformer import check_family
+from repro_torch.obs import trace
 
 
 def build_reuse_engine(
@@ -98,11 +100,22 @@ def decode_step(
         params, cfg, {"tokens": token}, decode_state=state,
         reuse_engine=engine, reuse_cache=reuse_cache,
     )
-    return output_logits(params, cfg, h), new_state, new_rcache
+    trace.mark("head", None)  # a marked capture's timing events, else none
+    logits = output_logits(params, cfg, h)
+    trace.mark("head", "head")
+    return logits, new_state, new_rcache
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def greedy_to_host(logits: torch.Tensor) -> np.ndarray:
+    """The greedy tokens of `logits` as a host array: the copy back waits
+    for the step that made them. One `serve.greedy_to_host` span under
+    tracing."""
+    with trace.span("serve.greedy_to_host"):
+        return greedy_sample(logits).cpu().numpy()
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,

@@ -1571,7 +1571,7 @@ def test_span_sync_waits_for_the_device_on_card(card):
                 if synced:
                     sp.sync(y)
             torch.cuda.synchronize()
-        rows = {r["synced"]: r["dur_s"] for r in trace.drain_spans()}
+        rows = {r["synced"]: r["dur_s"] for r in trace.drain_spans()[0]}
     finally:
         trace.disable()
     assert rows[True] > 0.01 > rows[False]
@@ -1599,6 +1599,73 @@ def test_serve_step_span_around_a_capturing_step_on_card(card, tmp_path):
     assert load_snapshots(str(tmp_path / "metrics.jsonl"))
     table = load_latency_table(str(tmp_path / "latency_table.json"))
     assert table_provenance(table) == "compiled"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-7b", "nemotron-4-15b"])
+def test_timeline_of_a_marked_decode_graph_on_card(card, arch):
+    """Traced decode steps alternating between the graph captured with the
+    per-site marks and the unmarked one: the logits are bitwise an
+    untraced run's over the same steps, both graphs launch what the
+    untraced graph launches, and the untraced key is the unmarked one's;
+    every replay's device record lies inside its host span (its end within
+    5 ms after the span closes); each marked replay's marks hold every
+    site once per layer, each phase >= 0, their sum within the replay's
+    own time."""
+    from repro_torch.obs import trace
+    from repro_torch.serve.compiled_step import MARKED
+    from repro_torch.serve.serve_step import greedy_to_host
+
+    runs = []
+    for traced in (False, True):
+        step = _reduced_step(arch, card, graphs=True)
+        gen = torch.Generator(device=card).manual_seed(0)
+        prompt = torch.randint(0, step.cfg.vocab, (2, 8), generator=gen,
+                               device=card)
+        if traced:
+            trace.enable()
+        try:
+            logits = [step.prefill(prompt).clone()]
+            tok = greedy_to_host(logits[0][:, -1:])
+            for i in range(8):
+                trace.set_marks(i % 2 == 0)
+                logits.append(step.decode(tok).clone())
+                tok = greedy_to_host(logits[-1])
+            rows, dropped = trace.drain_spans()
+        finally:
+            trace.disable()
+        launches = {k: v.launches for k, v in step.variants.items()
+                    if k[0] == "decode"}
+        runs.append((logits, launches, rows, dropped, step))
+    (l0, c0, _, _, _), (l1, c1, rows, dropped, step) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    (k0, n0), = c0.items()
+    assert c1 == {k0: n0, k0 + (MARKED,): n0}
+    assert dropped == 0
+    host = {r["span_id"]: r for r in rows if "t0" in r}
+    reps = [r for r in rows if r["name"] == "compiled_step.decode.replay"]
+    # the first step of each graph built it
+    assert sorted(r["marked"] for r in reps) == [False] * 3 + [True] * 3
+    n_layers = step.cfg.n_superblocks
+    for rep in reps:
+        span = host[rep["parent_id"]]
+        assert span["name"] == "compiled_step.decode"
+        assert span["t0"] <= rep["dev_t0"] <= rep["dev_t1"] <= span["t1"] + 5e-3
+        assert rep["dur_s"] == pytest.approx(rep["dev_t1"] - rep["dev_t0"],
+                                             abs=1e-5)
+        assert ("marks" in rep) == rep["marked"]
+        if not rep["marked"]:
+            continue
+        seen = {}
+        for site, ordinal, phase, ms in rep["marks"]:
+            assert ms >= 0.0, (site, ordinal, phase)
+            seen.setdefault((site, phase), []).append(ordinal)
+        for site in step.engine.sites:
+            for phase in ("quant", "product", "epilogue"):
+                assert seen[(site, phase)] == list(range(n_layers))
+        assert seen[("head", "head")] == [0]
+        total = sum(m[3] for m in rep["marks"])
+        assert total <= (rep["dev_t1"] - rep["dev_t0"]) * 1e3 + 1e-3
 
 
 @pytest.mark.gpu

@@ -127,8 +127,13 @@ def test_span_rows_match_reference():
                 assert sp.sync(value) is value
         with tr.span("bare", site="mlp_in", exec_path="kernel"):
             pass
-        return [{k: v for k, v in r.items() if k != "dur_s"}
-                for r in tr.drain_spans()]
+        rows = tr.drain_spans()
+        if tr is obs_trace:  # the port's drain also counts the lost rows
+            rows, dropped = rows
+            assert dropped == 0
+            assert all(r["t0"] <= r["t1"] for r in rows)
+        return [{k: v for k, v in r.items() if k not in ("dur_s", "t0", "t1")}
+                for r in rows]
 
     ref = program(jevents, jtrace, jax.numpy.ones(3))
     port = program(events, obs_trace, torch.ones(3))
@@ -167,9 +172,10 @@ def test_span_buffer_cap_counts_drops():
             pass
     assert len(obs_trace.spans()) == 2
     assert obs_trace._STATE["dropped"] == 2
-    drained = obs_trace.drain_spans()
-    assert [r["name"] for r in drained] == ["s0", "s1"]
+    drained, dropped = obs_trace.drain_spans()
+    assert [r["name"] for r in drained] == ["s0", "s1"] and dropped == 2
     assert obs_trace.spans() == [] and obs_trace._STATE["dropped"] == 0
+    assert obs_trace.drain_spans() == ([], 0)
 
 
 def test_write_spans_jsonl_round_trip(tmp_path):
